@@ -1,0 +1,30 @@
+"""mxnet_tpu_torch — the PyTorch / CUDA port of mxnet_tpu, for NVIDIA Hopper.
+
+The JAX package ``mxnet_tpu`` stays the reference; this package keeps its
+module paths and public names (``mx.nd``, ``mx.sym``, the op registry, the
+executor, the predictor and the serving stack) over plain PyTorch: tensors
+on an explicit ``torch.device``, explicit ``torch.Generator``s, eager
+execution. Each TPU (Pallas) kernel on a ported path is a hand-written
+Hopper kernel in :mod:`mxnet_tpu_torch.ops.hopper_kernels`.
+
+Entry points run on the card (``gpu(0)``) unless the caller asks for the
+CPU (``mx.cpu()``, ``dev_type=1``); asking for the card without CUDA
+raises. This package imports neither ``jax`` nor ``mxnet_tpu``.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from . import base
+from .base import MXNetError
+from .context import Context, cpu, gpu, current_context
+from . import ops
+from . import ndarray
+from . import ndarray as nd
+from . import symbol
+from . import symbol as sym
+from . import random
+from .ndarray import NDArray
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
+           "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base"]

@@ -1,0 +1,101 @@
+"""Shape-manipulation ops of the served graph.
+
+Counterpart of the ``Reshape``/``reshape``, ``transpose``, ``expand_dims``,
+``slice_axis`` and ``slice_like`` ops of ``mxnet_tpu/ops/matrix.py``
+(reference ``src/operator/tensor/matrix_op.cc``). Views are returned where
+PyTorch can give one; consumers that need contiguous memory make it so.
+"""
+from __future__ import annotations
+
+import math
+
+from ..base import MXNetError
+from .registry import register
+
+
+def infer_reshape(src_shape, target, reverse=False):
+    """MXNet reshape special codes (reference matrix_op.cc
+    InferReshapeShape): 0 copy dim; -1 infer one dim; -2 copy all remaining
+    dims; -3 merge next two source dims; -4 split a dim into the next two
+    target values."""
+    src = list(src_shape)
+    tgt = list(target)
+    if reverse:
+        src, tgt = src[::-1], tgt[::-1]
+    out = []
+    si = ti = 0
+    infer_idx = -1
+    while ti < len(tgt):
+        t = tgt[ti]
+        if t == 0:
+            out.append(src[si])
+            si += 1
+        elif t == -1:
+            if infer_idx >= 0:
+                raise MXNetError("reshape: at most one -1 allowed")
+            infer_idx = len(out)
+            out.append(1)
+            si += 1 if si < len(src) else 0
+        elif t == -2:
+            out.extend(src[si:])
+            si = len(src)
+        elif t == -3:
+            out.append(src[si] * src[si + 1])
+            si += 2
+        elif t == -4:
+            d1, d2 = tgt[ti + 1], tgt[ti + 2]
+            ti += 2
+            cur = src[si]
+            si += 1
+            if d1 == -1:
+                d1 = cur // d2
+            if d2 == -1:
+                d2 = cur // d1
+            out.extend([d1, d2])
+        else:
+            out.append(t)
+            if si < len(src):
+                si += 1
+        ti += 1
+    known = math.prod(d for i, d in enumerate(out) if i != infer_idx)
+    if infer_idx >= 0:
+        out[infer_idx] = math.prod(src_shape) // max(known, 1)
+    if reverse:
+        out = out[::-1]
+    return tuple(out)
+
+
+@register("Reshape", aliases=["reshape"])
+def _reshape(x, shape=None, reverse=False, target_shape=None,
+             keep_highest=False):
+    tgt = shape if shape is not None else target_shape
+    return x.reshape(infer_reshape(tuple(x.shape), tgt,
+                                   reverse=bool(reverse)))
+
+
+@register("transpose")
+def _transpose(x, axes=None):
+    if axes is None or tuple(axes) == ():
+        axes = tuple(reversed(range(x.ndim)))
+    return x.permute(*[int(a) for a in axes])
+
+
+@register("expand_dims")
+def _expand_dims(x, axis=0):
+    return x.unsqueeze(int(axis))
+
+
+@register("slice_axis")
+def _slice_axis(x, axis=0, begin=0, end=None):
+    idx = [slice(None)] * x.ndim
+    idx[int(axis)] = slice(begin, end)
+    return x[tuple(idx)]
+
+
+@register("slice_like")
+def _slice_like(x, like, axes=()):
+    axes = tuple(axes) if axes else tuple(range(min(x.ndim, like.ndim)))
+    idx = [slice(None)] * x.ndim
+    for a in axes:
+        idx[int(a)] = slice(0, like.shape[int(a)])
+    return x[tuple(idx)]

@@ -1,0 +1,45 @@
+"""PyTorch port, import hygiene: ``mxnet_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor the JAX package — not even a module of it that does
+not import JAX."""
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _port_files():
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                yield os.path.join(d, n)
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_import_in_the_port():
+    files = list(_port_files())
+    assert len(files) > 20
+    bad = [(os.path.relpath(p, ROOT), m) for p in files
+           for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
+            "mxnet_tpu_torch.interop; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in %r))" % (FORBIDDEN,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
