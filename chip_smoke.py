@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mxnet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. set-up: refuse to run without CUDA; print the card's name and power
    limit and the TF32 flags (TF32 stays off: float32 products run in full
-   float32); build every Hopper kernel from ``mxnet_tpu_torch/csrc``.
+   float32); build every Hopper kernel from ``mxnet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together).
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   over a grid of dtypes, head dims, masks, ragged lengths and offsets,
-   then time it, the plain version and the library's call at the serving
-   shape.
+   — the flash-attention forward and backward over a grid of dtypes, head
+   dims, masks, ragged lengths and offsets, the fused cross-entropy on
+   ragged and full-vocabulary shapes — with controls (the plain versions
+   in TF32, or on TF32-rounded logits) that must miss each float32
+   tolerance; then time each kernel, its plain version and the library's
+   call at the shapes the main paths give it.
 3. serving: the repo's causal TransformerLM graph at the published widths
    of OPT-6.7B (``facebook/opt-6.7b`` config.json: hidden 4096, 32 heads of
    128, FFN 16384, vocab 50272, context 2048), cut to 4 of its 32 layers,
@@ -19,6 +23,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``model_config_from_files`` and ``ModelServer`` on the card. Every
    response's logits are held against a plain PyTorch float32 forward of
    the same model, and the kernels' launch counts against the dispatches.
+4. training: the same LM as ``gluon.contrib.transformer.TransformerLM``
+   (untied head, dropout 0), trained three Adam steps on 4 × 2048 tokens
+   through ``autograd.record()``, the ``softmax_cross_entropy`` op and
+   ``gluon.Trainer``. Step 1's loss and every gradient are held against a
+   plain float32 forward and backward of the same weights (the kernels'
+   plain versions under torch autograd), with TF32 and bf16 controls that
+   must miss; the launch counts against the steps. ``--profile`` adds a
+   ``torch.profiler`` breakdown of one more step (and of one serving
+   dispatch).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +56,9 @@ OPT_6_7B = dict(vocab=50272, units=4096, heads=32, ffn=16384, max_len=2048,
                 layers=4)
 SERVE_BUCKETS = (1, 2, 4)
 SERVE_REQUESTS = 8
+TRAIN_BATCH = 4       # sequences of the full 2048-token context
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
 SEED = 0
 
 # card peaks for the roofline bound (NVIDIA H100 SXM data sheet, dense)
@@ -56,6 +72,19 @@ TOL_OUT_F32 = 1e-4    # same f32 math, another summation order, T <= 2048
 TOL_OUT_BF16 = 2e-2   # bf16 output rounding vs the f32 answer on bf16 inputs
 TOL_LSE = 1e-4        # lse stays f32 in both
 TOL_LOGITS = 1e-4     # x max|logit|: 4 f32 layers, cuBLAS vs kernel order
+TOL_GRAD_F32 = 1e-5   # dq, dk, dv, x max|plain|: f32 sums over <= 2048 keys
+TOL_GRAD_BF16 = 1e-2  # bf16 rounding (2^-8) of each gradient written
+TOL_CE = 2e-5         # lse and loss, absolute: f32 sums of <= 50272 terms
+TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative
+# step-1 gradients, ||g - plain|| / ||plain|| per tensor. Below a ReLU the
+# two float32 runs disagree on the few units whose pre-activation lies
+# within rounding of zero, and each such flip moves a whole token's term
+# of the gradient: about 1e-3 in norm (and 8e-3 in max|.|) at every tensor
+# a ReLU's backward reaches, against 2e-2 for the TF32 control. The
+# tensors above the last ReLU (head, final LayerNorm, last fc2) see no
+# flip and are held at 1e-4.
+TOL_TRAIN_GRAD = 5e-3
+TOL_TRAIN_GRAD_TOP = 1e-4
 
 
 def sinusoid_table(max_len: int, units: int) -> np.ndarray:
@@ -109,16 +138,24 @@ def build_lm_symbol(sym, vocab, units, layers, heads, ffn):
                               flatten=False, name="head")
 
 
-def plain_forward(w, tokens, vocab, units, layers, heads):
+def plain_forward(w, tokens, vocab, units, layers, heads, attend=None):
     """The same LM as one plain float32 PyTorch function: no registry, no
     executor, no kernel. ``w`` maps argument names to tensors; ``tokens``
-    (B, T) int64."""
+    (B, T) int64; ``attend(q, k, v)`` on (B, H, T, D) is causal attention,
+    by default a dense masked softmax."""
     import torch
     import torch.nn.functional as F
     B, T = tokens.shape
     d = units // heads
     x = w["embed_weight"][tokens.clamp(0, vocab - 1)] + w["pos_table"][:T]
     mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+
+    def dense_attention(q, k, v):
+        s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+        att = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.matmul(att, v)
+
+    attend = attend or dense_attention
 
     def ln(x, name):
         return F.layer_norm(x, (units,), w[name + "_gamma"],
@@ -129,9 +166,7 @@ def plain_forward(w, tokens, vocab, units, layers, heads):
         qkv = F.linear(ln(x, p + "ln1"), w[p + "qkv_weight"],
                        w[p + "qkv_bias"])
         q, k, v = qkv.reshape(B, T, 3, heads, d).permute(2, 0, 3, 1, 4)
-        s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
-        att = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-        a = torch.matmul(att, v).transpose(1, 2).reshape(B, T, units)
+        a = attend(q, k, v).transpose(1, 2).reshape(B, T, units)
         x = x + F.linear(a, w[p + "proj_weight"], w[p + "proj_bias"])
         h = torch.relu(F.linear(ln(x, p + "ln2"), w[p + "fc1_weight"],
                                 w[p + "fc1_bias"]))
@@ -153,13 +188,26 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def attention_pairs(BH, Tq, Tk, causal, q_offset=0, k_offset=0) -> float:
+    """(query, key) pairs the mask lets through, over all heads."""
+    if not causal:
+        return float(BH) * Tq * Tk
+    rows = np.arange(Tq, dtype=np.int64) + q_offset - k_offset + 1
+    return float(BH) * float(np.clip(rows, 0, Tk).sum())
+
+
 def attention_flops(BH, Tq, Tk, D, causal, q_offset=0, k_offset=0):
     """Multiply-adds (x2) that attention needs on these inputs: q.k^T and
     p.v over the keys each row sees, none for masked keys."""
-    if not causal:
-        return 4.0 * BH * Tq * Tk * D
-    rows = np.arange(Tq, dtype=np.int64) + q_offset - k_offset + 1
-    return 4.0 * BH * D * float(np.clip(rows, 0, Tk).sum())
+    return 4.0 * D * attention_pairs(BH, Tq, Tk, causal, q_offset, k_offset)
+
+
+def roofline_ms(flops: float, nbytes: float):
+    """(least time in ms on this card for the work, what bounds it): f32
+    operations on the CUDA cores, bytes at the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 @contextlib.contextmanager
@@ -250,7 +298,7 @@ def kernel_phase(hk, dev):
         q, k, v, is_causal=True), reps=5)
     flops = attention_flops(BH, T, T, D, causal=True)
     nbytes = 4.0 * (4 * BH * T * D + BH * T)   # q, k, v, out, lse (f32)
-    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S) * 1e3
+    bound_ms, bound_by = roofline_ms(flops, nbytes)
     print(f"flash_attention_fwd f32 causal (4, 32, 2048, 128): kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
@@ -260,25 +308,209 @@ def kernel_phase(hk, dev):
             "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:63",
             "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_F32_FLOPS
-            >= nbytes / PEAK_BYTES_S else "bytes",
-            "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _max_rel(got, ref) -> float:
+    return ((got.float() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def backward_kernel_phase(hk, dev):
+    """The flash-attention backward kernels vs their plain version; returns
+    the records of the dK/dV and dQ kernels at the training shape (f32,
+    causal, (4, 32, 2048, 128))."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    grid = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in hk.SUPPORTED_HEAD_DIMS:
+            for causal in (False, True):
+                for (B, H, T) in ((2, 3, 77), (1, 2, 1000)):
+                    grid.append((dtype, (B, H, T, T, D), causal, 0, 0))
+        grid.append((dtype, (1, 2, 77, 1000, 64), True, 923, 0))
+        grid.append((dtype, (2, 2, 64, 100, 128), True, 0, 30))
+    grid.append((torch.float32, (4, 32, 2048, 2048, 128), True, 0, 0))
+    main = None
+    for dtype, (B, H, Tq, Tk, D), causal, qo, ko in grid:
+        q, k, v = (torch.randn(B * H, t, D, generator=gen, device=dev)
+                   .to(dtype) for t in (Tq, Tk, Tk))
+        g = torch.randn(B * H, Tq, D, generator=gen, device=dev).to(dtype)
+        sc = D ** -0.5
+        out, lse = hk._fa_fwd_dispatch(q, k, v, sc, causal, qo, ko)
+        got = hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, causal, qo, ko)
+        ref = hk.flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), out.float(), lse, g.float(), sc,
+            causal, qo, ko)
+        torch.cuda.synchronize()
+        errs = [_max_rel(a, b) for a, b in zip(got, ref)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        tol = TOL_GRAD_F32 if dtype == torch.float32 else TOL_GRAD_BF16
+        tag = (f"{str(dtype)[6:]} B={B} H={H} Tq={Tq} Tk={Tk} D={D} "
+               f"causal={causal} q_offset={qo} k_offset={ko}")
+        print(f"flash_attention_bwd {tag}: max|d-plain|/max|plain| dq "
+              f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol})")
+        if not (finite and max(errs) <= tol):
+            raise AssertionError(f"flash_attention_bwd disagrees with its "
+                                 f"plain version at {tag}")
+        if causal and ko > qo and bool(got[0][:, :ko - qo].any()):
+            raise AssertionError("rows that see no key got a gradient")
+        if Tq == 2048:
+            main = dict(q=q, k=k, v=v, out=out, lse=lse, g=g, sc=sc,
+                        err_dq=(got[0] - ref[0]).abs().max().item(),
+                        err_dkdv=max((got[1] - ref[1]).abs().max().item(),
+                                     (got[2] - ref[2]).abs().max().item()))
+            with tf32_matmuls():
+                ctl = hk.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                       sc, True)
+            c_err = min(_max_rel(a, b) for a, b in zip(ctl, ref))
+            print(f"flash_attention_bwd control, plain version in TF32 at "
+                  f"{tag}: smallest of dq/dk/dv max|d-plain|/max|plain| "
+                  f"{c_err:.3e}")
+            if not c_err > TOL_GRAD_F32:
+                raise AssertionError("the TF32 control passes the f32 "
+                                     "gradient tolerance: it is too loose")
+            del ctl
+        del got, ref
+
+    q, k, v, out, lse, g, sc = (main[n] for n in
+                                ("q", "k", "v", "out", "lse", "g", "sc"))
+    BH, T, D = q.shape
+    delta = (g * out).sum(-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    times = {which: _time_ms(lambda w=which: hk._fa_bwd_launch(
+        w, q, k, v, g, lse, delta, dq, dk, dv, sc, True, 0, 0), reps=5)
+        for which in ("dkdv", "dq")}
+    whole_ms = _time_ms(lambda: hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc,
+                                                    True, 0, 0), reps=5)
+    plain_ms = _time_ms(lambda: hk.flash_attention_bwd_reference(
+        q, k, v, out, lse, g, sc, True), reps=3)
+    q4, k4, v4 = (t.reshape(4, 32, T, D).detach().requires_grad_()
+                  for t in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)
+    g4 = g.reshape(4, 32, T, D)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                  retain_graph=True), reps=5)
+    pairs = attention_pairs(BH, T, T, True)
+    tile = 4.0 * BH * T * D          # one (BH, T, D) f32 tensor
+    # dK/dV needs s = q.k and dp = dO.v to form p and ds, then dv and dk:
+    # 8*D FLOP a visible pair; dQ needs s, dp and dq: 6*D. Each reads q,
+    # k, v, dO, lse and delta once and writes its outputs once.
+    bounds = {"dkdv": roofline_ms(8.0 * D * pairs, 6 * tile + 8.0 * BH * T),
+              "dq": roofline_ms(6.0 * D * pairs, 5 * tile + 8.0 * BH * T)}
+    joint_ms, _ = roofline_ms(10.0 * D * pairs, 7 * tile + 8.0 * BH * T)
+    print(f"flash_attention_bwd f32 causal (4, 32, 2048, 128): dK/dV kernel "
+          f"{times['dkdv']:.3f} ms (bound {bounds['dkdv'][0]:.3f}), dQ "
+          f"kernel {times['dq']:.3f} ms (bound {bounds['dq'][0]:.3f}), whole "
+          f"backward {whole_ms:.3f} ms (bound of the function {joint_ms:.3f} "
+          f"ms at 10*D FLOP a pair), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention backward {lib_ms:.3f} ms")
+    del o4, q4, k4, v4
+    records = []
+    for which, err in (("dkdv", main["err_dkdv"]), ("dq", main["err_dq"])):
+        records.append({
+            "name": f"flash_attention_bwd_{which}", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:220",
+            "max_abs_err": err, "ms": times[which], "plain_ms": plain_ms,
+            "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+            "library_ms": lib_ms})
+    return records
+
+
+def _tf32_round(x):
+    """float32 values rounded to TF32's 10-bit mantissa (a control)."""
+    import torch
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def ce_phase(hk, dev):
+    """The fused softmax cross-entropy vs its plain version; returns its
+    record at the training shape (8192, 50272) f32."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    V = OPT_6_7B["vocab"]
+    N = TRAIN_BATCH * OPT_6_7B["max_len"]
+    rec = None
+    for dtype, (n, c) in ((torch.float32, (N, V)), (torch.bfloat16, (N, V)),
+                          (torch.float32, (7, 37)), (torch.bfloat16, (7, 37)),
+                          (torch.float32, (7, V))):
+        x = (2.0 * torch.randn(n, c, generator=gen, device=dev)).to(dtype)
+        labels = torch.randint(0, c, (n,), generator=gen, device=dev)
+        loss, lse = hk._ce_fwd_dispatch(x, labels)
+        ref_loss, ref_lse = hk.softmax_cross_entropy_reference(x, labels)
+        torch.cuda.synchronize()
+        err = max((lse - ref_lse).abs().max().item(),
+                  (loss - ref_loss).abs().max().item())
+        tag = f"{str(dtype)[6:]} N={n} C={c}"
+        print(f"softmax_cross_entropy_fwd {tag}: max|lse, loss - plain| "
+              f"{err:.3e} (tol {TOL_CE})")
+        if not err <= TOL_CE:
+            raise AssertionError(f"softmax_cross_entropy_fwd disagrees with "
+                                 f"its plain version at {tag}")
+        if dtype == torch.float32 and n == N:
+            c_loss, c_lse = hk.softmax_cross_entropy_reference(
+                _tf32_round(x), labels)
+            c_err = min((c_lse - ref_lse).abs().max().item(),
+                        (c_loss - ref_loss).abs().max().item())
+            print(f"softmax_cross_entropy_fwd control, plain version on "
+                  f"TF32-rounded logits at {tag}: {c_err:.3e}")
+            if not c_err > TOL_CE:
+                raise AssertionError("the TF32 control passes the CE "
+                                     "tolerance: it is too loose")
+            ms = _time_ms(lambda: hk._ce_fwd_dispatch(x, labels), reps=20)
+            plain_ms = _time_ms(lambda: hk.softmax_cross_entropy_reference(
+                x, labels), reps=5)
+            lib_ms = _time_ms(lambda: torch.logsumexp(x, dim=1), reps=20)
+            # logits read once, labels read, lse and loss written; about
+            # 4 operations an element (max, subtract, exp, add)
+            bound_ms, bound_by = roofline_ms(4.0 * n * c,
+                                             4.0 * n * c + 16.0 * n)
+            print(f"softmax_cross_entropy_fwd f32 ({n}, {c}): kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.logsumexp "
+                  f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            rec = {"name": "softmax_cross_entropy_fwd", "route": "cuda",
+                   "source": "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
+                   "replaces": "mxnet_tpu/ops/pallas_kernels.py:325",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+        del x, labels, loss, lse, ref_loss, ref_lse
+    return rec
 
 
 # --------------------------------------------------------------- serving
-def profile_dispatch(server, reqs):
-    """One more bucket-4 dispatch under ``torch.profiler``: device time by
-    kernel class and by kernel, and the device events' share of the wall
-    window (one stream, so their sum is the busy time)."""
+def _kernel_class(key: str) -> str:
+    low = key.lower()
+    if "fa_fwd_kernel" in key:
+        return "flash_attention_fwd"
+    if "fa_bwd_" in key:
+        return "flash_attention_bwd (dK/dV, dQ)"
+    if "ce_fwd_kernel" in key:
+        return "softmax_cross_entropy_fwd"
+    if "memcpy" in low:
+        return "memcpy"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul (cuBLAS)"
+    return "other kernels"
+
+
+def profile_breakdown(what: str, run) -> None:
+    """Run ``run()`` once under ``torch.profiler``: device time by kernel
+    class and by kernel, and the device events' share of the wall window
+    (one stream, so their sum is the busy time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for f in [server.submit("lm", r) for r in reqs]:
-            f.result(timeout=120.0)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.self_device_time_total, e.count, e.key)
@@ -286,24 +518,20 @@ def profile_dispatch(server, reqs):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     if not rows:
-        print("profile: torch.profiler recorded no device time")
+        print(f"profile: {what}: torch.profiler recorded no device time")
         return
     classes = {}
     for us, _, key in rows:
-        low = key.lower()
-        cls = ("flash_attention_fwd" if "fa_fwd_kernel" in key
-               else "memcpy" if "memcpy" in low
-               else "matmul (cuBLAS)" if ("gemm" in low or "cutlass" in low)
-               else "other kernels")
+        cls = _kernel_class(key)
         classes[cls] = classes.get(cls, 0.0) + us
     busy = sum(r[0] for r in rows)
-    print(f"profile: one dispatch of {len(reqs)} x {len(reqs[0])} tokens, "
-          f"wall {wall_us / 1e3:.1f} ms, device events {busy / 1e3:.1f} ms "
-          f"(busy share {busy / wall_us:.3f}); card {_card_line()}")
+    print(f"profile: {what}: wall {wall_us / 1e3:.1f} ms, device events "
+          f"{busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}); card "
+          f"{_card_line()}")
     for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"profile: class {cls}: {us / 1e3:.2f} ms "
               f"({us / busy:.3f} of device time)")
-    for us, count, key in sorted(rows, reverse=True)[:10]:
+    for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"profile: kernel {us / 1e3:9.2f} ms x{count:<4d} {key[:90]}")
 
 
@@ -375,7 +603,11 @@ def serving_phase(mx, hk, dev, workdir, profile=False):
         launches = dict(hk.launch_counts)
         st = server.stats("lm")
         if profile:
-            profile_dispatch(server, reqs[:max(SERVE_BUCKETS)])
+            def dispatch(reqs=reqs[:max(SERVE_BUCKETS)]):
+                for f in [server.submit("lm", r) for r in reqs]:
+                    f.result(timeout=120.0)
+            profile_breakdown(f"one serving dispatch of {max(SERVE_BUCKETS)}"
+                              f" x {T} tokens", dispatch)
     finally:
         server.close(timeout=60.0)
     dispatches = st["batches"] + st["singles"]
@@ -425,11 +657,185 @@ def serving_phase(mx, hk, dev, workdir, profile=False):
     return launches
 
 
+# --------------------------------------------------------------- training
+def _plain_weights(net):
+    """{``plain_forward`` name: (parameter, its tensor as a new leaf that
+    shares the storage)} of the port's TransformerLM."""
+    body = net.body
+    params = {"embed_weight": net.embed.weight, "pos_table": net.pos.table,
+              "lnf_gamma": body.final_ln.gamma, "lnf_beta": body.final_ln.beta,
+              "head_weight": net.head.weight}
+    for i, cell in enumerate(body.layers):
+        p = f"layer{i}_"
+        for name, blk in (("ln1", cell.ln1), ("ln2", cell.ln2)):
+            params[p + name + "_gamma"] = blk.gamma
+            params[p + name + "_beta"] = blk.beta
+        for name, blk in (("qkv", cell.attn.qkv), ("proj", cell.attn.proj),
+                          ("fc1", cell.ffn.fc1), ("fc2", cell.ffn.fc2)):
+            params[p + name + "_weight"] = blk.weight
+            params[p + name + "_bias"] = blk.bias
+    return {n: (p, p.data()._data.detach().requires_grad_(p.grad_req != "null"))
+            for n, p in params.items()}
+
+
+def _plain_step_grads(hk, weights, tokens, labels, names):
+    """Loss and gradients of the plain float32 LM: ``plain_forward`` with
+    the attention kernels' plain version (recomputed in the backward, so
+    the (T, T) scores of one layer live at a time) and the cross-entropy
+    kernel's plain version, under torch autograd."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    cfg = OPT_6_7B
+
+    def attend(q, k, v):
+        return checkpoint(lambda q, k, v: hk.flash_attention_reference(
+            q, k, v, causal=True)[0], q, k, v, use_reentrant=False)
+
+    w = {n: t for n, (_, t) in weights.items()}
+    logits = plain_forward(w, tokens, cfg["vocab"], cfg["units"],
+                           cfg["layers"], cfg["heads"], attend=attend)
+    loss = hk.softmax_cross_entropy_reference(
+        logits.reshape(-1, cfg["vocab"]), labels.reshape(-1))[0].sum()
+    grads = torch.autograd.grad(loss, [w[n] for n in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def _norm_rel(got, ref) -> float:
+    return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def training_gate(hk, net, x, y, loss):
+    """Step 1's loss and gradients against the plain float32 reference on
+    the same weights; the reference in TF32 and in bf16 must miss."""
+    import torch
+    weights = _plain_weights(net)
+    names = [n for n, (p, _) in weights.items() if p.grad_req != "null"]
+    last = f"layer{OPT_6_7B['layers'] - 1}_fc2_"
+    top = [n for n in names if n.startswith(("head_", "lnf_", last))]
+    port = {n: weights[n][0].grad._data for n in names}
+    tokens, labels = x._data.long(), y._data.long()
+    ref_loss, ref = _plain_step_grads(hk, weights, tokens, labels, names)
+    loss_err = abs(loss - ref_loss.item()) / abs(ref_loss.item())
+
+    def worst(grads):
+        """(worst norm error over all tensors, over the top ones)."""
+        errs = {n: _norm_rel(grads[n], ref[n]) for n in names}
+        return max(errs.values()), max(errs[n] for n in top), errs
+
+    w_all, w_top, errs = worst(port)
+    max_err = max(_max_rel(port[n], ref[n]) for n in names)
+    with tf32_matmuls():
+        ctl = _plain_step_grads(hk, weights, tokens, labels, names)[1]
+    c_tf32 = worst(ctl)[:2]
+    del ctl
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        ctl = _plain_step_grads(hk, weights, tokens, labels, names)[1]
+    c_bf16 = worst(ctl)[:2]
+    del ctl
+    print(f"training: step-1 loss {loss:.6f}, plain {ref_loss.item():.6f} "
+          f"(relative {loss_err:.3e}, tol {TOL_TRAIN_LOSS}); "
+          f"||g-plain||/||plain||: worst of {len(names)} tensors "
+          f"{w_all:.3e} ({max(errs, key=errs.get)}; tol {TOL_TRAIN_GRAD}),"
+          f" worst of the {len(top)} above the last ReLU {w_top:.3e} (tol "
+          f"{TOL_TRAIN_GRAD_TOP}); worst max|g-plain|/max|plain| "
+          f"{max_err:.3e}; controls (all, top): plain in TF32 "
+          f"{c_tf32[0]:.3e}, {c_tf32[1]:.3e}, in bf16 {c_bf16[0]:.3e}, "
+          f"{c_bf16[1]:.3e}")
+    if not (loss_err <= TOL_TRAIN_LOSS and w_all <= TOL_TRAIN_GRAD
+            and w_top <= TOL_TRAIN_GRAD_TOP):
+        raise AssertionError("step-1 loss or gradients disagree with the "
+                             "plain float32 reference")
+    for ctl_all, ctl_top in (c_tf32, c_bf16):
+        if not (ctl_all > TOL_TRAIN_GRAD and ctl_top > TOL_TRAIN_GRAD_TOP):
+            raise AssertionError("a TF32 or bf16 control passes a gradient "
+                                 "tolerance: it is too loose")
+
+
+def training_phase(mx, hk, dev, profile=False):
+    """Train the 4-layer OPT-6.7B-width TransformerLM three Adam steps
+    through gluon on the card; returns {kernel name: launches in the
+    three steps}."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.contrib import transformer as tfm
+    cfg = OPT_6_7B
+    V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    net = tfm.TransformerLM(vocab_size=V, units=cfg["units"],
+                            num_layers=cfg["layers"], num_heads=cfg["heads"],
+                            hidden_size=cfg["ffn"], max_len=T)
+    net.initialize(mx.init.Normal(0.02))
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    rng = np.random.RandomState(SEED)
+    x = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+    y = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+
+    def forward_backward():
+        with autograd.record():
+            logits = net(x)
+            loss = mx.nd.softmax_cross_entropy(logits.reshape((-1, V)),
+                                               y.reshape((-1,)))
+        loss.backward()
+        return loss
+
+    losses, step_ms = [], []
+    hk.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = forward_backward()
+        torch.cuda.synchronize()
+        t_fb = time.perf_counter() - t0
+        losses.append(loss.asscalar().item())
+        if step == 0:
+            n_params = sum(p.data().size
+                           for p in net.collect_params().values())
+            print(f"training: {n_params} parameters ({4 * n_params / 1e9:.2f}"
+                  f" GB f32), {B} x {T} tokens a step")
+            seen = dict(hk.launch_counts)
+            training_gate(hk, net, x, y, losses[0])
+            if dict(hk.launch_counts) != seen:
+                raise AssertionError("the plain reference launched a kernel")
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(B * T)
+        torch.cuda.synchronize()
+        step_ms.append((t_fb + time.perf_counter() - t0) * 1e3)
+    launches = dict(hk.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"training: losses {losses}; step times {step_ms} ms "
+          f"({B * T / (step_ms[-1] / 1e3):.1f} tokens/s at the last step); "
+          f"peak memory {peak_gb:.2f} GB; launches {launches}; card "
+          f"{_card_line()}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses} not finite and "
+                             f"falling")
+    per_step = {"flash_attention_fwd": cfg["layers"],
+                "flash_attention_bwd_dkdv": cfg["layers"],
+                "flash_attention_bwd_dq": cfg["layers"],
+                "softmax_cross_entropy_fwd": 1}
+    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, expected "
+                             f"{want} ({TRAIN_STEPS} steps)")
+    if profile:
+        def one_step():
+            forward_backward()
+            trainer.step(B * T)
+        profile_breakdown(f"one training step of {B} x {T} tokens",
+                          one_step)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one served dispatch (torch.profiler)")
+                    help="also profile one served dispatch and one training "
+                         "step (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -450,25 +856,31 @@ def main(argv=None) -> int:
           f"{torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    lib = hk.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = hk.build()
+    print(f"build: {sorted(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    record = kernel_phase(hk, dev)
+    records = [kernel_phase(hk, dev)]
+    records += backward_kernel_phase(hk, dev)
+    records.append(ce_phase(hk, dev))
     torch.cuda.empty_cache()
     workdir = os.path.join(os.path.dirname(os.path.abspath(mx.__file__)),
                            "_build", "smoke_lm")
     try:
-        launches = serving_phase(mx, hk, dev, workdir, args.profile)
+        served = serving_phase(mx, hk, dev, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    record["launches"] = launches["flash_attention_fwd"]
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    torch.cuda.empty_cache()
+    trained = training_phase(mx, hk, dev, args.profile)
+    for rec in records:
+        name = rec["name"]
+        rec["launches"] = served[name] + trained[name]
+        if rec["launches"] == 0:
+            raise AssertionError(f"{name} never launched on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+                                  for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 
 The JAX package ``mxnet_tpu`` stays the reference; this package keeps its
 module paths and public names (``mx.nd``, ``mx.sym``, the op registry, the
-executor, the predictor and the serving stack) over plain PyTorch: tensors
-on an explicit ``torch.device``, explicit ``torch.Generator``s, eager
-execution. Each TPU (Pallas) kernel on a ported path is a hand-written
+executor, the predictor, the serving stack, and ``mx.autograd``,
+``mx.gluon``, ``mx.init`` and ``mx.optimizer`` for training) over plain
+PyTorch: tensors on an explicit ``torch.device``, explicit
+``torch.Generator``s, eager execution, torch autograd as the tape. Each TPU (Pallas) kernel on a ported path is a hand-written
 Hopper kernel in :mod:`mxnet_tpu_torch.ops.hopper_kernels`.
 
 Entry points run on the card (``gpu(0)``) unless the caller asks for the
@@ -25,6 +26,13 @@ from . import symbol
 from . import symbol as sym
 from . import random
 from .ndarray import NDArray
+from . import name
+from . import autograd
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import gluon
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
-           "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base"]
+           "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
+           "name", "autograd", "initializer", "init", "optimizer", "gluon"]

@@ -3,12 +3,16 @@
 Counterpart of ``mxnet_tpu/_imperative.py``. PyTorch dispatches each op
 eagerly and asynchronously on the card's stream, so invoking an op is a
 plain call of its registered function; there is no compiled-executable
-cache and, until the training slice, no autograd tape.
+cache. :func:`invoke` runs the op with torch's grad mode on exactly while
+``autograd.record()`` is on, so torch autograd is the tape, and passes
+``is_train = autograd.is_training()`` to ops that take it.
 """
 from __future__ import annotations
 
 import inspect
 from typing import Any, Dict, Sequence
+
+import torch
 
 from . import random as _random
 from .ops.registry import OpDef, get_op
@@ -41,9 +45,12 @@ def invoke_raw(op_name: str, inputs: Sequence[Any], attrs: Dict[str, Any],
 def invoke(op_name: str, inputs, attrs, out=None):
     """Entry of the generated ``mx.nd.*`` functions: unwraps NDArrays,
     runs the op, rewraps the output(s)."""
+    from . import autograd
     from .ndarray.ndarray import NDArray
-    raw = invoke_raw(op_name, [x._data if isinstance(x, NDArray) else x
-                               for x in inputs], attrs)
+    with torch.set_grad_enabled(autograd.is_recording()):
+        raw = invoke_raw(op_name, [x._data if isinstance(x, NDArray) else x
+                                   for x in inputs], attrs,
+                         is_train=autograd.is_training())
     outs = [NDArray(o) for o in (raw if isinstance(raw, tuple) else (raw,))]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]

@@ -7,9 +7,10 @@ on the card's stream. XLA's buffer assignment becomes a last-use rule: a
 node's outputs are dropped as soon as their last consumer has run, so the
 interpreter holds only live activations.
 
-Inference only in this slice: ``forward(is_train=False)`` runs under
-``torch.inference_mode()``; the train step and ``backward`` wait for the
-training slice.
+Inference only: ``forward(is_train=False)`` runs under
+``torch.inference_mode()``. Training goes through gluon and
+``autograd``; the symbolic executor's train step and ``backward`` wait
+for a later slice (ROADMAP A1).
 """
 from __future__ import annotations
 
@@ -196,8 +197,9 @@ class Executor:
         from .ndarray.ndarray import NDArray
         if is_train:
             raise NotImplementedError(
-                "forward(is_train=True) and backward wait for the training "
-                "slice (ROADMAP A2)")
+                "forward(is_train=True) and backward of the symbolic "
+                "executor wait for a later slice (ROADMAP A1); train "
+                "through gluon and autograd")
         inputs = {n: a._data for n, a in self.arg_dict.items()}
         inputs.update({n: a._data for n, a in self.aux_dict.items()})
         with torch.inference_mode():
@@ -206,5 +208,5 @@ class Executor:
         return self._outputs
 
     def backward(self, out_grads=None):
-        raise NotImplementedError("backward waits for the training slice "
-                                  "(ROADMAP A2)")
+        raise NotImplementedError("backward of the symbolic executor "
+                                  "waits for a later slice (ROADMAP A1)")

@@ -8,12 +8,12 @@ NDArray positional arguments are op inputs; keyword arguments are attrs;
 from __future__ import annotations
 
 from .ndarray import NDArray, array, torch_dtype
-from .utils import zeros, save, load, load_frombuffer
+from .utils import zeros, ones, save, load, load_frombuffer
 from .._imperative import invoke
 from ..ops.registry import _REGISTRY, get_op, list_ops
 
-__all__ = ["NDArray", "array", "zeros", "save", "load", "load_frombuffer",
-           "torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load",
+           "load_frombuffer", "torch_dtype"]
 
 
 def _make_op_func(name: str):

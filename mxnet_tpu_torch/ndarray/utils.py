@@ -1,7 +1,7 @@
 """Array creation and the ``MXTPU001`` container.
 
-Counterpart of ``mxnet_tpu/ndarray/utils.py`` (``zeros``, ``save``,
-``load``). The on-disk format is the JAX package's own: the 8-byte magic
+Counterpart of ``mxnet_tpu/ndarray/utils.py`` (``zeros``, ``ones``,
+``save``, ``load``). The on-disk format is the JAX package's own: the 8-byte magic
 ``MXTPU001``, a little-endian u64 header length, a JSON header
 ``{"keys": [...] | null, "metas": [{"shape", "dtype"}, ...]}``, then per
 array a u64 byte length and the raw little-endian buffer. The port keeps
@@ -19,18 +19,30 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import Context
-from .ndarray import NDArray, array
+from ..context import Context, current_context
+from .ndarray import NDArray, array, torch_dtype
 
-__all__ = ["zeros", "save", "load", "load_frombuffer"]
+__all__ = ["zeros", "ones", "save", "load", "load_frombuffer"]
 
 _MAGIC = b"MXTPU001"
 
 
+def _full(shape, value, ctx, dtype) -> NDArray:
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray(torch.full(shape, value,
+                              dtype=torch_dtype(dtype or "float32"),
+                              device=(ctx or current_context())
+                              .torch_device()))
+
+
 def zeros(shape, ctx: Optional[Context] = None, dtype=None,
           **kwargs) -> NDArray:
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    return array(np.zeros(shape, dtype=dtype or "float32"), ctx=ctx)
+    return _full(shape, 0, ctx, dtype)
+
+
+def ones(shape, ctx: Optional[Context] = None, dtype=None,
+         **kwargs) -> NDArray:
+    return _full(shape, 1, ctx, dtype)
 
 
 def _raw(a) -> tuple:

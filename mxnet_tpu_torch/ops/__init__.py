@@ -1,3 +1,4 @@
 """Operator library of the PyTorch port: importing it registers every op."""
 from . import registry
-from . import matrix, broadcast_reduce, index, nn, hopper_kernels  # noqa: F401
+from . import (matrix, broadcast_reduce, elemwise, index, nn,  # noqa: F401
+               hopper_kernels)

@@ -1,13 +1,16 @@
 """Shape-manipulation ops of the served graph.
 
 Counterpart of the ``Reshape``/``reshape``, ``transpose``, ``expand_dims``,
-``slice_axis`` and ``slice_like`` ops of ``mxnet_tpu/ops/matrix.py``
+``slice_axis``, ``slice_like``, ``reshape_like`` and ``dot`` ops of
+``mxnet_tpu/ops/matrix.py``
 (reference ``src/operator/tensor/matrix_op.cc``). Views are returned where
 PyTorch can give one; consumers that need contiguous memory make it so.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..base import MXNetError
 from .registry import register
@@ -99,3 +102,20 @@ def _slice_like(x, like, axes=()):
     for a in axes:
         idx[int(a)] = slice(0, like.shape[int(a)])
     return x[tuple(idx)]
+
+
+@register("reshape_like")
+def _reshape_like(x, like):
+    return x.reshape(like.shape)
+
+
+@register("dot")
+def _dot(lhs, rhs, transpose_a=False, transpose_b=False, forward_stype=None):
+    """Reduces the last axis of ``lhs`` with the first of ``rhs``
+    (reference ``tensor/dot-inl.h``); ``transpose_*`` move a >2-D
+    operand's first axis last (a), or its last axis first (b)."""
+    if transpose_a:
+        lhs = lhs.permute(*range(1, lhs.ndim), 0)
+    if transpose_b:
+        rhs = rhs.permute(rhs.ndim - 1, *range(rhs.ndim - 1))
+    return torch.tensordot(lhs, rhs, dims=([lhs.ndim - 1], [0]))

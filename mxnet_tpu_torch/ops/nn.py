@@ -1,10 +1,12 @@
-"""Neural-network ops of the served graph.
+"""Neural-network ops of the LM and its loss.
 
 Counterpart of ``FullyConnected``, ``LayerNorm``, ``Activation``,
-``Dropout`` and ``_contrib_flash_attention`` in ``mxnet_tpu/ops/nn.py``
-(reference ``src/operator/nn/``). Matrix products go to ``torch``
-(cuBLAS on the card, in full float32: TF32 stays off); attention goes to
-the hand-written Hopper kernel in :mod:`.hopper_kernels`.
+``Dropout``, ``log_softmax``, ``softmax_cross_entropy`` and
+``_contrib_flash_attention`` in ``mxnet_tpu/ops/nn.py`` (reference
+``src/operator/nn/``, ``src/operator/loss_binary_op.cc``). Matrix products
+go to ``torch`` (cuBLAS on the card, in full float32: TF32 stays off);
+attention and the fused cross-entropy go to the hand-written Hopper
+kernels in :mod:`.hopper_kernels`.
 """
 from __future__ import annotations
 
@@ -80,3 +82,20 @@ def _flash_attention_op(query, key, value, causal=False, scale=None,
     return flash_attention(query, key, value, causal=bool(causal),
                            scale=None if scale is None else float(scale),
                            q_offset=int(q_offset), k_offset=int(k_offset))
+
+
+@register("log_softmax", arg_names=("data",))
+def _log_softmax(data, axis=-1, temperature=None, dtype=None):
+    from ..ndarray.ndarray import torch_dtype
+    x = data / temperature if temperature else data
+    out = torch.log_softmax(x, dim=int(axis))
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("softmax_cross_entropy", arg_names=("data", "label"))
+def _softmax_cross_entropy(data, label):
+    """Total softmax CE over the batch, shape (1,) (reference
+    ``loss_binary_op.cc``: out = Σ_i CE(row_i)); the per-row CE is the
+    fused Hopper kernel on the card, its gradient ``(softmax − onehot)·g``."""
+    from .hopper_kernels import softmax_cross_entropy
+    return softmax_cross_entropy(data, label.reshape(-1)).sum().reshape(1)

@@ -4,36 +4,26 @@ Every registered operator is exposed as a graph-node constructor generated
 from the registry (counterpart of ``mxnet_tpu/symbol``).
 ``sym.FullyConnected(data, num_hidden=10, name="fc1")`` creates a node and
 auto-creates the ``fc1_weight``/``fc1_bias`` variables it is not given;
-an unnamed node is named ``{op}{counter}`` per thread, as the reference's
-``NameManager`` does.
+an unnamed node is named ``{op}{counter}`` by the thread's current
+:class:`~mxnet_tpu_torch.name.NameManager`.
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict, List
 
 from ..base import MXNetError
+from ..name import NameManager
 from ..ops.registry import _REGISTRY, get_op, list_ops
 from .symbol import Group, Symbol, Variable, _Node, load_json, var
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
 
-_names = threading.local()
-
-
-def _auto_name(hint: str) -> str:
-    counter = getattr(_names, "counter", None)
-    if counter is None:
-        counter = _names.counter = {}
-    n = counter.get(hint, 0)
-    counter[hint] = n + 1
-    return f"{hint}{n}"
-
 
 def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
                 kwargs: Dict[str, Any]) -> Symbol:
     opdef = get_op(op_name)
-    name = kwargs.pop("name", None) or _auto_name(op_name.lower().lstrip("_"))
+    name = NameManager.current().get(kwargs.pop("name", None),
+                                     op_name.lower().lstrip("_"))
     kwargs.pop("ctx", None)
     entries = []
     for s in sym_inputs:

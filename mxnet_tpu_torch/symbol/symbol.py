@@ -54,6 +54,27 @@ class Symbol:
     def __repr__(self):
         return f"<Symbol {self.name}>"
 
+    # arithmetic sugar, the NDArray set (gluon's hybrid_forward uses it)
+    def _binop(self, op, other, scalar_op, reverse=False):
+        from . import _invoke_sym
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _invoke_sym(op, [a, b], {})
+        return _invoke_sym(scalar_op, [self], {"scalar": float(other)})
+
+    def __add__(self, o): return self._binop("broadcast_add", o, "_plus_scalar")
+    def __radd__(self, o): return self._binop("broadcast_add", o, "_plus_scalar")
+    def __sub__(self, o): return self._binop("broadcast_sub", o, "_minus_scalar")
+    def __rsub__(self, o): return self._binop("broadcast_sub", o, "_rminus_scalar", True)
+    def __mul__(self, o): return self._binop("broadcast_mul", o, "_mul_scalar")
+    def __rmul__(self, o): return self._binop("broadcast_mul", o, "_mul_scalar")
+    def __truediv__(self, o): return self._binop("broadcast_div", o, "_div_scalar")
+    def __rtruediv__(self, o): return self._binop("broadcast_div", o, "_rdiv_scalar", True)
+
+    def __neg__(self):
+        from . import _invoke_sym
+        return _invoke_sym("negative", [self], {})
+
     def topo_nodes(self) -> List[_Node]:
         """Post-order DFS over the DAG, inputs in order (the JAX package's
         topo order), with an explicit stack: a deep residual chain would
@@ -136,14 +157,14 @@ class Symbol:
     # ---------------------------------------------------------------- binding
     def bind(self, ctx, args, args_grad=None, grad_req="null",
              aux_states=None):
-        """Bind arrays to an inference executor. Gradients wait for the
-        training slice: ``args_grad`` or a ``grad_req`` other than
-        ``"null"`` raises."""
+        """Bind arrays to an inference executor. The executor's gradients
+        wait for a later slice (ROADMAP A1): ``args_grad`` or a
+        ``grad_req`` other than ``"null"`` raises."""
         from ..executor import Executor
         if args_grad is not None or grad_req not in ("null", None):
             raise NotImplementedError(
-                "bind with gradients waits for the training slice "
-                "(ROADMAP A2)")
+                "bind with gradients waits for a later slice (ROADMAP A1); "
+                "train through gluon and autograd")
         return Executor(self, ctx, args, aux_states)
 
     # ---------------------------------------------------------------- JSON
@@ -167,9 +188,10 @@ class Symbol:
             f.write(self.tojson())
 
 
-def Variable(name: str) -> Symbol:
-    """A named graph input. Shape and dtype hints, attribute scopes and
-    ``lr_mult``-style metadata wait for the gluon slice."""
+def Variable(name: str, shape=None, dtype=None, **kwargs) -> Symbol:
+    """A named graph input. Shape and dtype hints are accepted and not
+    kept: shapes come to ``infer_shape`` by name. Attribute scopes and
+    ``lr_mult``-style metadata wait for a later slice."""
     return Symbol([(_Node(None, name, {}, []), 0)])
 
 

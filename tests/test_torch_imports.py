@@ -29,7 +29,13 @@ def _imported(path):
 
 def test_no_jax_import_in_the_port():
     files = list(_port_files())
-    assert len(files) > 20
+    assert len(files) > 30
+    rel = {os.path.relpath(p, ROOT) for p in files}
+    assert {"mxnet_tpu_torch/autograd.py", "mxnet_tpu_torch/optimizer.py",
+            "mxnet_tpu_torch/initializer.py", "mxnet_tpu_torch/name.py",
+            "mxnet_tpu_torch/gluon/block.py",
+            "mxnet_tpu_torch/gluon/trainer.py",
+            "mxnet_tpu_torch/gluon/contrib/transformer.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -37,7 +43,10 @@ def test_no_jax_import_in_the_port():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
-            "mxnet_tpu_torch.interop; "
+            "mxnet_tpu_torch.interop, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.contrib.transformer, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.name; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,19 +1,30 @@
 """PyTorch port, kernel module: ``mxnet_tpu_torch.ops.hopper_kernels``.
 
-On CPU tensors the flash-attention wrapper runs its plain version; here it
-is held against the JAX package's flash attention on the same numpy inputs
-— the real Pallas kernel ``_fa_kernel`` under the Pallas interpreter for
-D = 128 (as tests/test_pallas.py runs it), the jnp path for D = 32 and 64,
-which the Pallas gate (D % 128 == 0) excludes. Tolerance 2e-5, as in
-test_pallas.py: both sides compute in float32, in another summation order.
+On CPU tensors each wrapper runs its plain version; here it is held
+against the JAX package's function on the same numpy inputs:
 
-The kernel itself (CUDA, sm_90a) runs only on the card: chip_smoke.py
-holds it against the plain version there, and tests/test_torch_gpu.py
-checks what it refuses.
+* flash attention, forward: the real Pallas kernel ``_fa_kernel`` under
+  the Pallas interpreter for D = 128 (as tests/test_pallas.py runs it),
+  the jnp path for D = 32 and 64, which the Pallas gate (D % 128 == 0)
+  excludes. Tolerance 2e-5, as in test_pallas.py: both sides compute in
+  float32, in another summation order.
+* flash attention, gradients (the port's ``torch.autograd.Function``
+  over ``flash_attention_bwd_reference``) against ``jax.grad`` of
+  ``pk.flash_attention`` (its custom VJP over ``flash_attention_bwd``),
+  offsets and fully masked rows included: 1e-5 relative to the largest
+  gradient (float32 sums over at most 24 keys and 128 dims).
+* softmax cross-entropy, loss and gradient, against
+  ``pk.softmax_cross_entropy``: the Pallas ``_ce_kernel`` in interpret
+  mode at C = 128, its jnp branch at the ragged C = 37. 1e-5.
+
+The kernels themselves (CUDA, sm_90a) run only on the card: chip_smoke.py
+holds them against the plain versions there, and tests/test_torch_gpu.py
+checks what they refuse.
 """
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +103,78 @@ def test_smoke_bound_counts_only_visible_keys(D, Tq, Tk, causal, q_offset,
     pairs = int((qpos >= kpos).sum()) if causal else Tq * Tk
     assert cs.attention_flops(3, Tq, Tk, D, causal, q_offset, k_offset) \
         == 4.0 * 3 * D * pairs
+
+
+@pytest.mark.parametrize("D,Tq,Tk,causal,q_offset,k_offset", CASES)
+def test_flash_attention_grads_match_jax(interp, D, Tq, Tk, causal,
+                                         q_offset, k_offset):
+    rng = np.random.RandomState(7 + D + Tq + Tk + q_offset + k_offset)
+    q, k, v = (rng.randn(1, 2, t, D).astype("float32") for t in (Tq, Tk, Tk))
+    w = rng.randn(1, 2, Tq, D).astype("float32")
+
+    def jloss(q, k, v):
+        out = pk.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 k_offset=k_offset)
+        return jnp.sum(out * w)
+
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = hk.flash_attention(tq, tk, tv, causal=causal, q_offset=q_offset,
+                             k_offset=k_offset)
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, jg in zip((tq, tk, tv), jgrads):
+        jg = np.asarray(jg)
+        assert np.isfinite(t.grad.numpy()).all()
+        np.testing.assert_allclose(t.grad.numpy(), jg, rtol=0,
+                                   atol=1e-5 * np.abs(jg).max())
+    if causal and k_offset > q_offset:    # rows that see no key: 0, not NaN
+        assert torch.all(tq.grad[..., :k_offset - q_offset, :] == 0)
+    assert all(hk.launch_counts[n] == 0 for n in hk.launch_counts)
+
+
+def test_flash_attention_lse_takes_no_gradient():
+    q = torch.randn(1, 1, 4, 32, requires_grad=True)
+    out, lse = hk.flash_attention_with_lse(q, q, q)
+    assert out.requires_grad and not lse.requires_grad
+
+
+@pytest.mark.parametrize("N,C", [(16, 128), (24, 128), (16, 37), (7, 37)])
+def test_softmax_cross_entropy_matches_jax(interp, N, C):
+    rng = np.random.RandomState(N * C)
+    x = (rng.randn(N, C) * 3).astype("float32")
+    labels = rng.randint(0, C, size=N)
+    g = rng.randn(N).astype("float32")
+    @jax.jit
+    def loss_and_grad(a, ct):
+        loss, vjp = jax.vjp(
+            lambda a: pk.softmax_cross_entropy(a, jnp.asarray(labels)), a)
+        return loss, vjp(ct)[0]
+
+    jloss, jgrad = loss_and_grad(jnp.asarray(x), jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    # float labels, as the op receives them, truncate like the int32 cast
+    loss = hk.softmax_cross_entropy(tx, torch.from_numpy(labels + 0.25))
+    loss.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jloss),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad),
+                               rtol=1e-5, atol=1e-5)
+    assert hk.launch_counts["softmax_cross_entropy_fwd"] == 0
+
+
+def test_softmax_cross_entropy_reference_edges():
+    """lse in float32 from bf16 logits; a label outside [0, C) gives a NaN
+    loss and no one-hot entry in the gradient; meta tensors get shapes."""
+    x = torch.randn(3, 5)
+    labels = torch.tensor([0, 5, -1])
+    loss, lse = hk.softmax_cross_entropy_reference(x.bfloat16(), labels)
+    assert lse.dtype == loss.dtype == torch.float32
+    assert torch.isfinite(loss[0]) and torch.isnan(loss[1:]).all()
+    grad = hk.softmax_cross_entropy_grad(x, labels, torch.logsumexp(x, 1),
+                                         torch.ones(3))
+    np.testing.assert_allclose(grad[1:].sum(1).numpy(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(grad[0].sum().item(), 0.0, atol=1e-6)
+    m = hk.softmax_cross_entropy(torch.empty(4, 9, device="meta"),
+                                 torch.empty(4, device="meta"))
+    assert m.shape == (4,) and m.device.type == "meta"
