@@ -29,12 +29,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``gluon.Trainer``. Step 1's loss and every gradient are held against a
    plain float32 forward and backward of the same weights (the kernels'
    plain versions under torch autograd), with TF32 and bf16 controls that
-   must miss; the launch counts against the steps. ``--profile`` adds a
-   ``torch.profiler`` breakdown of one more step (and of one serving
-   dispatch).
+   must miss; the launch counts against the steps.
+5. user kernels: the user's CUDA sources below (axpy, ``softmax_fwd``,
+   ``softmax_ce_bwd``), compiled at run time by NVRTC through
+   ``mx.rtc.CudaModule`` (compile times printed as set-up), held against
+   their plain versions with TF32-rounded controls that must miss, and
+   timed with one launch's host overhead.
+6. extension: the same LM trained three Adam steps (lr 1e-4, a
+   ``FactorScheduler`` whose first drop falls on step 3) with the user's
+   ``CustomOp`` loss head (``mx.nd.Custom``; its forward and backward are
+   the NVRTC kernels) and ``trainer.step(1)``. Step 1 is held against the
+   B2 head on the same weights (bitwise logits, gradients, loss); after
+   step 2 ``save_parameters`` and ``save_states`` write a checkpoint that a
+   fresh net and trainer load, and their step 3 must equal the
+   uninterrupted one. Launch counts per step.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
+one training step and one custom-head step. The line before the last is a
+JSON object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -49,6 +62,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
+
+import mxnet_tpu_torch as mx
 
 # the model: OPT-6.7B widths, depth cut to 4 of 32 (one layer is a whole
 # period of the pattern)
@@ -85,6 +101,292 @@ TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative
 # flip and are held at 1e-4.
 TOL_TRAIN_GRAD = 5e-3
 TOL_TRAIN_GRAD_TOP = 1e-4
+# the user kernels (mx.rtc) against their plain versions: axpy is exact
+# (2x is exact, so fma and mul-then-add round alike); softmax differs by
+# expf and the order of a row's sum, (p - onehot)*scale by at most an ulp
+TOL_RTC_SOFTMAX = 1e-5    # max|dp| / max p
+TOL_RTC_CE_BWD = 1e-5     # max|dg| / max|g|
+# the extension path: the custom head's step-1 gradients x N against the
+# B2 head's (same forward, bitwise; only p's rounding differs), per tensor
+# ||dg||/||g||; the step-1 loss -mean log p[label] against B2's loss / N,
+# relative; the resumed step 3 against the uninterrupted one, x max|w|.
+# The gradient's norm is mostly its one-hot term, so the control (the head
+# on TF32-rounded logits) moves the parameters' gradients by only 2.7e-6
+# to 8.1e-6: 1e-4 could not tell it apart. The port read 1.8e-6 at its
+# worst tensors (the embedding, layer 0's attention) in two full runs
+# although the logits are bitwise equal, and a resumed step that should
+# repeat the uninterrupted one differs by 2e-9 of max|w|: some op of the
+# backward is not deterministic on the card.
+TOL_EXT_GRAD = 4e-6
+TOL_EXT_LOSS = 1e-6
+TOL_RESUME = 1e-6
+EXT_LR_STEP, EXT_LR_FACTOR = 2, 0.5   # FactorScheduler: first drop at step 3
+AXPY_N = 1 << 24
+
+
+# ------------------------------------------------- user code: mx.rtc kernels
+# CUDA sources a user of the port writes, compiled at run time by NVRTC
+# (mx.rtc.CudaModule), and the CustomOp loss head that launches them: the
+# reference's example/numpy-ops/custom_softmax_rtc.py recipe. Plain PyTorch
+# versions of each kernel sit beside them; the tests import this code.
+AXPY_C_SOURCE = r"""
+extern "C" __global__ void axpy(const float* x, float* y, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = a * x[i] + y[i];
+}
+"""
+
+# softmax_fwd: one block a row. Bound by bytes (each logit read once, each
+# probability written once). Where the row fits in shared memory (C <= 55K
+# floats: OPT's 50272 is 201 KB, above the 48 KB default, so the launch
+# raises the limit) the first pass keeps it there and the write pass reads
+# it back, so the row leaves device memory once; otherwise it is read
+# twice. The first pass carries an online (max, sum) per thread, merged
+# across the block by warp shuffles; any N and C.
+# softmax_ce_bwd: (p - onehot(label)) * scale over (N, C), the label gather
+# fused in. Labels are floats truncated to integers, a negative one counts
+# from the end of the row (numpy's indexing), and one outside [-C, C)
+# gives a row of NaN (numpy raises; a kernel cannot).
+USER_KERNELS_SOURCE = r"""
+#define NEG_INF __int_as_float(0xff800000)
+
+template <typename T>
+__global__ void axpy(const T* x, T* y, T a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = a * x[i] + y[i];
+}
+
+__device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
+  float mn = fmaxf(m, m2);
+  if (mn == NEG_INF) return;               // both empty: stays (-inf, 0)
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+
+__device__ __forceinline__ void push(float& m, float& s, float v) {
+  if (v > m) { s = s * expf(m - v) + 1.f; m = v; }
+  else if (m != NEG_INF) s += expf(v - m);
+}
+
+template <typename T>
+__global__ void softmax_fwd(const T* __restrict__ x, T* __restrict__ p,
+                            int C, int cached) {
+  extern __shared__ float row[];
+  __shared__ float wm[32], ws[32];
+  const T* xr = x + (long long)blockIdx.x * C;
+  T* pr = p + (long long)blockIdx.x * C;
+  const int stride = blockDim.x;
+  float m = NEG_INF, s = 0.f;
+  int j = threadIdx.x;
+  for (; j + 3 * stride < C; j += 4 * stride) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = static_cast<float>(xr[j + u * stride]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (cached) row[j + u * stride] = v[u];
+      push(m, s, v[u]);
+    }
+  }
+  for (; j < C; j += stride) {
+    float v = static_cast<float>(xr[j]);
+    if (cached) row[j] = v;
+    push(m, s, v);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    merge(m, s, __shfl_xor_sync(0xffffffffu, m, off),
+          __shfl_xor_sync(0xffffffffu, s, off));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) { wm[warp] = m; ws[warp] = s; }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    m = lane < nw ? wm[lane] : NEG_INF;
+    s = lane < nw ? ws[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      merge(m, s, __shfl_xor_sync(0xffffffffu, m, off),
+            __shfl_xor_sync(0xffffffffu, s, off));
+    if (lane == 0) { wm[0] = m; ws[0] = s; }
+  }
+  __syncthreads();
+  m = wm[0];
+  const float inv = 1.f / ws[0];
+#pragma unroll 4
+  for (j = threadIdx.x; j < C; j += stride) {
+    float v = cached ? row[j] : static_cast<float>(xr[j]);
+    pr[j] = static_cast<T>(expf(v - m) * inv);
+  }
+}
+
+template <typename T>
+__global__ void softmax_ce_bwd(const T* __restrict__ p,
+                               const float* __restrict__ label,
+                               T* __restrict__ g, int C, float scale) {
+  const long long r = blockIdx.x;
+  long long lab = (long long)label[r];
+  if (lab < 0) lab += C;
+  const bool ok = lab >= 0 && lab < C;
+  const float nan = __int_as_float(0x7fc00000);
+  const T* pr = p + r * C;
+  T* gr = g + r * C;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    float v = static_cast<float>(pr[j]) - (j == lab ? 1.f : 0.f);
+    gr[j] = static_cast<T>(ok ? v * scale : nan);
+  }
+}
+"""
+SMEM_ROW_LIMIT = 220 * 1024     # bytes of a row kept in shared memory
+
+
+def axpy_plain(x, y, a):
+    """``a·x + y``, the plain version of both axpy exports."""
+    return a * x + y
+
+
+def softmax_plain(x):
+    """Row softmax of (N, C) logits, the plain version of ``softmax_fwd``."""
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def softmax_ce_bwd_plain(p, label, scale):
+    """``(p - onehot(label))·scale``, the plain version of
+    ``softmax_ce_bwd`` (labels truncated, negative ones wrapped, a row
+    with a label outside [-C, C) all NaN)."""
+    N, C = p.shape
+    lab = label.to(torch.int64)
+    lab = torch.where(lab < 0, lab + C, lab)
+    ok = (lab >= 0) & (lab < C)
+    g = p.float().clone()
+    rows = torch.arange(N, device=p.device)
+    g[rows[ok], lab[ok]] -= 1.0
+    g.mul_(scale)
+    g[~ok] = float("nan")
+    return g.to(p.dtype)
+
+
+class UserKernels:
+    """The user's three kernels on ``mx.rtc``: axpy (an ``extern "C"``
+    module and a template export), ``softmax_fwd<float>`` and
+    ``softmax_ce_bwd<float>``. Nothing compiles before the first launch on
+    a card; each wrapper checks its inputs and launches (each kernel counts
+    its launches in ``.launches``)."""
+
+    def __init__(self):
+        sig = "const float* x, float* y, float a, int n"
+        self.c_module = mx.rtc.CudaModule(AXPY_C_SOURCE)
+        self.module = mx.rtc.CudaModule(
+            USER_KERNELS_SOURCE,
+            exports=("axpy<float>", "softmax_fwd<float>",
+                     "softmax_ce_bwd<float>"))
+        self.axpy_c = self.c_module.get_kernel("axpy", sig)
+        self.axpy_t = self.module.get_kernel("axpy<float>", sig)
+        self.softmax = self.module.get_kernel(
+            "softmax_fwd<float>", "const float* x, float* p, int C, int cached")
+        self.ce_bwd = self.module.get_kernel(
+            "softmax_ce_bwd<float>",
+            "const float* p, const float* label, float* g, int C, float scale")
+
+    def kernels(self):
+        return {"rtc_axpy": (self.axpy_c, self.axpy_t),
+                "rtc_softmax_fwd": (self.softmax,),
+                "rtc_softmax_ce_bwd": (self.ce_bwd,)}
+
+    def reset_launch_counts(self):
+        for ks in self.kernels().values():
+            for k in ks:
+                k.launches = 0
+
+    def launch_counts(self):
+        return {name: sum(k.launches for k in ks)
+                for name, ks in self.kernels().items()}
+
+    @staticmethod
+    def _ctx(t):
+        return mx.Context.from_torch(t.device)
+
+    def axpy(self, x, y, a=2.0, template=False):
+        """``y ← a·x + y`` on 1-d float32 CUDA tensors."""
+        n = x.numel()
+        if y.numel() != n:
+            raise mx.MXNetError(f"axpy: {n} and {y.numel()} elements")
+        k = self.axpy_t if template else self.axpy_c
+        k.launch([x, y, float(a), n], self._ctx(x), ((n + 255) // 256,),
+                 (256,))
+
+    def softmax_fwd(self, x, p):
+        """``p ← softmax(x)`` by rows of (N, C) float32 CUDA tensors."""
+        N, C = x.shape
+        if tuple(p.shape) != (N, C):
+            raise mx.MXNetError(f"softmax_fwd: out {tuple(p.shape)} for "
+                                f"logits {(N, C)}")
+        cached = 4 * C <= SMEM_ROW_LIMIT
+        threads = min(1024, max(32, (C + 31) // 32 * 32))
+        self.softmax.launch([x, p, C, int(cached)], self._ctx(x), (N,),
+                            (threads,), 4 * C if cached else 0)
+
+    def softmax_ce_bwd(self, p, label, g, scale):
+        """``g ← (p − onehot(label))·scale`` on (N, C) float32 CUDA tensors,
+        float32 labels (N,)."""
+        N, C = p.shape
+        if tuple(g.shape) != (N, C) or tuple(label.shape) != (N,):
+            raise mx.MXNetError(f"softmax_ce_bwd: grad {tuple(g.shape)}, "
+                                f"labels {tuple(label.shape)} for p {(N, C)}")
+        threads = min(512, max(32, (C + 31) // 32 * 32))
+        self.ce_bwd.launch([p, label, g, C, float(scale)], self._ctx(p),
+                           (N,), (threads,))
+
+
+KERNELS = UserKernels()
+
+
+def _on_card(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise mx.MXNetError(f"rtc_softmax_ce: no kernel for {t.device}")
+
+
+class RtcSoftmaxCE(mx.operator.CustomOp):
+    """Softmax loss head: forward ``p = softmax(x)``, backward
+    ``(p − onehot(label))/N``, the gradient of the mean cross-entropy. On
+    the card each launches its ``mx.rtc`` kernel straight into the buffer
+    the bridge allocated (the imperative bridge asks for ``write``); on
+    the CPU it takes the plain version."""
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        x, out = in_data[0]._data, out_data[0]
+        if _on_card(x):
+            KERNELS.softmax_fwd(x, out._data)
+        else:
+            self.assign(out, req[0], softmax_plain(x))
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        p, label = out_data[0]._data, in_data[1]._data
+        scale = 1.0 / label.shape[0]
+        if _on_card(p):
+            KERNELS.softmax_ce_bwd(p, label, in_grad[0]._data, scale)
+        else:
+            self.assign(in_grad[0], req[0],
+                        softmax_ce_bwd_plain(p, label, scale))
+        self.assign(in_grad[1], req[1], 0.0)    # labels take no gradient
+
+
+@mx.operator.register("rtc_softmax_ce")
+class RtcSoftmaxCEProp(mx.operator.CustomOpProp):
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shape):
+        return in_shape, [in_shape[0]], []
+
+    def create_operator(self, ctx, shapes, dtypes):
+        return RtcSoftmaxCE()
 
 
 def sinusoid_table(max_len: int, units: int) -> np.ndarray:
@@ -483,6 +785,132 @@ def ce_phase(hk, dev):
     return rec
 
 
+def rtc_kernel_phase(dev):
+    """The user's NVRTC kernels vs their plain versions on the card, with
+    TF32-rounded controls that must miss; compile times, kernel times at
+    the extension path's shapes, and one launch's host overhead. Returns
+    their records."""
+    ctx = mx.gpu(dev.index)
+    k = KERNELS
+    for mod, what in ((k.c_module, 'extern "C" axpy'),
+                      (k.module, "axpy<float>, softmax_fwd<float>, "
+                                 "softmax_ce_bwd<float>")):
+        t = mod.compile(ctx)
+        print(f"build: NVRTC compiled and loaded {what} in {t * 1e3:.1f} ms")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    x = torch.randn(AXPY_N, generator=gen, device=dev)
+    y = torch.randn(AXPY_N, generator=gen, device=dev)
+    ref = axpy_plain(x, y, 2.0)
+    for template in (False, True):
+        got = y.clone()
+        k.axpy(x, got, 2.0, template)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        print(f"rtc axpy ({'axpy<float>' if template else 'extern C'}) n="
+              f"{AXPY_N}: max|y - plain| = {err:.3e} (exact)")
+        if err != 0.0:
+            raise AssertionError("rtc axpy disagrees with 2x + y")
+    c_err = (axpy_plain(_tf32_round(x), y, 2.0) - ref).abs().max().item()
+    print(f"rtc axpy control, TF32-rounded x: {c_err:.3e}")
+    if not c_err > 0.0:
+        raise AssertionError("the TF32 control of axpy is exact")
+    out = y.clone()
+    axpy_ms = _time_ms(lambda: k.axpy(x, out, 2.0, True), reps=20)
+    axpy_plain_ms = _time_ms(lambda: axpy_plain(x, y, 2.0), reps=20)
+    axpy_lib_ms = _time_ms(lambda: out.add_(x, alpha=2.0), reps=20)
+    axpy_bound = roofline_ms(2.0 * AXPY_N, 12.0 * AXPY_N)
+    xs, ys = x[:16].clone(), y[:16].clone()
+    host_us = []
+    for _ in range(1000):
+        t0 = time.perf_counter()
+        k.axpy(xs, ys, 2.0, True)
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    print(f"rtc axpy n={AXPY_N}: kernel {axpy_ms:.3f} ms, plain "
+          f"{axpy_plain_ms:.3f} ms, Tensor.add_(alpha=2) {axpy_lib_ms:.3f} ms,"
+          f" bound {axpy_bound[0]:.3f} ms ({axpy_bound[1]}); host time of "
+          f"one launch (16 elements): median {np.median(host_us):.1f} us, "
+          f"p90 {np.percentile(host_us, 90):.1f} us")
+    records = [{"name": "rtc_axpy", "max_abs_err": 0.0, "ms": axpy_ms,
+                "plain_ms": axpy_plain_ms, "bound_ms": axpy_bound[0],
+                "bound_by": axpy_bound[1], "library_ms": axpy_lib_ms}]
+    del x, y, ref, out
+
+    V, N = OPT_6_7B["vocab"], TRAIN_BATCH * OPT_6_7B["max_len"]
+    main = {}
+    for n, c in ((7, 37), (7, V), (N, V)):
+        logits = 2.0 * torch.randn(n, c, generator=gen, device=dev)
+        labels = torch.randint(0, c, (n,), generator=gen,
+                               device=dev).float()
+        if n == 7:   # a negative label wraps; one past the row is NaN
+            labels[0], labels[1] = -1.0, float(c)
+        p = torch.empty_like(logits)
+        k.softmax_fwd(logits, p)
+        ref_p = softmax_plain(logits)
+        g = torch.empty_like(logits)
+        k.softmax_ce_bwd(ref_p, labels, g, 1.0 / n)
+        ref_g = softmax_ce_bwd_plain(ref_p, labels, 1.0 / n)
+        torch.cuda.synchronize()
+        p_err = _max_rel(p, ref_p)
+        nan_rows = torch.isnan(ref_g).any(1)
+        same_nan = torch.equal(torch.isnan(g), torch.isnan(ref_g))
+        g_err = _max_rel(g[~nan_rows], ref_g[~nan_rows])
+        ctl_p = softmax_plain(_tf32_round(logits))
+        c_p = _max_rel(ctl_p, ref_p)
+        ctl_g = softmax_ce_bwd_plain(ctl_p, labels, 1.0 / n)
+        c_g = _max_rel(ctl_g[~nan_rows], ref_g[~nan_rows])
+        print(f"rtc softmax_fwd ({n}, {c}): max|p - plain|/max p {p_err:.3e} "
+              f"(tol {TOL_RTC_SOFTMAX}); softmax_ce_bwd max|g - plain|/"
+              f"max|plain| {g_err:.3e} (tol {TOL_RTC_CE_BWD}), NaN rows "
+              f"{int(nan_rows.sum())} alike {same_nan}; controls on "
+              f"TF32-rounded logits {c_p:.3e}, {c_g:.3e}")
+        if not (p_err <= TOL_RTC_SOFTMAX and g_err <= TOL_RTC_CE_BWD
+                and same_nan):
+            raise AssertionError(f"an rtc kernel disagrees with its plain "
+                                 f"version at ({n}, {c})")
+        if not (c_p > TOL_RTC_SOFTMAX and c_g > TOL_RTC_CE_BWD):
+            raise AssertionError("a TF32 control passes an rtc tolerance: "
+                                 "it is too loose")
+        if n == N:
+            main = dict(x=logits, labels=labels, p=ref_p,
+                        p_err=(p - ref_p).abs().max().item(),
+                        g_err=(g - ref_g).abs().max().item())
+        del logits, labels, p, ref_p, g, ref_g, ctl_p, ctl_g
+    x, labels, p = main["x"], main["labels"], main["p"]
+    out = torch.empty_like(x)
+    sm_ms = _time_ms(lambda: k.softmax_fwd(x, out), reps=20)
+    sm_plain = _time_ms(lambda: softmax_plain(x), reps=5)
+    sm_lib = _time_ms(lambda: torch.softmax(x, dim=1), reps=20)
+    ce_ms = _time_ms(lambda: k.softmax_ce_bwd(p, labels, out, 1.0 / N),
+                     reps=20)
+    ce_plain = _time_ms(lambda: softmax_ce_bwd_plain(p, labels, 1.0 / N),
+                        reps=5)
+    # each reads an (N, C) f32 array once and writes one; softmax ~5
+    # operations an element (max, subtract, exp, add, scale), the
+    # gradient 2 (subtract, scale)
+    sm_bound = roofline_ms(5.0 * N * V, 8.0 * N * V)
+    ce_bound = roofline_ms(2.0 * N * V, 8.0 * N * V + 4.0 * N)
+    print(f"rtc softmax_fwd f32 ({N}, {V}): kernel {sm_ms:.3f} ms, plain "
+          f"{sm_plain:.3f} ms, torch.softmax {sm_lib:.3f} ms, bound "
+          f"{sm_bound[0]:.3f} ms ({sm_bound[1]}); softmax_ce_bwd: kernel "
+          f"{ce_ms:.3f} ms, plain {ce_plain:.3f} ms, no single library call,"
+          f" bound {ce_bound[0]:.3f} ms ({ce_bound[1]}); card {_card_line()}")
+    records.append({"name": "rtc_softmax_fwd", "max_abs_err": main["p_err"],
+                    "ms": sm_ms, "plain_ms": sm_plain,
+                    "bound_ms": sm_bound[0], "bound_by": sm_bound[1],
+                    "library_ms": sm_lib})
+    records.append({"name": "rtc_softmax_ce_bwd",
+                    "max_abs_err": main["g_err"], "ms": ce_ms,
+                    "plain_ms": ce_plain, "bound_ms": ce_bound[0],
+                    "bound_by": ce_bound[1], "library_ms": None})
+    for rec in records:
+        rec.update(route="cuda", compiler="nvrtc", source="chip_smoke.py",
+                   replaces="mxnet_tpu/rtc.py:78")
+    return records
+
+
 # --------------------------------------------------------------- serving
 def _kernel_class(key: str) -> str:
     low = key.lower()
@@ -492,6 +920,10 @@ def _kernel_class(key: str) -> str:
         return "flash_attention_bwd (dK/dV, dQ)"
     if "ce_fwd_kernel" in key:
         return "softmax_cross_entropy_fwd"
+    if "softmax_fwd" in key:
+        return "rtc softmax_fwd"
+    if "softmax_ce_bwd" in key:
+        return "rtc softmax_ce_bwd"
     if "memcpy" in low:
         return "memcpy"
     if "gemm" in low or "cutlass" in low:
@@ -830,12 +1262,216 @@ def training_phase(mx, hk, dev, profile=False):
     return launches
 
 
+# ------------------------------------------------------------- extension
+def _ext_net(V, T):
+    """The LM and an Adam trainer with the lr schedule, from the seed."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import transformer as tfm
+    cfg = OPT_6_7B
+    mx.random.seed(SEED)
+    net = tfm.TransformerLM(vocab_size=V, units=cfg["units"],
+                            num_layers=cfg["layers"], num_heads=cfg["heads"],
+                            hidden_size=cfg["ffn"], max_len=T)
+    net.initialize(mx.init.Normal(0.02))
+    sched = mx.lr_scheduler.FactorScheduler(step=EXT_LR_STEP,
+                                            factor=EXT_LR_FACTOR)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR,
+                             "lr_scheduler": sched})
+    return net, trainer
+
+
+def _head_loss(probs, y) -> float:
+    """-mean log p[label] of the custom head's probabilities, in float64."""
+    lab = y._data.reshape(-1, 1).long()
+    return -probs._data.gather(1, lab).double().log().mean().item()
+
+
+def extension_phase(hk, dev, workdir, profile=False):
+    """Train the same LM three Adam steps through gluon with the user's
+    CustomOp loss head (``mx.nd.Custom``, its forward and backward NVRTC
+    kernels), ``trainer.step(1)`` and a FactorScheduler, checkpointed after
+    step 2 and resumed into a fresh net and trainer for step 3. Returns
+    {kernel name: launches on this path}."""
+    from mxnet_tpu_torch import autograd
+    cfg = OPT_6_7B
+    V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
+    N = B * T
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(SEED)
+    x = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+    y = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+    launches = {}
+
+    def counted(fn):
+        """Run ``fn`` with every count set to 0 first; add the counts."""
+        hk.reset_launch_counts()
+        KERNELS.reset_launch_counts()
+        out = fn()
+        got = dict(hk.launch_counts, **KERNELS.launch_counts())
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+        return out, got
+
+    # the user's first call: axpy through both exports
+    def hello():
+        a = (torch.arange(AXPY_N, device=dev) % 4096).float()  # 4a+1 exact
+        b = torch.ones_like(a)
+        KERNELS.axpy(a, b, 2.0)
+        KERNELS.axpy(a, b, 2.0, template=True)
+        return bool(torch.equal(b, 4.0 * a + 1.0))
+    ok, _ = counted(hello)
+    if not ok:
+        raise AssertionError("extension: axpy twice gave no 4a + 1")
+
+    def custom_step(net, trainer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            logits = net(x)
+            probs = mx.nd.Custom(logits.reshape((-1, V)), y.reshape((-1,)),
+                                 op_type="rtc_softmax_ce")
+        probs.backward()
+        trainer.step(1)   # the head's gradient is already a mean
+        torch.cuda.synchronize()
+        return logits, probs, (time.perf_counter() - t0) * 1e3
+
+    per_step = {"flash_attention_fwd": cfg["layers"],
+                "flash_attention_bwd_dkdv": cfg["layers"],
+                "flash_attention_bwd_dq": cfg["layers"],
+                "softmax_cross_entropy_fwd": 0, "rtc_axpy": 0,
+                "rtc_softmax_fwd": 1, "rtc_softmax_ce_bwd": 1}
+
+    def step(net, trainer, what):
+        (logits, probs, ms), got = counted(lambda: custom_step(net, trainer))
+        if got != per_step:
+            raise AssertionError(f"extension {what} launched {got}, "
+                                 f"expected {per_step}")
+        return logits, probs, ms
+
+    net, trainer = _ext_net(V, T)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    # step-1 gates. The B2 head on the same weights (its launches are not
+    # counted with the path's), then the plain head on TF32-rounded logits
+    # as the control, then the timed custom-head step.
+    with autograd.record():
+        logits_b2 = net(x)
+        loss_b2 = mx.nd.softmax_cross_entropy(logits_b2.reshape((-1, V)),
+                                              y.reshape((-1,)))
+    loss_b2.backward()
+    loss_b2 = loss_b2.asscalar().item()
+    g_b2 = {p.name: p.grad._data.clone() for p in params}
+    with autograd.record():
+        logits_c = net(x)
+    lc = logits_c._data.detach().reshape(-1, V)
+    g_head = softmax_ce_bwd_plain(softmax_plain(_tf32_round(lc)),
+                                  y._data.reshape(-1), 1.0 / N)
+    autograd.backward(logits_c, [mx.nd.NDArray(g_head.reshape(
+        logits_c.shape))])
+    c_errs = {p.name: _norm_rel(p.grad._data * N, g_b2[p.name])
+              for p in params}
+    del logits_c, lc, g_head
+    torch.cuda.empty_cache()
+
+    logits, probs, ms1 = step(net, trainer, "step 1")
+    same = bool(torch.equal(logits._data, logits_b2._data))
+    errs = {p.name: _norm_rel(p.grad._data * N, g_b2[p.name])
+            for p in params}
+    losses = [_head_loss(probs, y)]
+    loss_err = abs(losses[0] - loss_b2 / N) / abs(loss_b2 / N)
+    ranked = sorted(errs, key=errs.get, reverse=True)
+    worst = ranked[0]
+    print(f"extension: step 1 logits bitwise equal to the B2 head's: {same};"
+          f" ||N*g - g_B2||/||g_B2|| worst of {len(errs)} tensors "
+          f"{', '.join(f'{n} {errs[n]:.3e}' for n in ranked[:3])} (tol "
+          f"{TOL_EXT_GRAD}), TF32 control "
+          f"worst {max(c_errs.values()):.3e}, least "
+          f"{min(c_errs.values()):.3e}; loss -mean log p[label] "
+          f"{losses[0]:.7f}, B2 loss / N {loss_b2 / N:.7f} (relative "
+          f"{loss_err:.3e}, tol {TOL_EXT_LOSS})")
+    if not (same and errs[worst] <= TOL_EXT_GRAD
+            and loss_err <= TOL_EXT_LOSS):
+        raise AssertionError("the custom head's step 1 disagrees with the "
+                             "B2 head's")
+    if not max(c_errs.values()) > TOL_EXT_GRAD:
+        raise AssertionError("the TF32 control passes the extension "
+                             "gradient tolerance: it is too loose")
+    del logits_b2, g_b2, logits, probs
+    torch.cuda.empty_cache()
+
+    step_ms = [ms1]
+    _, probs, ms = step(net, trainer, "step 2")
+    losses.append(_head_loss(probs, y))
+    step_ms.append(ms)
+    del probs
+    os.makedirs(workdir, exist_ok=True)
+    par_path = os.path.join(workdir, "ext.params")
+    st_path = os.path.join(workdir, "ext.states")
+    t0 = time.perf_counter()
+    net.save_parameters(par_path)
+    t_par = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.save_states(st_path)
+    t_st = time.perf_counter() - t0
+    print(f"extension: checkpoint after step 2: save_parameters "
+          f"{os.path.getsize(par_path) / 1e9:.3f} GB in {t_par:.1f} s, "
+          f"save_states {os.path.getsize(st_path) / 1e9:.3f} GB in "
+          f"{t_st:.1f} s")
+    _, probs, ms = step(net, trainer, "step 3")
+    losses.append(_head_loss(probs, y))
+    step_ms.append(ms)
+    lr3 = trainer.learning_rate
+    w3 = {k: p.data()._data.cpu()
+          for k, p in net._collect_params_with_prefix().items()}
+    del probs, net, trainer, params
+    torch.cuda.empty_cache()
+
+    net, trainer = _ext_net(V, T)
+    t0 = time.perf_counter()
+    net.load_parameters(par_path)
+    trainer.load_states(st_path)
+    print(f"extension: a fresh net and trainer loaded the checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _, probs, ms = step(net, trainer, "resumed step 3")
+    if trainer.learning_rate != lr3:
+        raise AssertionError(f"resumed lr {trainer.learning_rate} after "
+                             f"step 3, uninterrupted {lr3}")
+    loss_r = _head_loss(probs, y)
+    step_ms.append(ms)
+    del probs
+    worst_r = 0.0
+    for k, p in net._collect_params_with_prefix().items():
+        ref = w3[k].to(dev)
+        worst_r = max(worst_r, ((p.data()._data - ref).abs().max()
+                                / ref.abs().max()).item())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"extension: losses (mean CE a token) {losses}, resumed step 3 "
+          f"{loss_r}; lr after step 3 {lr3:.3e} in both; resumed step-3 "
+          f"weights vs uninterrupted: max|dw|/"
+          f"max|w| {worst_r:.3e} (tol {TOL_RESUME}); step times {step_ms} ms"
+          f" ({N / (step_ms[2] / 1e3):.1f} tokens/s at step 3); peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}; card {_card_line()}")
+    if not worst_r <= TOL_RESUME:
+        raise AssertionError("the resumed step 3 differs from the "
+                             "uninterrupted one")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"extension losses {losses} not finite and "
+                             f"falling")
+    if not peak_gb < 75.0:
+        raise AssertionError(f"extension peak memory {peak_gb:.2f} GB")
+    if profile:
+        profile_breakdown(f"one custom-head step of {B} x {T} tokens",
+                          lambda: custom_step(net, trainer))
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one served dispatch and one training "
-                         "step (torch.profiler)")
+                    help="also profile one served dispatch, one training "
+                         "step and one custom-head step (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -872,13 +1508,24 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     trained = training_phase(mx, hk, dev, args.profile)
+    torch.cuda.empty_cache()
+    for rec in records:
+        rec["compiler"] = "nvcc"
+    records += rtc_kernel_phase(dev)
+    torch.cuda.empty_cache()
+    try:
+        extended = extension_phase(hk, dev, workdir, args.profile)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for rec in records:
         name = rec["name"]
-        rec["launches"] = served[name] + trained[name]
+        rec["launches"] = (served.get(name, 0) + trained.get(name, 0)
+                           + extended.get(name, 0))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "compiler", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,14 @@
 The JAX package ``mxnet_tpu`` stays the reference; this package keeps its
 module paths and public names (``mx.nd``, ``mx.sym``, the op registry, the
 executor, the predictor, the serving stack, and ``mx.autograd``,
-``mx.gluon``, ``mx.init`` and ``mx.optimizer`` for training) over plain
+``mx.gluon``, ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler`` for
+training, ``mx.operator`` and ``mx.rtc`` for user extensions) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
-``torch.Generator``s, eager execution, torch autograd as the tape. Each TPU (Pallas) kernel on a ported path is a hand-written
-Hopper kernel in :mod:`mxnet_tpu_torch.ops.hopper_kernels`.
+``torch.Generator``s, eager execution, torch autograd as the tape. Each
+TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
+:mod:`mxnet_tpu_torch.ops.hopper_kernels`; the user-kernel escape hatch
+(``mxnet_tpu/rtc.py``) is :mod:`mxnet_tpu_torch.rtc`, CUDA source compiled
+by NVRTC.
 
 Entry points run on the card (``gpu(0)``) unless the caller asks for the
 CPU (``mx.cpu()``, ``dev_type=1``); asking for the card without CUDA
@@ -30,9 +34,13 @@ from . import name
 from . import autograd
 from . import initializer
 from . import initializer as init
+from . import lr_scheduler
 from . import optimizer
 from . import gluon
+from . import operator
+from . import rtc
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
-           "name", "autograd", "initializer", "init", "optimizer", "gluon"]
+           "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
+           "gluon", "operator", "rtc"]

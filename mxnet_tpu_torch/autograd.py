@@ -12,7 +12,14 @@ A variable is an NDArray whose tensor is a torch leaf that requires grad
 torch for the gradients of every live variable and delivers them by the
 variable's ``grad_req``, the reference's rules rather than torch's
 accumulation into ``.grad``: ``write`` overwrites the gradient buffer,
-``add`` adds to it, ``null`` takes nothing.
+``add`` adds to it, ``null`` takes nothing. A head without a head
+gradient is seeded with ones, as in the reference, given to torch as one
+element expanded to the head's shape (a loss head of 8192 × 50272 floats
+needs no 1.6 GB of ones).
+
+:class:`Function` is a user-defined differentiable function over
+``torch.autograd.Function`` (counterpart of ``mxnet_tpu/autograd.py:
+563-616``).
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad", "mark_variables"]
+           "is_training", "backward", "grad", "mark_variables", "Function"]
 
 _state = threading.local()
 # id -> NDArray of every array marked as a variable (held weakly)
@@ -122,7 +129,9 @@ def _heads(heads, head_grads):
                              "(did you compute it under autograd.record()?)")
         tensors.append(h._data)
         hg = None if head_grads is None else head_grads[i]
-        grads.append(torch.ones_like(h._data) if hg is None
+        grads.append(torch.ones((), dtype=h._data.dtype,
+                                device=h._data.device).expand(h._data.shape)
+                     if hg is None
                      else hg._data if isinstance(hg, NDArray) else hg)
     return tensors, grads
 
@@ -144,8 +153,8 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                 continue              # not reached from the heads
             if v._grad_req == "add":
                 v._grad._data.add_(g)
-            else:
-                v._grad._data = g.to(v._grad._data.dtype)
+            else:   # contiguous: g may be a head's expanded ones
+                v._grad._data = g.to(v._grad._data.dtype).contiguous()
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -164,3 +173,66 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                               create_graph=create_graph, allow_unused=True)
     return [NDArray(g if g is not None else torch.zeros_like(v._data))
             for v, g in zip(variables, got)]
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s ``forward`` and ``backward`` on NDArrays
+    with recording paused."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            outputs = func.forward(*[NDArray(t.detach()) for t in tensors])
+        ctx.func = func
+        func._single = not isinstance(outputs, (list, tuple))
+        outs = [outputs] if func._single else list(outputs)
+        return tuple(o._data for o in outs) if len(outs) > 1 \
+            else outs[0]._data
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            gs = ctx.func.backward(*[NDArray(g) for g in grads])
+        if not isinstance(gs, (list, tuple)):
+            gs = [gs]
+        n_in = len(ctx.needs_input_grad) - 1
+        if len(gs) != n_in:
+            raise MXNetError(f"{type(ctx.func).__name__}.backward returned "
+                             f"{len(gs)} gradients for {n_in} inputs")
+        return (None,) + tuple(
+            (g._data if isinstance(g, NDArray) else g) if need else None
+            for g, need in zip(gs, ctx.needs_input_grad[1:]))
+
+
+class Function:
+    """Custom differentiable function (reference ``autograd.Function``).
+    Subclass it and implement ``forward(self, *inputs)`` and
+    ``backward(self, *output_grads)`` on NDArrays; ``backward`` returns
+    one gradient per input. Use a new instance for each call."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        with torch.set_grad_enabled(is_recording()):
+            out = _FunctionBridge.apply(self, *[x._data for x in inputs])
+        outs = [NDArray(o) for o in (out if isinstance(out, tuple)
+                                     else (out,))]
+        return outs[0] if self._single else outs

@@ -8,9 +8,10 @@ node's outputs are dropped as soon as their last consumer has run, so the
 interpreter holds only live activations.
 
 Inference only: ``forward(is_train=False)`` runs under
-``torch.inference_mode()``. Training goes through gluon and
-``autograd``; the symbolic executor's train step and ``backward`` wait
-for a later slice (ROADMAP A1).
+``torch.inference_mode()``, a graph-mode ``Custom`` op (``mx.operator``)
+included, forward only as in the JAX package. Training goes through gluon
+and ``autograd``; the symbolic executor's train step and ``backward``
+wait for a later slice (ROADMAP A1).
 """
 from __future__ import annotations
 

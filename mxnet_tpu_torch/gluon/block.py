@@ -135,6 +135,37 @@ class Block:
         self.collect_params().initialize(init or _init.Uniform(), ctx,
                                          verbose, force_reinit)
 
+    # ------------------------------------------------------------- files
+    def _collect_params_with_prefix(self, prefix: str = ""
+                                    ) -> Dict[str, Parameter]:
+        """Structural names (``body.layers.0.ln1.gamma``), independent of
+        name scopes: the reference's ``save_parameters`` keys, which the
+        JAX package's files use too."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename: str, deduplicate: bool = False
+                        ) -> None:
+        """Write the values under their structural names in the
+        ``MXTPU001`` container; either package loads the file."""
+        from ..ndarray import save as nd_save
+        nd_save(filename, {k: p.data() for k, p in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename: str, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current") -> None:
+        """Set the parameters from a :meth:`save_parameters` file of
+        either package, copying in place (a parameter with deferred
+        initialization takes the file's shape)."""
+        from .parameter import _load_host, _set_from
+        _set_from(self._collect_params_with_prefix(), _load_host(filename),
+                  filename, ctx, allow_missing, ignore_extra)
+
     # ------------------------------------------------------------- exec
     def __call__(self, *args):
         return self.forward(*args)

@@ -260,6 +260,52 @@ class ParameterDict:
         for p in self.values():
             p.zero_grad()
 
+    def save(self, fname: str, strip_prefix: str = "") -> None:
+        """Write every value to ``fname`` in the ``MXTPU001`` container
+        (``nd.save``), keyed by name less ``strip_prefix``."""
+        from ..ndarray import save as nd_save
+        nd_save(fname, {(name[len(strip_prefix):]
+                         if name.startswith(strip_prefix) else name): p.data()
+                        for name, p in self.items()})
+
+    def load(self, fname: str, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="") -> None:
+        """Set every parameter from ``fname`` (read on the host, copied in
+        place), keyed by ``restore_prefix`` + the file's names."""
+        loaded = {restore_prefix + k: v for k, v in _load_host(fname).items()}
+        _set_from(self._params, loaded, fname, ctx, allow_missing,
+                  ignore_extra)
+
     def __repr__(self):
         lines = "\n".join(f"  {p!r}" for p in self.values())
         return f"ParameterDict(prefix={self._prefix!r}\n{lines})"
+
+
+def _load_host(fname: str):
+    """``nd.load`` onto the host: the values are copied into the
+    parameters one at a time, so no second copy of the model is made on
+    the card."""
+    from ..context import cpu
+    from ..ndarray import load as nd_load
+    loaded = nd_load(fname, ctx=cpu())
+    if not isinstance(loaded, dict):
+        raise MXNetError(f"{fname}: holds a list of arrays, not named "
+                         f"parameters")
+    return loaded
+
+
+def _set_from(params, loaded, fname, ctx, allow_missing, ignore_extra):
+    """Set each of ``params`` ({name: Parameter}) from ``loaded``."""
+    for name, p in params.items():
+        if name in loaded:
+            if p._data is None and p._deferred_init is None:
+                p.shape = tuple(loaded[name].shape)
+                p.initialize(ctx=ctx)
+            p.set_data(loaded[name])
+        elif not allow_missing:
+            raise MXNetError(f"parameter {name!r} missing in file {fname}")
+    if not ignore_extra:
+        extra = set(loaded) - set(params)
+        if extra:
+            raise MXNetError(f"file {fname} has extra parameters "
+                             f"{sorted(extra)}; set ignore_extra=True")

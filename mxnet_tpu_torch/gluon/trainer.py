@@ -9,7 +9,13 @@ One card per process in this slice: ``kvstore`` ``"device"``, ``"local"``
 or None means no store, which gives what the JAX package's single-process
 store gives (a push and pull of one gradient returns it unchanged). Any
 other store raises ``NotImplementedError``: multi-card reduction waits for
-ROADMAP A8. ``save_states``/``load_states`` wait for a later slice.
+ROADMAP A8.
+
+``save_states`` writes the optimizer's states with the optimizer itself
+(update counts, ``num_update``, the lr scheduler), as the reference does,
+so that a run resumed with ``load_states`` (and the net's
+``load_parameters``) takes the same steps as one never interrupted. The
+JAX package saves the states alone (``mxnet_tpu/gluon/trainer.py:149``).
 """
 from __future__ import annotations
 
@@ -73,3 +79,17 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p.grad_req != "null":
                 self._updater(i, p.grad, p.data())
+
+    def save_states(self, fname: str) -> None:
+        """Write the optimizer and its states (numpy arrays) to
+        ``fname``."""
+        with open(fname, "wb") as f:
+            self._updater.dump_states(f, dump_optimizer=True)
+
+    def load_states(self, fname: str) -> None:
+        """Load what :meth:`save_states` wrote; the states move to each
+        parameter's device at its next update."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f)
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

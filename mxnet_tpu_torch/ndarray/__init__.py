@@ -34,6 +34,11 @@ _func_cache = {}
 
 
 def __getattr__(name: str):
+    if name == "Custom":
+        # the imperative, differentiable custom op (``mx.operator``); the
+        # registry's ``Custom`` is the graph-mode, forward-only one
+        from ..operator import Custom
+        return Custom
     if name in _REGISTRY:
         if name not in _func_cache:
             _func_cache[name] = _make_op_func(name)

@@ -1,6 +1,6 @@
 """Elementwise unary and scalar ops.
 
-Counterpart of ``negative``, ``square`` and the ``_*_scalar`` family in
+Counterpart of ``negative``, ``square``, ``sigmoid`` and the ``_*_scalar`` family in
 ``mxnet_tpu/ops/elemwise.py`` (reference
 ``src/operator/tensor/elemwise_unary_op_basic.cc``,
 ``elemwise_binary_scalar_op_basic.cc``): what NDArray and Symbol
@@ -15,6 +15,7 @@ from .registry import register
 
 register("negative")(lambda x: torch.neg(x))
 register("square")(lambda x: torch.square(x))
+register("sigmoid")(lambda x: torch.sigmoid(x))
 
 
 def _scalar_op(name, fn):

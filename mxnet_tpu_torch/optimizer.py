@@ -11,7 +11,18 @@ Counterpart of ``Optimizer``, ``SGD``, ``Adam``, ``Updater``,
   ``w ← w − lr_t·m/(√v + ε)`` with ε not bias-corrected (torch adds ε to
   the corrected √v̂), ``t`` counted per parameter index;
 * weight decay is added to the gradient (L2), ``g ← rescale·g (clipped) +
-  wd·w``, in both.
+  wd·w``, in both;
+* an ``lr_scheduler`` (:mod:`.lr_scheduler`) gives the learning rate of
+  each update from ``num_update``, as in the JAX package.
+
+``Updater.get_states(dump_optimizer=True)`` pickles the states as numpy
+arrays together with the optimizer (its per-index update counts,
+``num_update`` and scheduler), as the reference's ``Trainer.save_states``
+does, so that a resumed run takes the same steps as an uninterrupted one.
+The JAX package's trainer saves the states without the optimizer
+(``mxnet_tpu/gluon/trainer.py:149``): its resumed Adam restarts the
+bias correction and the schedule. Its files pickle JAX arrays and do not
+load here.
 
 Updates run in place under ``torch.no_grad()``: the weight tensor is the
 autograd leaf that the next ``backward`` reaches, so it must not be
@@ -20,8 +31,10 @@ rebound. The JAX package rebinds immutable arrays instead.
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -50,11 +63,11 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
                  param_dict=None):
-        if lr_scheduler is not None:
-            raise NotImplementedError("lr_scheduler waits for a later slice "
-                                      "of the port (ROADMAP A1)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.begin_num_update = begin_num_update
@@ -63,11 +76,22 @@ class Optimizer:
         self.param_dict = dict(param_dict or {})
 
     def set_learning_rate(self, lr: float) -> None:
+        if self.lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is active; set lr on the "
+                             "scheduler")
         self.lr = lr
 
     @property
     def learning_rate(self) -> float:
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
+
+    def __getstate__(self):
+        # parameters are bound again by the trainer that loads the states
+        d = self.__dict__.copy()
+        d["param_dict"] = {}
+        return d
 
     def _update_count(self, index) -> None:
         if index not in self._index_update_count:
@@ -77,8 +101,10 @@ class Optimizer:
                               self.num_update)
 
     def _get_lr(self, index) -> float:
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
         p = self.param_dict.get(index)
-        return self.lr * (p.lr_mult if p is not None else 1.0)
+        return lr * (p.lr_mult if p is not None else 1.0)
 
     def _get_wd(self, index) -> float:
         p = self.param_dict.get(index)
@@ -151,17 +177,68 @@ class Adam(Optimizer):
             weight._data.sub_(m.mul(lr_t).div_(denom))
 
 
+def _to_host(state):
+    """A state (None, a tensor, or a tuple of them) with numpy arrays for
+    tensors."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_host(s) for s in state)
+    return state
+
+
+def _to_device(state, device: torch.device):
+    if isinstance(state, np.ndarray):
+        return torch.from_numpy(state).to(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_device(s, device) for s in state)
+    return state
+
+
 class Updater:
-    """Applies an optimizer with per-index states."""
+    """Applies an optimizer with per-index states. States loaded by
+    :meth:`set_states` are numpy arrays until the index's next update
+    moves them to its weight's device."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        self.states_synced: Dict[Any, bool] = {}
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced.get(index, False):
+            self.states[index] = _to_device(self.states[index],
+                                            weight._data.device)
+            self.states_synced[index] = True
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def dump_states(self, f, dump_optimizer: bool = False) -> None:
+        """Pickle the states (numpy arrays), with the optimizer if asked,
+        into the open binary file ``f``."""
+        host = {i: _to_host(s) for i, s in self.states.items()}
+        pickle.dump((host, self.optimizer) if dump_optimizer else host, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+
+    def get_states(self, dump_optimizer: bool = False) -> bytes:
+        import io
+        buf = io.BytesIO()
+        self.dump_states(buf, dump_optimizer)
+        return buf.getvalue()
+
+    def set_states(self, states) -> None:
+        """Load what :meth:`get_states` wrote (bytes, or an open binary
+        file); the optimizer too, where it was dumped. Unpickle only files
+        this program wrote."""
+        obj = pickle.loads(states) if isinstance(states, (bytes, bytearray)) \
+            else pickle.load(states)
+        if isinstance(obj, tuple):
+            self.states, self.optimizer = obj
+        else:
+            self.states = obj
+        self.states_synced = dict.fromkeys(self.states, False)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

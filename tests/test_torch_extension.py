@@ -1,0 +1,286 @@
+"""PyTorch port, the extension slice as a whole, against the JAX package.
+
+``TransformerLM`` at 2 layers, units 64, 4 heads, FFN 128, vocab 97 (odd
+on purpose), batch 2 × 16 tokens, ``init.Normal(0.02)`` weights carried
+across with ``interop``. Each package trains it three Adam steps (lr 1e-3,
+a ``FactorScheduler`` whose first drop falls on step 3) through gluon with
+a user-written ``CustomOp`` loss head and ``trainer.step(1)``: the port
+with ``chip_smoke.py``'s head (its NVRTC kernels' plain versions on the
+CPU), the JAX package with the numpy head of
+``example/numpy-ops/custom_softmax.py`` (defined here). Each run writes
+``save_parameters`` and ``save_states`` after step 2, and a fresh net and
+trainer resume from them for step 3 (the JAX package's resume reloads
+its one hybridized net, so that it compiles once).
+
+Tolerances: weights after three steps 1e-5 (as the training slice's
+parity test); the port's resumed step 3 equals its uninterrupted one to
+1e-7 (the same float32 arithmetic on the same values). The JAX package's
+trainer saves its states without the optimizer, so its resumed Adam
+restarts the bias correction and the schedule: its resumed step 3 lands
+more than 1e-4 from its uninterrupted one, the fault the port does not
+copy. Every scheduler's learning rates over 50 updates equal the JAX
+package's exactly, and ``save_parameters`` files load across packages.
+"""
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as mx
+from mxnet_tpu import autograd as jag
+from mxnet_tpu import gluon as jgluon
+from mxnet_tpu_torch import autograd, gluon, interop
+
+V, UNITS, LAYERS, HEADS, FFN, B, T = 97, 64, 2, 4, 128, 2, 16
+LR = 1e-3
+
+
+class _NumpySoftmaxCE(jmx.operator.CustomOp):
+    """``example/numpy-ops/custom_softmax.py``'s head."""
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        x = in_data[0].asnumpy()
+        x = x - x.max(axis=1, keepdims=True)
+        e = np.exp(x)
+        self.assign(out_data[0], req[0],
+                    jmx.nd.array(e / e.sum(axis=1, keepdims=True)))
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        p = out_data[0].asnumpy()
+        lab = in_data[1].asnumpy().astype("int64")
+        g = p.copy()
+        g[np.arange(len(lab)), lab] -= 1.0
+        self.assign(in_grad[0], req[0], jmx.nd.array(g / len(lab)))
+        self.assign(in_grad[1], req[1], jmx.nd.zeros_like(in_data[1]))
+
+
+@jmx.operator.register("ext_numpy_softmax_ce")
+class _NumpySoftmaxCEProp(jmx.operator.CustomOpProp):
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shape):
+        return in_shape, [in_shape[0]], []
+
+    def create_operator(self, ctx, shapes, dtypes):
+        return _NumpySoftmaxCE()
+
+
+def _lm(g):
+    return g.contrib.transformer.TransformerLM(
+        vocab_size=V, units=UNITS, num_layers=LAYERS, num_heads=HEADS,
+        hidden_size=FFN, max_len=24, prefix="lm_")
+
+
+def _trainer(g, m, net):
+    sched = m.lr_scheduler.FactorScheduler(step=2, factor=0.5)
+    return g.Trainer(net.collect_params(), "adam",
+                     {"learning_rate": LR, "lr_scheduler": sched})
+
+
+def _weights(net):
+    return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+
+
+def _jax_step(net, trainer, x, y):
+    """One step; returns the weights it started from (the hybridized
+    net's first call, under ``record()``, finishes their deferred
+    initialization and compiles one program)."""
+    with jag.record():
+        probs = jmx.nd.Custom(net(jmx.nd.array(x)).reshape((-1, V)),
+                              jmx.nd.array(y).reshape((-1,)),
+                              op_type="ext_numpy_softmax_ce")
+    before = _weights(net)
+    probs.backward()
+    trainer.step(1)
+    return before
+
+
+def _port_step(net, trainer, x, y):
+    with autograd.record():
+        probs = mx.nd.Custom(net(mx.nd.array(x)).reshape((-1, V)),
+                             mx.nd.array(y).reshape((-1,)),
+                             op_type="rtc_softmax_ce")
+    probs.backward()
+    trainer.step(1)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Uninterrupted and resumed runs of both packages, and the files."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_ext", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    tmp = tmp_path_factory.mktemp("ckpt")
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, V, (B, T)).astype("float32")
+    y = rng.randint(0, V, (B, T)).astype("float32")
+    out = {"dir": tmp}
+
+    jnet = _lm(jgluon)
+    jmx.random.seed(3)
+    jnet.initialize(jmx.init.Normal(0.02))
+    jnet.hybridize()
+    jtrainer = _trainer(jgluon, jmx, jnet)
+    for step in range(3):
+        if step == 2:
+            jnet.save_parameters(str(tmp / "jax.params"))
+            jtrainer.save_states(str(tmp / "jax.states"))
+        before = _jax_step(jnet, jtrainer, x, y)
+        if step == 0:
+            out["w0"] = before
+    out["jax"] = _weights(jnet)
+    # the JAX resume: the same net (its compiled program) reloaded, a
+    # fresh trainer
+    jnet.load_parameters(str(tmp / "jax.params"))
+    jtrainer2 = _trainer(jgluon, jmx, jnet)
+    jtrainer2.load_states(str(tmp / "jax.states"))
+    _jax_step(jnet, jtrainer2, x, y)
+    out["jax_resumed"] = _weights(jnet)
+
+    with mx.cpu():
+        net = _lm(gluon)
+        net.initialize(mx.init.Normal(0.02))
+        interop.load_block_params(net, out["w0"])
+        trainer = _trainer(gluon, mx, net)
+        for step in range(3):
+            if step == 2:
+                net.save_parameters(str(tmp / "port.params"))
+                trainer.save_states(str(tmp / "port.states"))
+            _port_step(net, trainer, x, y)
+        out["port"] = interop.block_params_to_numpy(net)
+        net2 = _lm(gluon)
+        net2.initialize(mx.init.Normal(0.02))
+        net2.load_parameters(str(tmp / "port.params"))
+        trainer2 = _trainer(gluon, mx, net2)
+        trainer2.load_states(str(tmp / "port.states"))
+        _port_step(net2, trainer2, x, y)
+        out["port_resumed"] = interop.block_params_to_numpy(net2)
+        out["lr"] = (trainer.learning_rate, trainer2.learning_rate)
+    return out
+
+
+def _max_diff(a, b):
+    assert a.keys() == b.keys()
+    return max(np.abs(a[k] - b[k]).max() for k in a)
+
+
+def test_three_steps_with_the_custom_head_match_jax(runs):
+    assert _max_diff(runs["port"], runs["w0"]) > 1e-3   # the steps moved
+    for k, w in runs["jax"].items():
+        np.testing.assert_allclose(runs["port"][k], w, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_resumed_run_equals_uninterrupted(runs):
+    assert runs["lr"] == (LR / 2, LR / 2)
+    assert _max_diff(runs["port_resumed"], runs["port"]) <= 1e-7
+    for k, w in runs["jax"].items():
+        np.testing.assert_allclose(runs["port_resumed"][k], w, rtol=0,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_jax_resume_restarts_adam_and_the_schedule(runs):
+    """The JAX package's fault, pinned: its states file has no optimizer,
+    so its resumed step 3 is Adam's first step at the undropped lr."""
+    assert _max_diff(runs["jax_resumed"], runs["jax"]) > 1e-4
+
+
+def _schedulers(m):
+    ls = m.lr_scheduler
+    return {
+        "factor": ls.FactorScheduler(step=7, factor=0.7, base_lr=0.3,
+                                     stop_factor_lr=0.05, warmup_steps=4,
+                                     warmup_begin_lr=0.01),
+        "multifactor": ls.MultiFactorScheduler(step=[5, 12, 30], factor=0.5,
+                                               base_lr=0.2, warmup_steps=3,
+                                               warmup_mode="constant",
+                                               warmup_begin_lr=0.02),
+        "poly": ls.PolyScheduler(max_update=40, base_lr=0.1, pwr=2,
+                                 final_lr=0.001, warmup_steps=5),
+        "cosine": ls.CosineScheduler(max_update=45, base_lr=0.1,
+                                     final_lr=0.002, warmup_steps=6,
+                                     warmup_begin_lr=0.001),
+    }
+
+
+@pytest.mark.parametrize("name", ["factor", "multifactor", "poly", "cosine"])
+def test_scheduler_lrs_match_jax(name):
+    jax_s, port_s = _schedulers(jmx)[name], _schedulers(mx)[name]
+    jax_lrs = [jax_s(n) for n in range(1, 51)]
+    assert [port_s(n) for n in range(1, 51)] == jax_lrs
+    assert len(set(jax_lrs)) > 3
+
+
+def test_optimizer_follows_the_scheduler():
+    sched = mx.lr_scheduler.FactorScheduler(step=2, factor=0.5)
+    opt = mx.optimizer.create("sgd", learning_rate=0.4, lr_scheduler=sched)
+    assert sched.base_lr == 0.4
+    with pytest.raises(mx.MXNetError, match="lr_scheduler"):
+        opt.set_learning_rate(0.1)
+    lrs = []
+    for _ in range(5):
+        opt._update_count(0)
+        lrs.append(opt._get_lr(0))
+    assert lrs == [0.4, 0.4, 0.2, 0.2, 0.1]
+
+
+def _by_structure(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_save_parameters_files_cross_packages(runs, direction):
+    """A net of one package loads the other's ``save_parameters`` file
+    (structural names, the ``MXTPU001`` container) to the bit."""
+    if direction == "jax_to_port":
+        fname = str(runs["dir"] / "jax.params")
+        want = {k: a.asnumpy() for k, a in jmx.nd.load(fname).items()}
+        with mx.cpu():
+            net = _lm(gluon)
+            net.initialize(mx.init.Normal(0.02))
+            net.load_parameters(fname)
+    else:
+        fname = str(runs["dir"] / "port.params")
+        want = {k: a.asnumpy()
+                for k, a in mx.nd.load(fname, ctx=mx.cpu()).items()}
+        net = _lm(jgluon)
+        net.initialize(jmx.init.Normal(0.02))
+        net.load_parameters(fname)
+    got = _by_structure(net)
+    assert got.keys() == want.keys() and len(want) == 29
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_parameter_dict_files_cross_packages(tmp_path, direction):
+    """``ParameterDict.save(strip_prefix)`` in one package,
+    ``load(restore_prefix)`` in the other."""
+    rng = np.random.RandomState(4)
+    values = {"weight": rng.randn(3, 4).astype("float32"),
+              "bias": rng.randn(3).astype("float32")}
+    fname = str(tmp_path / "dense.params")
+
+    def dense(g, m):
+        net = g.nn.Dense(3, in_units=4, prefix="d_")
+        net.initialize(m.init.Zero())
+        return net
+
+    with mx.cpu():
+        port = dense(gluon, mx)
+        jax = dense(jgluon, jmx)
+        src, dst = (jax, port) if direction == "jax_to_port" else (port, jax)
+        for k, v in values.items():
+            src.collect_params()["d_" + k].set_data(v)
+        src.collect_params().save(fname, strip_prefix="d_")
+        dst.collect_params().load(fname, restore_prefix="d_")
+        for k, v in values.items():
+            np.testing.assert_array_equal(
+                dst.collect_params()["d_" + k].data().asnumpy(), v)

@@ -35,7 +35,10 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/initializer.py", "mxnet_tpu_torch/name.py",
             "mxnet_tpu_torch/gluon/block.py",
             "mxnet_tpu_torch/gluon/trainer.py",
-            "mxnet_tpu_torch/gluon/contrib/transformer.py"} <= rel
+            "mxnet_tpu_torch/gluon/contrib/transformer.py",
+            "mxnet_tpu_torch/rtc.py", "mxnet_tpu_torch/operator.py",
+            "mxnet_tpu_torch/lr_scheduler.py",
+            "mxnet_tpu_torch/_cuda_driver.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -46,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.interop, mxnet_tpu_torch.autograd, "
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.contrib.transformer, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
-            "mxnet_tpu_torch.name; "
+            "mxnet_tpu_torch.name, mxnet_tpu_torch.rtc, "
+            "mxnet_tpu_torch.operator, mxnet_tpu_torch.lr_scheduler, "
+            "mxnet_tpu_torch._cuda_driver; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
