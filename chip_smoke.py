@@ -11,11 +11,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``nvcc`` per source, all started together).
 2. kernels: hold each kernel against its plain PyTorch version on the card
    — the flash-attention forward and backward over a grid of dtypes, head
-   dims, masks, ragged lengths and offsets, the fused cross-entropy on
-   ragged and full-vocabulary shapes — with controls (the plain versions
-   in TF32, or on TF32-rounded logits) that must miss each float32
-   tolerance; then time each kernel, its plain version and the library's
-   call at the shapes the main paths give it.
+   dims, masks, ragged lengths and offsets (and the edges of their tiles:
+   ``attention_edge_cases``), the fused cross-entropy on ragged and
+   full-vocabulary shapes — with controls (the plain versions in TF32, or
+   on TF32-rounded logits) that must miss each float32 tolerance; launch
+   each flash kernel twice at the main shape and require bitwise-equal
+   results; then time each kernel, its plain version and the library's
+   call at the shapes the main paths give it. Each bound is the least time
+   over the routes that meet the gates (``roofline_ms``): float32 products
+   as three TF32 passes on the tensor cores, bf16 on the tensor cores, or
+   bytes at the HBM rate; the old float32 CUDA-core bound is printed
+   beside the attention kernels'.
 3. serving: the repo's causal TransformerLM graph at the published widths
    of OPT-6.7B (``facebook/opt-6.7b`` config.json: hidden 4096, 32 heads of
    128, FFN 16384, vocab 50272, context 2048), cut to 4 of its 32 layers,
@@ -79,7 +85,21 @@ SEED = 0
 
 # card peaks for the roofline bound (NVIDIA H100 SXM data sheet, dense)
 PEAK_F32_FLOPS = 67e12          # float32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12        # bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12          # HBM3
+# The routes a product can take and still meet the gates below, as
+# seconds per FLOP of the product. One TF32 pass misses the float32 gates
+# (its control does), so float32 on the tensor cores is the split-TF32
+# product: three TF32 passes (a_lo.b_hi + a_hi.b_lo + a_hi.b_hi).
+TF32_PASSES = 3
+PRODUCT_ROUTES = {
+    "f32": {"f32 CUDA cores": 1.0 / PEAK_F32_FLOPS,
+            "3-pass TF32 tensor cores": TF32_PASSES / PEAK_TF32_FLOPS},
+    "bf16": {"bf16 tensor cores": 1.0 / PEAK_BF16_FLOPS},
+    # elementwise work and reductions: no tensor-core route
+    None: {"f32 CUDA cores": 1.0 / PEAK_F32_FLOPS},
+}
 
 # tolerances, with their reasons; each run also computes the plain
 # versions with TF32 (and the LM in bf16) as controls, and fails unless
@@ -490,6 +510,22 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def attention_edge_cases(dtype, head_dims):
+    """Grid entries (dtype, (B, H, Tq, Tk, D), causal, q_offset, k_offset)
+    at the edges of the tensor-core kernels' tiles (128 query rows or keys
+    a block, 64 or 32 a loop tile), at every head dim: Tq and Tk that are
+    multiples of neither; a whole 128-row query tile with no visible key
+    (k_offset 150: rows 0..149 see none), which the forward and dQ skip
+    and the dK/dV kernel's first key tile never visits; and a later query
+    block (q_offset > 0) with Tq < Tk, whose last keys no row sees."""
+    grid = []
+    for D in head_dims:
+        grid.append((dtype, (1, 2, 200, 300, D), True, 0, 150))
+        grid.append((dtype, (1, 2, 150, 333, D), True, 100, 0))
+        grid.append((dtype, (1, 2, 150, 333, D), False, 0, 0))
+    return grid
+
+
 def attention_pairs(BH, Tq, Tk, causal, q_offset=0, k_offset=0) -> float:
     """(query, key) pairs the mask lets through, over all heads."""
     if not causal:
@@ -504,12 +540,18 @@ def attention_flops(BH, Tq, Tk, D, causal, q_offset=0, k_offset=0):
     return 4.0 * D * attention_pairs(BH, Tq, Tk, causal, q_offset, k_offset)
 
 
-def roofline_ms(flops: float, nbytes: float):
-    """(least time in ms on this card for the work, what bounds it): f32
-    operations on the CUDA cores, bytes at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def roofline_ms(flops: float, nbytes: float, products=None):
+    """(least time in ms on this card for the work, "operations" or
+    "bytes", the route of that time): the operations at the fastest route
+    of ``PRODUCT_ROUTES[products]`` (``"f32"`` or ``"bf16"`` matrix
+    products; ``None`` for work the tensor cores cannot take), the bytes at
+    the HBM rate; the larger of the two bounds it."""
+    route, s_per_flop = min(PRODUCT_ROUTES[products].items(),
+                            key=lambda kv: kv[1])
+    t_ops, t_bytes = flops * s_per_flop, nbytes / PEAK_BYTES_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", route
+    return t_bytes * 1e3, "bytes", "HBM"
 
 
 @contextlib.contextmanager
@@ -521,6 +563,33 @@ def tf32_matmuls():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def kernel_resources(libs) -> None:
+    """Print each built kernel's registers and spill stack per thread
+    (``cuobjdump -res-usage``), for the records; a card without
+    ``cuobjdump`` prints that it has none."""
+    import re
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        print("build: cuobjdump not found; registers not read")
+        return
+    for src, path in sorted(libs.items()):
+        out = subprocess.run([tool, "-res-usage", str(path)],
+                             capture_output=True, text=True).stdout
+        found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", out)
+        for name, reg, stack in found:
+            m = re.search(r"(fa_fwd|fa_bwd_dkdv|fa_bwd_dq|ce_fwd)_kernelI"
+                          r"(f|13__nv_bfloat16)(?:Li(\d+)E)?", name)
+            label = name
+            if m:
+                args = ["float" if m.group(2) == "f" else "bf16"]
+                args += [m.group(3)] if m.group(3) else []
+                label = f"{m.group(1)}_kernel<{', '.join(args)}>"
+            print(f"build: {src} {label}: {reg} registers, {stack} bytes "
+                  f"of spill stack a thread")
 
 
 def _card_line() -> str:
@@ -552,6 +621,7 @@ def kernel_phase(hk, dev):
         grid.append((dtype, (1, 2, 77, 1000, 64), True, 923, 0))
         # k block past q: rows 0..29 see no key at all (lse = -1e30)
         grid.append((dtype, (2, 2, 64, 100, 128), True, 0, 30))
+        grid += attention_edge_cases(dtype, hk.SUPPORTED_HEAD_DIMS)
         grid.append((dtype, (4, 32, 2048, 2048, 128), True, 0, 0))
     worst = {}
     main = None
@@ -593,6 +663,14 @@ def kernel_phase(hk, dev):
 
     q, k, v = main["q"], main["k"], main["v"]
     BH, T, D = 4 * 32, 2048, 128
+    # the same inputs twice: the kernel has no atomics, so bitwise equal
+    runs = [hk.flash_attention_with_lse(q, k, v, True) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"flash_attention_fwd determinism, f32 causal (4, 32, 2048, 128) "
+          f"launched twice: out and lse bitwise equal: {same}")
+    if not same:
+        raise AssertionError("flash_attention_fwd is not deterministic")
+    del runs
     ms = _time_ms(lambda: hk.flash_attention(q, k, v, True), reps=5)
     plain_ms = _time_ms(lambda: hk.flash_attention_reference(q, k, v, True),
                         reps=5)
@@ -600,17 +678,20 @@ def kernel_phase(hk, dev):
         q, k, v, is_causal=True), reps=5)
     flops = attention_flops(BH, T, T, D, causal=True)
     nbytes = 4.0 * (4 * BH * T * D + BH * T)   # q, k, v, out, lse (f32)
-    bound_ms, bound_by = roofline_ms(flops, nbytes)
+    bound_ms, bound_by, route = roofline_ms(flops, nbytes, "f32")
+    cuda_core_ms = roofline_ms(flops, nbytes)[0]
     print(f"flash_attention_fwd f32 causal (4, 32, 2048, 128): kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({flops:.3e} FLOP, {nbytes:.3e} B); worst "
-          f"errors {worst}")
+          f"{bound_ms:.3f} ms ({bound_by}, {route}; {flops:.3e} FLOP, "
+          f"{nbytes:.3e} B), f32 CUDA-core bound {cuda_core_ms:.3f} ms; "
+          f"worst errors {worst}; card {_card_line()}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:63",
             "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_route": route, "library_ms": lib_ms}
 
 
 def _max_rel(got, ref) -> float:
@@ -633,6 +714,7 @@ def backward_kernel_phase(hk, dev):
                     grid.append((dtype, (B, H, T, T, D), causal, 0, 0))
         grid.append((dtype, (1, 2, 77, 1000, 64), True, 923, 0))
         grid.append((dtype, (2, 2, 64, 100, 128), True, 0, 30))
+        grid += attention_edge_cases(dtype, hk.SUPPORTED_HEAD_DIMS)
     grid.append((torch.float32, (4, 32, 2048, 2048, 128), True, 0, 0))
     main = None
     for dtype, (B, H, Tq, Tk, D), causal, qo, ko in grid:
@@ -679,6 +761,14 @@ def backward_kernel_phase(hk, dev):
     q, k, v, out, lse, g, sc = (main[n] for n in
                                 ("q", "k", "v", "out", "lse", "g", "sc"))
     BH, T, D = q.shape
+    runs = [hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, True, 0, 0)
+            for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"flash_attention_bwd determinism, f32 causal (4, 32, 2048, 128) "
+          f"launched twice: dq, dk and dv bitwise equal: {same}")
+    if not same:
+        raise AssertionError("flash_attention_bwd is not deterministic")
+    del runs
     delta = (g * out).sum(-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     times = {which: _time_ms(lambda w=which: hk._fa_bwd_launch(
@@ -700,15 +790,21 @@ def backward_kernel_phase(hk, dev):
     # dK/dV needs s = q.k and dp = dO.v to form p and ds, then dv and dk:
     # 8*D FLOP a visible pair; dQ needs s, dp and dq: 6*D. Each reads q,
     # k, v, dO, lse and delta once and writes its outputs once.
-    bounds = {"dkdv": roofline_ms(8.0 * D * pairs, 6 * tile + 8.0 * BH * T),
-              "dq": roofline_ms(6.0 * D * pairs, 5 * tile + 8.0 * BH * T)}
-    joint_ms, _ = roofline_ms(10.0 * D * pairs, 7 * tile + 8.0 * BH * T)
+    work = {"dkdv": (8.0 * D * pairs, 6 * tile + 8.0 * BH * T),
+            "dq": (6.0 * D * pairs, 5 * tile + 8.0 * BH * T),
+            "function": (10.0 * D * pairs, 7 * tile + 8.0 * BH * T)}
+    bounds = {w: roofline_ms(f, b, "f32") for w, (f, b) in work.items()}
+    cuda_core = {w: roofline_ms(f, b)[0] for w, (f, b) in work.items()}
     print(f"flash_attention_bwd f32 causal (4, 32, 2048, 128): dK/dV kernel "
           f"{times['dkdv']:.3f} ms (bound {bounds['dkdv'][0]:.3f}), dQ "
           f"kernel {times['dq']:.3f} ms (bound {bounds['dq'][0]:.3f}), whole "
-          f"backward {whole_ms:.3f} ms (bound of the function {joint_ms:.3f} "
-          f"ms at 10*D FLOP a pair), plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention backward {lib_ms:.3f} ms")
+          f"backward {whole_ms:.3f} ms (bound of the function "
+          f"{bounds['function'][0]:.3f} ms at 10*D FLOP a pair), bounds "
+          f"{bounds['dkdv'][1]}, {bounds['dkdv'][2]}; f32 CUDA-core bounds "
+          f"{cuda_core['dkdv']:.3f}, {cuda_core['dq']:.3f}, function "
+          f"{cuda_core['function']:.3f} ms; plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention backward {lib_ms:.3f} ms; card "
+          f"{_card_line()}")
     del o4, q4, k4, v4
     records = []
     for which, err in (("dkdv", main["err_dkdv"]), ("dq", main["err_dq"])):
@@ -718,7 +814,7 @@ def backward_kernel_phase(hk, dev):
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:220",
             "max_abs_err": err, "ms": times[which], "plain_ms": plain_ms,
             "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
-            "library_ms": lib_ms})
+            "bound_route": bounds[which][2], "library_ms": lib_ms})
     return records
 
 
@@ -770,8 +866,8 @@ def ce_phase(hk, dev):
             lib_ms = _time_ms(lambda: torch.logsumexp(x, dim=1), reps=20)
             # logits read once, labels read, lse and loss written; about
             # 4 operations an element (max, subtract, exp, add)
-            bound_ms, bound_by = roofline_ms(4.0 * n * c,
-                                             4.0 * n * c + 16.0 * n)
+            bound_ms, bound_by, route = roofline_ms(4.0 * n * c,
+                                                    4.0 * n * c + 16.0 * n)
             print(f"softmax_cross_entropy_fwd f32 ({n}, {c}): kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.logsumexp "
                   f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
@@ -780,7 +876,7 @@ def ce_phase(hk, dev):
                    "replaces": "mxnet_tpu/ops/pallas_kernels.py:325",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": lib_ms}
+                   "bound_route": route, "library_ms": lib_ms}
         del x, labels, loss, lse, ref_loss, ref_lse
     return rec
 
@@ -835,7 +931,8 @@ def rtc_kernel_phase(dev):
           f"p90 {np.percentile(host_us, 90):.1f} us")
     records = [{"name": "rtc_axpy", "max_abs_err": 0.0, "ms": axpy_ms,
                 "plain_ms": axpy_plain_ms, "bound_ms": axpy_bound[0],
-                "bound_by": axpy_bound[1], "library_ms": axpy_lib_ms}]
+                "bound_by": axpy_bound[1], "bound_route": axpy_bound[2],
+                "library_ms": axpy_lib_ms}]
     del x, y, ref, out
 
     V, N = OPT_6_7B["vocab"], TRAIN_BATCH * OPT_6_7B["max_len"]
@@ -900,11 +997,12 @@ def rtc_kernel_phase(dev):
     records.append({"name": "rtc_softmax_fwd", "max_abs_err": main["p_err"],
                     "ms": sm_ms, "plain_ms": sm_plain,
                     "bound_ms": sm_bound[0], "bound_by": sm_bound[1],
-                    "library_ms": sm_lib})
+                    "bound_route": sm_bound[2], "library_ms": sm_lib})
     records.append({"name": "rtc_softmax_ce_bwd",
                     "max_abs_err": main["g_err"], "ms": ce_ms,
                     "plain_ms": ce_plain, "bound_ms": ce_bound[0],
-                    "bound_by": ce_bound[1], "library_ms": None})
+                    "bound_by": ce_bound[1], "bound_route": ce_bound[2],
+                    "library_ms": None})
     for rec in records:
         rec.update(route="cuda", compiler="nvrtc", source="chip_smoke.py",
                    replaces="mxnet_tpu/rtc.py:78")
@@ -1478,6 +1576,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on the GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import hopper_kernels as hk
     dev = torch.device("cuda", 0)
@@ -1495,6 +1594,7 @@ def main(argv=None) -> int:
     libs = hk.build()
     print(f"build: {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
+    kernel_resources(libs)
 
     records = [kernel_phase(hk, dev)]
     records += backward_kernel_phase(hk, dev)
@@ -1523,9 +1623,11 @@ def main(argv=None) -> int:
                            + extended.get(name, 0))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the build included")
     keys = ("name", "route", "compiler", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "bound_route", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}))
     print(json.dumps({"ok": True, "device": {

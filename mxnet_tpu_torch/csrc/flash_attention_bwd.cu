@@ -18,53 +18,51 @@
 // exp(s - lse) overflows to inf and 0 * inf would be NaN.
 //
 // Design. Two kernels and no atomics, so the result is deterministic:
-// * dK/dV: one thread block per (batch*head, 32-key tile). dK and dV stay
-//   in registers while the block loops over the 64-row query tiles;
-// * dQ: one thread block per (batch*head, 64-row query tile), looping over
-//   the 32-key tiles with dQ in registers.
-// Both recompute p from lse (the TPU scan did too), so q.k^T and dO.v^T are
-// computed twice over: seven products against the five the function
-// needs. Tiles are staged in shared memory as f32, rows padded by one word
-// against bank conflicts; ragged tiles are zero-filled. Within a tile the
-// 128 threads own 4x4 score entries each (rows 4*(tid/8)+i, keys
-// tid%8 + 8j); in the products that reduce over the tile, 4 rows by D/16
-// (dK, dV) or D/8 (dQ) output columns. Under the causal mask a tile pair
-// with no visible (query, key) pair is skipped whole.
+// * dK/dV: one block of 8 warps per (batch*head, 128-key tile), each warp
+//   owning 16 keys, with dK and dV in registers while the block loops over
+//   32-row query tiles, from the first that sees the key tile;
+// * dQ: one block of 8 warps per (batch*head, 128-row query tile), each
+//   warp owning 16 query rows, looping over 32-key tiles up to the last
+//   key the tile's last row sees, with dQ in registers.
+// Both recompute p from lse (the TPU scan did too). The loop's tiles come
+// in by cp.async into a two-stage ring, the block's own tiles once. Every
+// product runs on the tensor cores (flash_mma.cuh): split-TF32 for f32
+// inputs, bf16 MMAs (p and ds rounded to bf16) for bf16 inputs.
+//
+// The transposed products. dv += p^T.dO and dk += ds^T.q take p^T and
+// ds^T as A operands whose rows are keys. The dK/dV kernel therefore
+// computes the transposed tiles from the start: s^T = k.q^T and
+// dp^T = v.dO^T, whose rows are the warp's keys, so p^T and ds^T come out
+// of the MMAs already in the accumulator layout that gemm_rn takes as its
+// A operand, and dO and q are read as plain row-major B operands. Writing
+// p and ds to shared memory and reading them back transposed would cost a
+// round trip and a barrier per tile; this costs nothing. lse and delta,
+// per query, then index the accumulator's columns (staged with the tile).
+//
+// Causal skipping: a (query tile, key tile) pair with no visible pair is
+// never visited, and a warp skips a tile none of its 16 rows can reach
+// (its contribution would be exactly 0).
 //
 // What bounds it on this card: at the training shape (B*H = 128, T = 2048,
-// D = 128, causal) the work is 10*D FLOPs per visible (query, key) pair
-// against (4 inputs + 3 outputs) of bytes, far above the ridge point, so it
-// is bound by operations. This first version runs them as f32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), not the tensor cores; wgmma and TMA
-// staging are later work.
+// D = 128, causal) the function needs 10*D FLOPs per visible (query, key)
+// pair against (4 inputs + 3 outputs) of bytes, far above the ridge point,
+// so it is bound by operations: three TF32 passes at 495 TFLOP/s (2.09 ms)
+// at best. The recomputation of s and dp in both kernels makes it 14*D.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_bwd.so flash_attention_bwd.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBlockM = 64;     // query rows per tile
-constexpr int kBlockN = 32;     // keys per tile
-constexpr int kThreads = 128;
+using namespace flash;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwn = 16 * kWarps;   // keys (dK/dV) or query rows (dQ) a block
+constexpr int kQTile = 32;          // query rows a loop tile of dK/dV
+constexpr int kKTile = 32;          // keys a loop tile of dQ
 
 // Every tensor is contiguous: q, dout, dq (BH, Tq, D); k, v, dk, dv
 // (BH, Tk, D); lse, delta (BH, Tq) f32.
@@ -78,94 +76,45 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int tq, tk, n_tiles;
+  int bh, tq, tk, n_tiles;
   float scale;
   int causal, q_offset, k_offset;
+  int aligned;   // cp.async staging (see flash_mma.cuh)
 };
 
-// rows [r0, r0 + rows) of a (t, D) matrix -> smem (rows x (D + 1)) in f32,
-// zero past row t
+// two own tiles, a two-stage ring of two loop tiles, and (dK/dV) the
+// loop tile's lse and delta
 template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int rows, int t) {
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int r = e / D, c = e % D, g = r0 + r;
-    dst[r * (D + 1) + c] = g < t ? to_f32(src[(int64_t)g * D + c]) : 0.f;
-  }
-}
-
-// acc[i][j] = A[4*ty + i] . B[tx + 8*j] over D, for the 64 x 32 tile
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         float acc[4][4], int ty, int tx) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 8 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// p and ds of the thread's 4 x 4 entries of the (m0, n0) tile pair from the
-// raw products s = q.k and dp = dO.v; masked entries are selected to 0
-__device__ __forceinline__ void probs_and_dscores(
-    const Params& p, int m0, int n0, int ty, int tx, const float* lse_row,
-    const float* delta_row, float s[4][4], float dp[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = m0 + 4 * ty + i;
-    const int64_t qpos = (int64_t)p.q_offset + g;
-    const float l = lse_row[i];
-    const bool row_ok = g < p.tq && l > 0.5f * kNegInf;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = n0 + tx + 8 * j;
-      const bool ok = row_ok && key < p.tk &&
-                      (!p.causal || qpos >= (int64_t)p.k_offset + key);
-      const float pij = ok ? expf(s[i][j] * p.scale - l) : 0.f;
-      dp[i][j] = ok ? pij * (dp[i][j] - delta_row[i]) * p.scale : 0.f;
-      s[i][j] = pij;
-    }
-  }
-}
-
-template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) * (2 * kBlockN * (D + 1) + 2 * kBlockM * (D + 1) +
-                          2 * kBlockM * (kBlockN + 1) + 2 * kBlockM);
+  return sizeof(T) * row_pitch<T, D>() * (2 * kOwn + 4 * kQTile) +
+         sizeof(float) * 4 * kQTile;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int NP = kBlockN + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;                    // kBlockN x DP
-  float* sV = sK + kBlockN * DP;       // kBlockN x DP
-  float* sQ = sV + kBlockN * DP;       // kBlockM x DP
-  float* sdO = sQ + kBlockM * DP;      // kBlockM x DP
-  float* sP = sdO + kBlockM * DP;      // kBlockM x NP
-  float* sdS = sP + kBlockM * NP;      // kBlockM x NP
-  float* sL = sdS + kBlockM * NP;      // kBlockM
-  float* sDelta = sL + kBlockM;        // kBlockM
+constexpr size_t dq_smem_bytes() {
+  return sizeof(T) * row_pitch<T, D>() * (2 * kOwn + 4 * kKTile);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 8, tx = tid % 8;     // score tile entries
-  const int ky = tid / 16, kx = tid % 16;   // dK/dV: keys 4ky+i, cols kx+16j
-  const int64_t bh = blockIdx.x / p.n_tiles;
-  const int n0 = (blockIdx.x % p.n_tiles) * kBlockN;
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_kernel(Params p) {
+  constexpr int LD = row_pitch<T, D>();
+  constexpr int QT = kQTile / 8;   // query n-tiles of s^T
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);      // kOwn x LD
+  T* sV = sK + kOwn * LD;                      // kOwn x LD
+  T* sQ = sV + kOwn * LD;                      // 2 x kQTile x LD
+  T* sdO = sQ + 2 * kQTile * LD;               // 2 x kQTile x LD
+  float* sL = reinterpret_cast<float*>(sdO + 2 * kQTile * LD);  // 2 x kQTile
+  float* sDelta = sL + 2 * kQTile;                              // 2 x kQTile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x % p.bh;
+  // under the causal mask the first key tiles see the most queries: they
+  // come first
+  const int n0 = (int)(blockIdx.x / p.bh) * kOwn;
+  const bool aligned = p.aligned != 0;
 
   const T* q = static_cast<const T*>(p.q) + bh * p.tq * D;
   const T* k = static_cast<const T*>(p.k) + bh * p.tk * D;
@@ -173,207 +122,265 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + bh * p.tq * D;
   const float* lse = p.lse + bh * p.tq;
   const float* delta = p.delta + bh * p.tq;
-
-  stage<T, D>(sK, k, n0, kBlockN, p.tk);
-  stage<T, D>(sV, v, n0, kBlockN, p.tk);
-
-  float dk[4][DJ], dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  const int64_t first_key = (int64_t)p.k_offset + n0;
-  for (int m0 = 0; m0 < p.tq; m0 += kBlockM) {
-    const int last_row = min(m0 + kBlockM, p.tq) - 1;
-    if (p.causal && (int64_t)p.q_offset + last_row < first_key) continue;
-    __syncthreads();  // the previous tile's sQ/sdO/sP/sdS are no longer read
-    stage<T, D>(sQ, q, m0, kBlockM, p.tq);
-    stage<T, D>(sdO, dout, m0, kBlockM, p.tq);
-    for (int e = tid; e < kBlockM; e += kThreads) {
-      const int g = m0 + e;
-      sL[e] = g < p.tq ? lse[g] : 0.f;
-      sDelta[e] = g < p.tq ? delta[g] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4], l[4], dl[4];
-    tile_dot<D>(sQ, sK, s, ty, tx);
-    tile_dot<D>(sdO, sV, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      l[i] = sL[4 * ty + i];
-      dl[i] = sDelta[4 * ty + i];
-    }
-    probs_and_dscores(p, m0, n0, ty, tx, l, dl, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sP[(4 * ty + i) * NP + tx + 8 * j] = s[i][j];
-        sdS[(4 * ty + i) * NP + tx + 8 * j] = dp[i][j];
-      }
-    __syncthreads();  // sP, sdS complete
-
-#pragma unroll 4
-    for (int m = 0; m < kBlockM; ++m) {
-      float pa[4], sa[4], ob[DJ], qb[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = sP[m * NP + 4 * ky + i];
-        sa[i] = sdS[m * NP + 4 * ky + i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ob[j] = sdO[m * DP + kx + 16 * j];
-        qb[j] = sQ[m * DP + kx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
-          dk[i][j] = fmaf(sa[i], qb[j], dk[i][j]);
-        }
-    }
-  }
-
   T* dk_out = static_cast<T*>(p.dk) + bh * p.tk * D;
   T* dv_out = static_cast<T*>(p.dv) + bh * p.tk * D;
+
+  // the first query tile that sees the block's first key
+  int m_begin = 0;
+  if (p.causal) {
+    const int64_t first = (int64_t)p.k_offset + n0 - p.q_offset;
+    if (first >= p.tq) {   // no query sees any key of the tile
+      const int rows = min(kOwn, p.tk - n0);
+      for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+        dk_out[(int64_t)n0 * D + e] = from_f32<T>(0.f);
+        dv_out[(int64_t)n0 * D + e] = from_f32<T>(0.f);
+      }
+      return;
+    }
+    m_begin = first <= 0 ? 0 : (int)first / kQTile * kQTile;
+  }
+  const int n_it = (p.tq - m_begin + kQTile - 1) / kQTile;
+
+  auto stage_loop_tile = [&](int m0, int buf) {
+    stage_rows<T, kQTile, D, LD, kThreads>(sQ + buf * kQTile * LD, q, D, m0,
+                                           p.tq, aligned);
+    stage_rows<T, kQTile, D, LD, kThreads>(sdO + buf * kQTile * LD, dout, D,
+                                           m0, p.tq, aligned);
+    for (int e = threadIdx.x; e < kQTile; e += kThreads) {
+      const int gm = m0 + e;
+      sL[buf * kQTile + e] = gm < p.tq ? lse[gm] : 0.f;
+      sDelta[buf * kQTile + e] = gm < p.tq ? delta[gm] : 0.f;
+    }
+  };
+  stage_rows<T, kOwn, D, LD, kThreads>(sK, k, D, n0, p.tk, aligned);
+  stage_rows<T, kOwn, D, LD, kThreads>(sV, v, D, n0, p.tk, aligned);
+  stage_loop_tile(m_begin, 0);
+  cp_async_commit();
+
+  const int key0 = n0 + 16 * warp;                  // the warp's first key
+  const int64_t kpos0 = (int64_t)p.k_offset + key0;
+  const T* wK = sK + 16 * warp * LD;
+  const T* wV = sV + 16 * warp * LD;
+  float dk[DT][4], dv[DT][4];
+  zero(dk);
+  zero(dv);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int m0 = m_begin + it * kQTile;
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    // tile it has landed for every thread, and every warp is done with
+    // tile it - 1, whose buffers the next tile takes
+    __syncthreads();
+    if (it + 1 < n_it) {   // the next tile loads while this one computes
+      stage_loop_tile(m0 + kQTile, buf ^ 1);
+      cp_async_commit();
+    }
+    const T* cQ = sQ + buf * kQTile * LD;
+    const T* cdO = sdO + buf * kQTile * LD;
+    const float* cL = sL + buf * kQTile;
+    const float* cDelta = sDelta + buf * kQTile;
+    const bool active =
+        key0 < p.tk &&
+        (!p.causal || (int64_t)p.q_offset + m0 + kQTile - 1 >= kpos0);
+    if (active) {
+      float pt[QT][4];   // s^T, then p^T: rows the warp's keys
+      zero(pt);
+      gemm_nt<QT, D, LD, LD>(pt, wK, cQ, g, t);
+      const bool need_mask =
+          m0 + kQTile > p.tq ||
+          (p.causal && (int64_t)p.q_offset + m0 < kpos0 + 15);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = n0 + 4 * ky + i;
-    if (g >= p.tk) continue;
+      for (int j = 0; j < QT; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk_out[(int64_t)g * D + kx + 16 * j] = from_f32<T>(dk[i][j]);
-      dv_out[(int64_t)g * D + kx + 16 * j] = from_f32<T>(dv[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const float l = cL[col];
+          bool ok = l > 0.5f * kNegInf;
+          if (need_mask) {
+            const int qi = m0 + col;
+            ok = ok && qi < p.tq &&
+                 (!p.causal ||
+                  (int64_t)p.q_offset + qi >= kpos0 + g + 8 * (e >> 1));
+          }
+          pt[j][e] = ok ? exp_fast(pt[j][e] * p.scale - l) : 0.f;
+        }
+      gemm_rn<QT, DT, LD>(dv, pt, cdO, g, t);        // dv += p^T . dO
+      float dst[QT][4];  // dp^T, then ds^T
+      zero(dst);
+      gemm_nt<QT, D, LD, LD>(dst, wV, cdO, g, t);
+#pragma unroll
+      for (int j = 0; j < QT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pj = pt[j][e];
+          const float d = cDelta[8 * j + 2 * t + (e & 1)];
+          dst[j][e] = pj == 0.f ? 0.f : pj * (dst[j][e] - d) * p.scale;
+        }
+      gemm_rn<QT, DT, LD>(dk, dst, cQ, g, t);        // dk += ds^T . q
     }
   }
-}
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kBlockM * (D + 1) + 2 * kBlockN * (D + 1) +
-                          kBlockM * (kBlockN + 1));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    if (key >= p.tk) continue;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int64_t at = (int64_t)key * D + 8 * j + 2 * t + c;
+        dk_out[at] = from_f32<T>(dk[j][2 * r + c]);
+        dv_out[at] = from_f32<T>(dv[j][2 * r + c]);
+      }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int NP = kBlockN + 1;
-  constexpr int DJ = D / 8;
-  extern __shared__ float smem[];
-  float* sQ = smem;                    // kBlockM x DP
-  float* sdO = sQ + kBlockM * DP;      // kBlockM x DP
-  float* sK = sdO + kBlockM * DP;      // kBlockN x DP
-  float* sV = sK + kBlockN * DP;       // kBlockN x DP
-  float* sdS = sV + kBlockN * DP;      // kBlockM x NP
+__global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_kernel(Params p) {
+  constexpr int LD = row_pitch<T, D>();
+  constexpr int KT = kKTile / 8;   // key n-tiles of s
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);      // kOwn x LD
+  T* sdO = sQ + kOwn * LD;                     // kOwn x LD
+  T* sK = sdO + kOwn * LD;                     // 2 x kKTile x LD
+  T* sV = sK + 2 * kKTile * LD;                // 2 x kKTile x LD
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 8, tx = tid % 8;   // rows 4ty+i; keys / cols tx+8j
-  const int64_t bh = blockIdx.x / p.n_tiles;
-  const int m0 = (blockIdx.x % p.n_tiles) * kBlockM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x % p.bh;
+  // under the causal mask the last query tiles see the most keys: they
+  // come first
+  const int m0 = (p.n_tiles - 1 - (int)(blockIdx.x / p.bh)) * kOwn;
+  const bool aligned = p.aligned != 0;
 
   const T* q = static_cast<const T*>(p.q) + bh * p.tq * D;
   const T* k = static_cast<const T*>(p.k) + bh * p.tk * D;
   const T* v = static_cast<const T*>(p.v) + bh * p.tk * D;
   const T* dout = static_cast<const T*>(p.dout) + bh * p.tq * D;
+  T* dq_out = static_cast<T*>(p.dq) + bh * p.tq * D;
 
-  stage<T, D>(sQ, q, m0, kBlockM, p.tq);
-  stage<T, D>(sdO, dout, m0, kBlockM, p.tq);
-  float l[4], dl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = m0 + 4 * ty + i;
-    l[i] = g < p.tq ? p.lse[bh * p.tq + g] : 0.f;
-    dl[i] = g < p.tq ? p.delta[bh * p.tq + g] : 0.f;
+  int n_end = p.tk;
+  if (p.causal) {
+    const int64_t last_row = min(m0 + kOwn, p.tq) - 1;
+    const int64_t lim = (int64_t)p.q_offset + last_row - p.k_offset + 1;
+    n_end = lim <= 0 ? 0 : (lim < p.tk ? (int)lim : p.tk);
   }
+  if (n_end <= 0) {   // no row of the tile sees a key
+    const int rows = min(kOwn, p.tq - m0);
+    for (int e = threadIdx.x; e < rows * D; e += kThreads)
+      dq_out[(int64_t)m0 * D + e] = from_f32<T>(0.f);
+    return;
+  }
+  const int n_it = (n_end + kKTile - 1) / kKTile;
 
-  float dq[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
+  stage_rows<T, kOwn, D, LD, kThreads>(sQ, q, D, m0, p.tq, aligned);
+  stage_rows<T, kOwn, D, LD, kThreads>(sdO, dout, D, m0, p.tq, aligned);
+  stage_rows<T, kKTile, D, LD, kThreads>(sK, k, D, 0, p.tk, aligned);
+  stage_rows<T, kKTile, D, LD, kThreads>(sV, v, D, 0, p.tk, aligned);
+  cp_async_commit();
 
-  const int64_t last_query = (int64_t)p.q_offset + min(m0 + kBlockM, p.tq) - 1;
-  for (int n0 = 0; n0 < p.tk; n0 += kBlockN) {
-    // this key tile and every later one lie past the tile's last query
-    if (p.causal && (int64_t)p.k_offset + n0 > last_query) break;
-    __syncthreads();  // the previous tile's sK/sV/sdS are no longer read
-    stage<T, D>(sK, k, n0, kBlockN, p.tk);
-    stage<T, D>(sV, v, n0, kBlockN, p.tk);
+  const int row0 = m0 + 16 * warp;                  // the warp's first row
+  const int64_t qpos0 = (int64_t)p.q_offset + row0;
+  const T* wQ = sQ + 16 * warp * LD;
+  const T* wdO = sdO + 16 * warp * LD;
+  float l_r[2], dl_r[2];   // rows past Tq take the sentinel: p = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    l_r[r] = row < p.tq ? p.lse[bh * p.tq + row] : kNegInf;
+    dl_r[r] = row < p.tq ? p.delta[bh * p.tq + row] : 0.f;
+  }
+  float dq[DT][4];
+  zero(dq);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int n0 = it * kKTile;
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    // tile it has landed for every thread, and every warp is done with
+    // tile it - 1, whose buffers the next tile takes
     __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(sQ, sK, s, ty, tx);
-    tile_dot<D>(sdO, sV, dp, ty, tx);
-    probs_and_dscores(p, m0, n0, ty, tx, l, dl, s, dp);
+    if (it + 1 < n_it) {   // the next tile loads while this one computes
+      stage_rows<T, kKTile, D, LD, kThreads>(sK + (buf ^ 1) * kKTile * LD, k,
+                                             D, n0 + kKTile, p.tk, aligned);
+      stage_rows<T, kKTile, D, LD, kThreads>(sV + (buf ^ 1) * kKTile * LD, v,
+                                             D, n0 + kKTile, p.tk, aligned);
+      cp_async_commit();
+    }
+    const T* cK = sK + buf * kKTile * LD;
+    const T* cV = sV + buf * kKTile * LD;
+    const bool active = row0 < p.tq &&
+                        (!p.causal || qpos0 + 15 >= (int64_t)p.k_offset + n0);
+    if (active) {
+      float s[KT][4];   // s, then p
+      zero(s);
+      gemm_nt<KT, D, LD, LD>(s, wQ, cK, g, t);
+      const bool need_mask =
+          n0 + kKTile > p.tk ||
+          (p.causal && (int64_t)p.k_offset + n0 + kKTile - 1 > qpos0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sdS[(4 * ty + i) * NP + tx + 8 * j] = dp[i][j];
-    __syncthreads();  // sdS complete
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      float sa[4], kb[DJ];
+        for (int e = 0; e < 4; ++e) {
+          const float l = l_r[e >> 1];
+          bool ok = l > 0.5f * kNegInf;
+          if (need_mask) {
+            const int key = n0 + 8 * j + 2 * t + (e & 1);
+            ok = ok && key < p.tk &&
+                 (!p.causal || qpos0 + g + 8 * (e >> 1) >=
+                                   (int64_t)p.k_offset + key);
+          }
+          s[j][e] = ok ? exp_fast(s[j][e] * p.scale - l) : 0.f;
+        }
+      float ds[KT][4];   // dp, then ds
+      zero(ds);
+      gemm_nt<KT, D, LD, LD>(ds, wdO, cV, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = sdS[(4 * ty + i) * NP + c];
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) kb[j] = sK[c * DP + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const float pj = s[j][e];
+          const float dp = ds[j][e] - dl_r[e >> 1];
+          ds[j][e] = pj == 0.f ? 0.f : pj * dp * p.scale;
+        }
+      gemm_rn<KT, DT, LD>(dq, ds, cK, g, t);         // dq += ds . k
     }
   }
 
-  T* dq_out = static_cast<T*>(p.dq) + bh * p.tq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = m0 + 4 * ty + i;
-    if (g >= p.tq) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= p.tq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq_out[(int64_t)g * D + tx + 8 * j] = from_f32<T>(dq[i][j]);
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        dq_out[(int64_t)row * D + 8 * j + 2 * t + c] =
+            from_f32<T>(dq[j][2 * r + c]);
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int blocks, const Params& p,
-                   cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename T, int D>
-cudaError_t launch_dkdv(Params p, int bh, cudaStream_t stream) {
-  p.n_tiles = (p.tk + kBlockN - 1) / kBlockN;
-  return launch(fa_bwd_dkdv_kernel<T, D>, dkdv_smem_bytes<D>(),
-                bh * p.n_tiles, p, stream);
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(Params p, int bh, cudaStream_t stream) {
-  p.n_tiles = (p.tq + kBlockM - 1) / kBlockM;
-  return launch(fa_bwd_dq_kernel<T, D>, dq_smem_bytes<D>(), bh * p.n_tiles,
-                p, stream);
+cudaError_t launch_d(bool dkdv, Params p, cudaStream_t stream) {
+  const void* ptrs[] = {p.q, p.k, p.v, p.dout};
+  p.aligned = aligned16(ptrs, 4, nullptr, 0, (int)sizeof(T));
+  p.n_tiles = ((dkdv ? p.tk : p.tq) + kOwn - 1) / kOwn;
+  void (*kernel)(Params) =
+      dkdv ? &fa_bwd_dkdv_kernel<T, D> : &fa_bwd_dq_kernel<T, D>;
+  return flash::launch(kernel, p, p.bh * p.n_tiles, kThreads,
+                       dkdv ? dkdv_smem_bytes<T, D>() : dq_smem_bytes<T, D>(),
+                       stream);
 }
 
 template <typename T>
-cudaError_t dispatch(bool dkdv, const Params& p, int head_dim, int bh,
+cudaError_t dispatch(bool dkdv, const Params& p, int head_dim,
                      cudaStream_t s) {
   switch (head_dim) {
-    case 32: return dkdv ? launch_dkdv<T, 32>(p, bh, s) : launch_dq<T, 32>(p, bh, s);
-    case 64: return dkdv ? launch_dkdv<T, 64>(p, bh, s) : launch_dq<T, 64>(p, bh, s);
-    case 128: return dkdv ? launch_dkdv<T, 128>(p, bh, s) : launch_dq<T, 128>(p, bh, s);
+    case 32: return launch_d<T, 32>(dkdv, p, s);
+    case 64: return launch_d<T, 64>(dkdv, p, s);
+    case 128: return launch_d<T, 128>(dkdv, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -392,6 +399,7 @@ int run(bool dkdv, const void* q, const void* k, const void* v,
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.bh = bh;
   p.tq = tq;
   p.tk = tk;
   p.n_tiles = 0;
@@ -399,9 +407,10 @@ int run(bool dkdv, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.q_offset = q_offset;
   p.k_offset = k_offset;
+  p.aligned = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(dkdv, p, head_dim, bh, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(dkdv, p, head_dim, bh, s);
+  if (dtype == 0) return (int)dispatch<float>(dkdv, p, head_dim, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(dkdv, p, head_dim, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,56 +8,54 @@
 //           scalars as in the TPU kernel's SMEM prefetch);
 //   out   = sum_j softmax(s)_j v_j  in the input type, accumulated in f32;
 //   lse   = m + log(l) in f32, l floored at 1e-30, and -1e30 (never -inf)
-//           for a fully masked row.
+//           for a fully masked row, whose out is 0.
 //
-// Design. One thread block per (batch*head, 64-row query tile); a loop
-// inside the block walks the keys in 32-row tiles staged in shared memory
-// (on the TPU the sequential k grid axis carried that loop). The
-// online-softmax state (m, l, acc) lives in registers in f32: thread
-// (ty, tx) = (tid / 8, tid % 8) owns query rows 4*ty .. 4*ty+3, score
-// columns tx + 8j and output columns tx + 8j, and the 8 threads of a row
-// group reduce row max and row sum with warp shuffles. Both products,
-// q.k^T and p.v, are f32 FMAs in the kernel body. Ragged key tiles are
-// zero-filled in K and V as well as masked in the scores, so garbage past
-// Tk can never reach the output through 0 * NaN.
+// Design. One block of 8 warps per (batch*head, 128-row query tile); each
+// warp owns 16 query rows. A loop inside the block walks the keys in
+// 32-row tiles (on the TPU the sequential k grid axis carried that loop),
+// staged by cp.async into a two-stage ring so that tile n + 1 loads while
+// tile n computes; the query tile is staged once. Both products run on the
+// tensor cores (flash_mma.cuh): s = q.k^T comes out of the MMAs into
+// accumulator fragments, the online softmax (m, l) runs on those fragments
+// with quad shuffles, and p goes from the accumulator registers straight
+// into the A operand of p.v. float32 inputs take the split-TF32 product
+// (three TF32 MMAs, f32 error), bfloat16 one bf16 MMA with p rounded to
+// bf16. Ragged tiles are zero-filled as well as masked in the scores, so
+// garbage past Tk never reaches the output through 0 * NaN; masked scores
+// are selected to -1e30 and their p to 0.
+//
+// Causal tile skipping. Under the mask a query tile [m0, m0 + 128) visits
+// key tiles only up to n_end = min(Tk, q_offset + last_row - k_offset + 1);
+// only tiles that reach past the first row's last visible key, or past Tk,
+// take the element mask, and a warp skips a tile none of its 16 rows can
+// see (an exact no-op of the online softmax). A tile with n_end <= 0 writes
+// out = 0 and lse = -1e30 and returns. Rows of a visited tile that see no
+// key end with l = 0, which gives the same sentinel. Blocks take their query
+// tiles last to first, so the heaviest causal tiles start first and the
+// light ones fill the tail.
 //
 // What bounds it on this card: at the serving shape (B*H = 128, T = 2048,
-// D = 128) the work is 4*B*H*Tq*Tk*D FLOPs against (3 inputs + 1 output)
-// of bytes, far above the ridge point, so it is bound by operations. This
-// first version runs them on the CUDA cores (67 TFLOP/s f32 peak), not the
-// tensor cores, and visits every key tile, masked or not, as the TPU
-// kernel also does. wgmma, TMA staging and causal tile skipping are later
-// work.
+// D = 128, causal) the work is 4*D FLOPs per visible (query, key) pair
+// against (3 inputs + 1 output) of bytes, far above the ridge point, so it
+// is bound by operations: at best three TF32 passes at 495 TFLOP/s (0.83
+// ms), against 2.05 ms for one f32 pass on the CUDA cores. The fragment
+// loads, operand splits and partial sums are four to five instructions
+// beside each MMA, and at ~240 registers a thread only 8 warps fit an SM
+// to hide their latency: those, not the tensor cores, limit it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBlockM = 64;     // query rows per block
-constexpr int kBlockN = 32;     // keys per shared-memory tile
-constexpr int kThreads = 128;
-constexpr int kGroups = 8;      // threads sharing one row group
-constexpr int kRows = 4;        // query rows per thread
+using namespace flash;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockM = 16 * kWarps;  // query rows per block
+constexpr int kBlockN = 32;           // keys per tile
 
 struct Params {
   const void* q;
@@ -66,167 +64,174 @@ struct Params {
   void* out;
   float* lse;
   int64_t q_sbh, q_st, k_sbh, k_st, v_sbh, v_st, o_sbh, o_st;
-  int tq, tk, n_qtiles;
+  int bh, tq, tk, n_qtiles;
   float scale;
   int causal, q_offset, k_offset;
+  int aligned;   // cp.async staging (see flash_mma.cuh)
 };
 
-template <int D>
+// Q tile, then a two-stage ring of (K, V) tiles
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((kBlockM + 2 * kBlockN) * (D + 1) + kBlockM * (kBlockN + 1));
+  return sizeof(T) * row_pitch<T, D>() * (kBlockM + 4 * kBlockN);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
-  constexpr int DP = D + 1;           // padded rows: no bank conflicts
-  constexpr int NP = kBlockN + 1;
-  constexpr int NJ = kBlockN / kGroups;
-  constexpr int DJ = D / kGroups;
-  extern __shared__ float smem[];
-  float* sQ = smem;                   // kBlockM x DP
-  float* sK = sQ + kBlockM * DP;      // kBlockN x DP
-  float* sV = sK + kBlockN * DP;      // kBlockN x DP
-  float* sP = sV + kBlockN * DP;      // kBlockM x NP
+__global__ void __launch_bounds__(kThreads, 1) fa_fwd_kernel(Params p) {
+  constexpr int LD = row_pitch<T, D>();
+  constexpr int NT = kBlockN / 8;   // score n-tiles
+  constexpr int DT = D / 8;         // output n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);            // kBlockM x LD
+  T* sK = sQ + kBlockM * LD;                         // 2 x kBlockN x LD
+  T* sV = sK + 2 * kBlockN * LD;                     // 2 x kBlockN x LD
 
-  const int tid = threadIdx.x;
-  const int ty = tid / kGroups;
-  const int tx = tid % kGroups;
-  const int64_t bh = blockIdx.x / p.n_qtiles;
-  const int m0 = (blockIdx.x % p.n_qtiles) * kBlockM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x % p.bh;
+  const int m0 = (p.n_qtiles - 1 - (int)(blockIdx.x / p.bh)) * kBlockM;
+  const bool aligned = p.aligned != 0;
 
   const T* q = static_cast<const T*>(p.q) + bh * p.q_sbh;
   const T* k = static_cast<const T*>(p.k) + bh * p.k_sbh;
   const T* v = static_cast<const T*>(p.v) + bh * p.v_sbh;
   T* o = static_cast<T*>(p.out) + bh * p.o_sbh;
 
-  for (int e = tid; e < kBlockM * D; e += kThreads) {
-    const int r = e / D, c = e % D, g = m0 + r;
-    sQ[r * DP + c] = g < p.tq ? to_f32(q[g * p.q_st + c]) : 0.f;
+  int n_end = p.tk;
+  if (p.causal) {
+    const int64_t last_row = min(m0 + kBlockM, p.tq) - 1;
+    const int64_t lim = (int64_t)p.q_offset + last_row - p.k_offset + 1;
+    n_end = lim <= 0 ? 0 : (lim < p.tk ? (int)lim : p.tk);
   }
-
-  float m_i[kRows], l_i[kRows], acc[kRows][DJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  if (n_end <= 0) {   // no row of the tile sees a key
+    const int rows = min(kBlockM, p.tq - m0);
+    for (int e = threadIdx.x; e < rows * D; e += kThreads)
+      o[(m0 + e / D) * p.o_st + e % D] = from_f32<T>(0.f);
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      p.lse[bh * p.tq + m0 + r] = kNegInf;
+    return;
   }
+  const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
 
-  for (int n0 = 0; n0 < p.tk; n0 += kBlockN) {
-    __syncthreads();  // the previous tile's sK/sV/sP are no longer read
-    for (int e = tid; e < kBlockN * D; e += kThreads) {
-      const int r = e / D, c = e % D, g = n0 + r;
-      const bool in = g < p.tk;
-      sK[r * DP + c] = in ? to_f32(k[g * p.k_st + c]) : 0.f;
-      sV[r * DP + c] = in ? to_f32(v[g * p.v_st + c]) : 0.f;
-    }
+  stage_rows<T, kBlockM, D, LD, kThreads>(sQ, q, p.q_st, m0, p.tq, aligned);
+  stage_rows<T, kBlockN, D, LD, kThreads>(sK, k, p.k_st, 0, p.tk, aligned);
+  stage_rows<T, kBlockN, D, LD, kThreads>(sV, v, p.v_st, 0, p.tk, aligned);
+  cp_async_commit();
+
+  const int row0 = m0 + 16 * warp;                 // the warp's first row
+  const int64_t qpos0 = (int64_t)p.q_offset + row0;
+  const T* wQ = sQ + 16 * warp * LD;
+  float acc[DT][4];
+  zero(acc);
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = it * kBlockN;
+    cp_async_wait<0>();
+    // tile it has landed for every thread, and every warp is done with
+    // tile it - 1, whose buffers the next tile takes
     __syncthreads();
-
-    float s[kRows][NJ];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[kRows], kb[NJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qa[i] = sQ[(ty * kRows + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kb[j] = sK[(tx + kGroups * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    if (it + 1 < n_tiles) {   // the next tile loads while this one computes
+      const int nb = (it + 1) & 1;
+      stage_rows<T, kBlockN, D, LD, kThreads>(sK + nb * kBlockN * LD, k,
+                                              p.k_st, n0 + kBlockN, p.tk,
+                                              aligned);
+      stage_rows<T, kBlockN, D, LD, kThreads>(sV + nb * kBlockN * LD, v,
+                                              p.v_st, n0 + kBlockN, p.tk,
+                                              aligned);
+      cp_async_commit();
     }
-
+    const T* cK = sK + (it & 1) * kBlockN * LD;
+    const T* cV = sV + (it & 1) * kBlockN * LD;
+    // a warp whose rows are all past Tq, or before the tile's first key,
+    // has nothing to add
+    const bool active = row0 < p.tq &&
+                        (!p.causal || qpos0 + 15 >= (int64_t)p.k_offset + n0);
+    if (active) {
+      float s[NT][4];
+      zero(s);
+      gemm_nt<NT, D, LD, LD>(s, wQ, cK, g, t);
+      const bool need_mask =
+          n0 + kBlockN > p.tk ||
+          (p.causal && (int64_t)p.k_offset + n0 + kBlockN - 1 > qpos0);
+      float bmax[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty * kRows + i;
-      const int64_t qpos = (int64_t)p.q_offset + m0 + row;
-      float blk_max = kNegInf;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int key = n0 + tx + kGroups * j;
-        const bool ok = key < p.tk &&
-                        (!p.causal || qpos >= (int64_t)p.k_offset + key);
-        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
-        blk_max = fmaxf(blk_max, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * p.scale;
+          if (need_mask) {
+            const int key = n0 + 8 * j + 2 * t + (e & 1);
+            const int64_t qpos = qpos0 + g + 8 * (e >> 1);
+            const bool ok = key < p.tk &&
+                            (!p.causal || qpos >= (int64_t)p.k_offset + key);
+            x = ok ? x : kNegInf;
+          }
+          s[j][e] = x;
+          bmax[e >> 1] = fmaxf(bmax[e >> 1], x);
+        }
+      float m_new[2], corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m_i[r], quad_max(bmax[r]));
+        corr[r] = exp_fast(m_i[r] - m_new[r]);
       }
 #pragma unroll
-      for (int off = 1; off < kGroups; off <<= 1)
-        blk_max = fmaxf(blk_max, __shfl_xor_sync(0xffffffffu, blk_max, off));
-      const float m_new = fmaxf(m_i[i], blk_max);
-      float row_sum = 0.f;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float pj =
-            s[i][j] <= 0.5f * kNegInf ? 0.f : expf(s[i][j] - m_new);
-        sP[row * NP + tx + kGroups * j] = pj;
-        row_sum += pj;
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float pj =
+              x <= 0.5f * kNegInf ? 0.f : exp_fast(x - m_new[e >> 1]);
+          s[j][e] = pj;
+          rsum[e >> 1] += pj;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_i[r] = l_i[r] * corr[r] + quad_sum(rsum[r]);
+        m_i[r] = m_new[r];
       }
 #pragma unroll
-      for (int off = 1; off < kGroups; off <<= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      const float corr = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * corr + row_sum;
+      for (int j = 0; j < DT; ++j)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-      m_i[i] = m_new;
-    }
-    __syncthreads();  // sP complete
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      float pa[kRows], vb[DJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pa[i] = sP[(ty * kRows + i) * NP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vb[j] = sV[c * DP + tx + kGroups * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+        for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      gemm_rn<NT, DT, LD>(acc, s, cV, g, t);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int g = m0 + ty * kRows + i;
-    if (g >= p.tq) continue;
-    const float l = l_i[i];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= p.tq) continue;
+    const float l = l_i[r];
     const float safe_l = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      o[g * p.o_st + tx + kGroups * j] = from_f32<T>(acc[i][j] / safe_l);
-    if (tx == 0)
-      p.lse[bh * p.tq + g] = l <= 0.f ? kNegInf : m_i[i] + logf(safe_l);
+    for (int j = 0; j < DT; ++j) {
+      T* dst = o + row * p.o_st + 8 * j + 2 * t;
+      dst[0] = from_f32<T>(acc[j][2 * r] / safe_l);
+      dst[1] = from_f32<T>(acc[j][2 * r + 1] / safe_l);
+    }
+    if (t == 0)
+      p.lse[bh * p.tq + row] = l <= 0.f ? kNegInf : m_i[r] + logf(safe_l);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((unsigned)((int64_t)bh * p.n_qtiles));
-  fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_d(Params p, cudaStream_t stream) {
+  const void* ptrs[] = {p.q, p.k, p.v};
+  const int64_t strides[] = {p.q_sbh, p.q_st, p.k_sbh, p.k_st, p.v_sbh,
+                             p.v_st};
+  p.aligned = aligned16(ptrs, 3, strides, 6, (int)sizeof(T));
+  return flash::launch(fa_fwd_kernel<T, D>, p, p.bh * p.n_qtiles, kThreads,
+                       smem_bytes<T, D>(), stream);
 }
 
 template <typename T>
-cudaError_t dispatch_d(const Params& p, int head_dim, int bh,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(const Params& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return launch<T, 32>(p, bh, stream);
-    case 64: return launch<T, 64>(p, bh, stream);
-    case 128: return launch<T, 128>(p, bh, stream);
+    case 32: return launch_d<T, 32>(p, stream);
+    case 64: return launch_d<T, 64>(p, stream);
+    case 128: return launch_d<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -258,6 +263,7 @@ int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
   p.v_st = v_st;
   p.o_sbh = o_sbh;
   p.o_st = o_st;
+  p.bh = bh;
   p.tq = tq;
   p.tk = tk;
   p.n_qtiles = (tq + kBlockM - 1) / kBlockM;
@@ -265,9 +271,10 @@ int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.q_offset = q_offset;
   p.k_offset = k_offset;
+  p.aligned = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(p, head_dim, bh, s);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(p, head_dim, bh, s);
+  if (dtype == 0) return (int)dispatch_d<float>(p, head_dim, s);
+  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(p, head_dim, s);
   return (int)cudaErrorInvalidValue;
 }
 

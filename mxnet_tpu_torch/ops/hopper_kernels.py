@@ -27,7 +27,10 @@ Kernels:
   VJP; plain version :func:`flash_attention_bwd_reference`.
   :func:`flash_attention` and :func:`flash_attention_with_lse` on
   (B, H, T, D) are one ``torch.autograd.Function`` over the two (``lse`` is
-  not differentiable, as in the JAX package).
+  not differentiable, as in the JAX package). Both flash sources run
+  their products on the tensor cores through the shared header
+  ``csrc/flash_mma.cuh`` (split-TF32 ``mma.sync`` for float32, bf16
+  ``mma.sync`` for bfloat16).
 * ``softmax_cross_entropy_fwd`` (``csrc/softmax_cross_entropy.cu``) —
   replaces ``_ce_kernel``/``_ce_fwd`` (``pallas_kernels.py:325-367``);
   :func:`softmax_cross_entropy` is a ``torch.autograd.Function`` whose
@@ -113,14 +116,20 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(_SOURCES[name].read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    every header beside it (``*.cuh``, which the sources include) and the
+    flags: an edited header rebuilds every library."""
+    src = _SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no library built from the same
-    source and flags, one ``nvcc`` per source, all started together;
+    source, headers and flags, one ``nvcc`` per source, all started together;
     returns {source name: library path}."""
     paths = {name: _lib_path(name) for name in _SOURCES}
     todo = [name for name, path in paths.items() if not path.exists()]

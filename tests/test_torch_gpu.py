@@ -1,7 +1,9 @@
 """PyTorch port, on the card: what the Hopper kernel wrappers refuse, and
 that the flash kernels carry gradients under autograd. Their agreement with
 the plain versions, over dtypes, head dims, masks, ragged lengths and
-offsets, is checked by ``chip_smoke.py``'s kernel phases. Also ``mx.rtc``
+offsets, is checked by ``chip_smoke.py``'s kernel phases; here too at the
+edges of their tiles, with a bitwise repeat of each and a look at their
+SASS for tensor-core instructions (``HMMA``). Also ``mx.rtc``
 on the card: the user kernels of ``chip_smoke.py`` through ``extern "C"``
 and template exports, what a launch refuses, a launch from a second
 thread, one above 48 KB of dynamic shared memory, and the CustomOp loss
@@ -13,6 +15,8 @@ has only PyTorch:
 """
 import importlib.util
 import os
+import shutil
+import subprocess
 import threading
 
 import pytest
@@ -84,6 +88,112 @@ def test_flash_attention_backward_kernel_refuses(cuda):
         hk._fa_bwd_dispatch(d, d, d, d, lse, d, 0.125, True, 0, 0)
     with pytest.raises(MXNetError, match="different devices"):
         hk._fa_bwd_dispatch(q, q.cpu(), q, q, lse, q, 0.125, True, 0, 0)
+
+
+# (Tq, Tk, causal, q_offset, k_offset) at the edges of the tensor-core
+# kernels' tiles, as in chip_smoke.attention_edge_cases: lengths that are
+# multiples of no tile, a whole 128-row query tile with no visible key,
+# and a later query block with Tq < Tk
+TILE_EDGES = [(200, 300, True, 0, 150), (150, 333, True, 100, 0),
+              (150, 333, False, 0, 0)]
+
+
+def _qkvg(cuda, dtype, D, Tq, Tk, seed, bh=2):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return [torch.randn(bh, t, D, generator=gen, device=cuda).to(dtype)
+            for t in (Tq, Tk, Tk, Tq)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", hk.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("Tq,Tk,causal,q_offset,k_offset", TILE_EDGES)
+def test_flash_kernels_match_plain_at_tile_edges(cuda, cs, dtype, D, Tq, Tk,
+                                                 causal, q_offset, k_offset):
+    """B1 and B3 against their plain versions, with chip_smoke.py's
+    tolerances; rows that see no key get out 0, lse -1e30 and dq 0."""
+    q, k, v, g = _qkvg(cuda, dtype, D, Tq, Tk, D + Tq + q_offset)
+    sc = D ** -0.5
+    hk.reset_launch_counts()
+    out, lse = hk._fa_fwd_dispatch(q, k, v, sc, causal, q_offset, k_offset)
+    grads = hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, causal, q_offset,
+                                k_offset)
+    assert hk.launch_counts == {"flash_attention_fwd": 1,
+                                "flash_attention_bwd_dkdv": 1,
+                                "flash_attention_bwd_dq": 1,
+                                "softmax_cross_entropy_fwd": 0}
+    ref, ref_lse = hk.flash_attention_reference(
+        q.float(), k.float(), v.float(), causal, sc, q_offset, k_offset)
+    ref_grads = hk.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float(), sc,
+        causal, q_offset, k_offset)
+    f32 = dtype == torch.float32
+    tol_out = cs.TOL_OUT_F32 if f32 else cs.TOL_OUT_BF16
+    tol_grad = cs.TOL_GRAD_F32 if f32 else cs.TOL_GRAD_BF16
+    assert (out.float() - ref).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= cs.TOL_LSE
+    for got, want in zip(grads, ref_grads):
+        assert bool(torch.isfinite(got).all())
+        err = (got.float() - want).abs().max() / want.abs().max()
+        assert err.item() <= tol_grad
+    if causal and k_offset > q_offset:
+        blind = k_offset - q_offset
+        assert bool((out[:, :blind] == 0).all())
+        assert bool((lse[:, :blind] == -1e30).all())
+        assert bool((grads[0][:, :blind] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_repeat_bitwise(cuda, dtype):
+    """No atomics: the same inputs launched twice give bitwise-equal out
+    and lse (B1) and dq, dk, dv (B3)."""
+    q, k, v, g = _qkvg(cuda, dtype, 128, 1000, 1000, 3, bh=8)
+    sc = 128 ** -0.5
+    fwd = [hk._fa_fwd_dispatch(q, k, v, sc, True, 0, 0) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    out, lse = fwd[0]
+    bwd = [hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, True, 0, 0)
+           for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+
+
+def test_flash_kernels_take_unaligned_tensors(cuda):
+    """Contiguous views whose data starts off a 16-byte boundary are staged
+    with plain loads instead of cp.async: the same bits as aligned copies
+    give."""
+    T, D, n = 77, 64, 2 * 77 * 64
+    base = torch.randn(4 * n + 1, device=cuda)
+    q, k, v, g = (base[1 + i * n:1 + (i + 1) * n].view(2, T, D)
+                  for i in range(4))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    sc = D ** -0.5
+    out, lse = hk._fa_fwd_dispatch(q, k, v, sc, True, 0, 0)
+    ref = hk._fa_fwd_dispatch(q.clone(), k.clone(), v.clone(), sc, True, 0,
+                              0)
+    assert torch.equal(out, ref[0]) and torch.equal(lse, ref[1])
+    grads = hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, True, 0, 0)
+    ref_grads = hk._fa_bwd_dispatch(q.clone(), k.clone(), v.clone(), out,
+                                    lse, g.clone(), sc, True, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_bwd"])
+def test_flash_kernels_run_on_tensor_cores(cuda, name):
+    """Every kernel function of the flash libraries issues tensor-core
+    MMAs: TF32 (the split product) and bf16."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump not found: it reads the built SASS")
+    sass = subprocess.run([tool, "-sass", str(hk.build()[name])],
+                          capture_output=True, text=True, check=True).stdout
+    functions = sass.split("Function : ")[1:]
+    assert len(functions) == (6 if name.endswith("fwd") else 12)
+    for fn in functions:
+        kind = "TF32" if "kernelIfLi" in fn.split("\n", 1)[0] else "BF16"
+        assert f"F32.{kind}" in fn and "HMMA" in fn
 
 
 def test_softmax_cross_entropy_kernel_refuses(cuda):

@@ -89,20 +89,146 @@ def test_flash_attention_meta_shapes():
     assert out.device.type == lse.device.type == "meta"
 
 
-@pytest.mark.parametrize("D,Tq,Tk,causal,q_offset,k_offset", CASES)
-def test_smoke_bound_counts_only_visible_keys(D, Tq, Tk, causal, q_offset,
-                                              k_offset):
-    """chip_smoke.py's roofline bound counts 4*D FLOP per (query, key) pair
-    the mask lets through, the work these inputs need."""
+def _chip_smoke():
     path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+# the main path's shape: (4, 32, 2048, 128) f32 causal
+MAIN = (128, 2048, 2048, True, 0, 0)
+
+
+@pytest.mark.parametrize("D,Tq,Tk,causal,q_offset,k_offset", CASES + [MAIN])
+def test_smoke_bound_counts_only_visible_keys(D, Tq, Tk, causal, q_offset,
+                                              k_offset):
+    """chip_smoke.py's roofline bound counts 4*D FLOP per (query, key) pair
+    the mask lets through, the work these inputs need, and takes the least
+    time over the routes that meet the f32 gates: three TF32 passes on the
+    tensor cores beat one f32 pass on the CUDA cores (0.833 ms against
+    2.052 ms at the main shape)."""
+    cs = _chip_smoke()
+    BH = 128 if (D, Tq, Tk, causal, q_offset, k_offset) == MAIN else 3
     qpos = np.arange(Tq)[:, None] + q_offset
     kpos = np.arange(Tk)[None, :] + k_offset
     pairs = int((qpos >= kpos).sum()) if causal else Tq * Tk
-    assert cs.attention_flops(3, Tq, Tk, D, causal, q_offset, k_offset) \
-        == 4.0 * 3 * D * pairs
+    flops = cs.attention_flops(BH, Tq, Tk, D, causal, q_offset, k_offset)
+    assert flops == 4.0 * BH * D * pairs
+    nbytes = 4.0 * (BH * (2 * Tq + 2 * Tk) * D + BH * Tq)
+    ms, bound_by, route = cs.roofline_ms(flops, nbytes, "f32")
+    t_ops = 3 * flops / 495e12
+    assert ms == pytest.approx(max(t_ops, nbytes / 3.35e12) * 1e3)
+    assert bound_by == ("operations" if t_ops >= nbytes / 3.35e12
+                        else "bytes")
+    assert route == ("3-pass TF32 tensor cores" if bound_by == "operations"
+                     else "HBM")
+    cuda_core_ms, _, cuda_core_route = cs.roofline_ms(flops, nbytes)
+    assert cuda_core_route in ("f32 CUDA cores", "HBM")
+    assert ms <= cuda_core_ms
+    if BH == 128:
+        assert (round(ms, 3), bound_by) == (0.833, "operations")
+        assert round(cuda_core_ms, 3) == 2.052
+        # bf16 bytes (half of these): bf16 products at 989 TFLOP/s bound it
+        assert cs.roofline_ms(flops, nbytes / 2, "bf16")[1:] == (
+            "operations", "bf16 tensor cores")
+        assert round(cs.roofline_ms(flops, nbytes / 2, "bf16")[0], 3) \
+            == 0.139
+
+
+def _tf32(x):
+    """float32 -> TF32, rounded to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), on the bits."""
+    bits = x.view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _mm_passes(terms):
+    """A float32 matrix product built from TF32 parts: ``terms`` of
+    ("hi"|"lo", "hi"|"lo") pairs, each pair's product taken exactly (TF32 x
+    TF32 fits a float32 mantissa) and summed in float32, small terms first
+    as the kernels issue them."""
+    def mm(a, b):
+        parts = {}
+        for name, x in (("a", a), ("b", b)):
+            hi = _tf32(x)
+            parts[name] = {"hi": hi, "lo": _tf32(x - hi)}
+        out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for ta, tb in terms:
+            out += (parts["a"][ta].astype(np.float64)
+                    @ parts["b"][tb].astype(np.float64)).astype(np.float32)
+        return out
+    return mm
+
+
+def _attention(q, k, v, mm):
+    """Causal attention of one head in float32 with the products by
+    ``mm``: (out, lse), the sentinels of the plain version."""
+    Tq, D = q.shape
+    s = mm(q, k.T) * np.float32(D ** -0.5)
+    s = np.where(np.tril(np.ones((Tq, k.shape[0]), bool)), s,
+                 np.float32(-1e30))
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m).astype(np.float32)
+    l = p.sum(-1, keepdims=True)
+    return mm(p, v) / l, (m + np.log(l))[:, 0]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_split_tf32_product_meets_f32_gates(D):
+    """The kernels' float32 products, emulated: q.k^T and p.v each as the
+    split-TF32 product (a_lo.b_hi + a_hi.b_lo + a_hi.b_hi) keep attention
+    at (1, 2, 256, D) causal within chip_smoke.py's float32 gates of the
+    plain float32 version; one TF32 pass lands at least 10x further off,
+    and so does dropping the a_lo.b_hi term."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(D)
+    q, k, v = (rng.randn(2, 256, D).astype(np.float32) for _ in range(3))
+    ref_out, ref_lse = hk.flash_attention_reference(
+        *(torch.from_numpy(t) for t in (q, k, v)), causal=True)
+    ref_out, ref_lse = ref_out.numpy(), ref_lse.numpy()
+
+    def err(terms):
+        mm = _mm_passes(terms)
+        worst_out = worst_lse = 0.0
+        for h in range(2):
+            out, lse = _attention(q[h], k[h], v[h], mm)
+            worst_out = max(worst_out, float(np.abs(out - ref_out[h]).max()))
+            worst_lse = max(worst_lse, float(np.abs(lse - ref_lse[h]).max()))
+        return worst_out, worst_lse
+
+    split = err([("lo", "hi"), ("hi", "lo"), ("hi", "hi")])
+    one_pass = err([("hi", "hi")])
+    no_lo_hi = err([("hi", "lo"), ("hi", "hi")])
+    assert split[0] <= cs.TOL_OUT_F32 and split[1] <= cs.TOL_LSE
+    assert one_pass[0] >= 10 * split[0] and one_pass[1] >= 10 * split[1]
+    assert no_lo_hi[0] >= 10 * split[0] and no_lo_hi[1] >= 10 * split[1]
+    assert one_pass[0] > cs.TOL_OUT_F32       # the TF32 control misses
+
+
+def test_lib_path_digest_covers_headers(tmp_path, monkeypatch):
+    """A library's name digests its source, the headers beside it and the
+    flags: editing ``flash_mma.cuh`` renames (so rebuilds) the flash
+    libraries; nothing runs nvcc."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in list(hk._SOURCES.values()) + sorted(
+            next(iter(hk._SOURCES.values())).parent.glob("*.cuh")):
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(hk, "_SOURCES", {n: csrc / p.name
+                                         for n, p in hk._SOURCES.items()})
+    monkeypatch.setattr(hk, "_BUILD", tmp_path / "_build")
+    before = {n: hk._lib_path(n) for n in hk._SOURCES}
+    assert before == {n: hk._lib_path(n) for n in hk._SOURCES}   # stable
+    header = csrc / "flash_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: hk._lib_path(n) for n in hk._SOURCES}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert "flash_mma.cuh" in hk._SOURCES[name].read_text()
+        assert after[name] != before[name]
+        assert after[name].parent == tmp_path / "_build"
 
 
 @pytest.mark.parametrize("D,Tq,Tk,causal,q_offset,k_offset", CASES)
