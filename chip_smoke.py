@@ -50,10 +50,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fresh net and trainer load, and their step 3 must equal the
    uninterrupted one. Launch counts per step.
 
+7. module: the same LM written as a checkpoint of the symbolic route
+   (``build_lm_symbol``'s graph and the weights under its names, through
+   ``model.save_checkpoint``), loaded with ``model.load_checkpoint`` and
+   trained three Adam steps (MXNet's rule, ``rescale_grad`` 1/8192) by
+   ``mx.mod.Module`` with a ``MakeLoss(softmax_cross_entropy)`` head, fed
+   by an ``NDArrayIter``. Step 1's loss and the executor's gradients are
+   held against the plain reference as in phase 4, the loss also against
+   phase 4's on the same weights; the host time of one
+   ``forward_backward`` dispatch is reported apart from its device time.
+8. fused: the same files through ``gluon.SymbolBlock.imports`` and a
+   one-card ``parallel.DataParallelTrainer`` (optax's SGD, momentum 0.9,
+   lr 10 for the checked first step and 1 after it) with
+   ``gluon.loss.SoftmaxCrossEntropyLoss``, three steps. Step 1's loss
+   is held against the plain reference's mean, and the weights after it
+   against ``w0 − lr·g_plain`` (with a TF32 control and the f32 rounding
+   floor of that subtraction); ``sync_to_net`` must give the block the
+   trainer's weights bitwise. Both routes check their launch counts per
+   step: B1 4, B3 4 + 4, and B2 1 (Module) or 0 (fused).
+
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
-one training step and one custom-head step. The line before the last is a
-JSON object with one entry per kernel; the last line is ``{"ok": true,
-"device": {...}}``.
+one training step, one custom-head step, one Module step and one fused
+step. The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -81,6 +100,18 @@ SERVE_REQUESTS = 8
 TRAIN_BATCH = 4       # sequences of the full 2048-token context
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-4
+# the fused trainer's SGD (optax's rule, momentum 0.9). Its step-1 weights
+# are held against w0 - lr·g_plain, so the first step's lr must put the
+# f32 rounding of that subtraction 10x below the gates: fused_gate prints
+# the rounding floor at each candidate and fails if the chosen one is not
+# there (10: 2.9e-6 above the last ReLU, 3.6e-5 over all tensors, against
+# 1e-4 and 5e-3). Three steps at 10 with momentum 0.9 overshoot (the loss
+# at step 3 rose from 11.66 to 24.07), so the later steps take lr 1: an
+# optax schedule of the update count.
+FUSED_LR = 10.0
+FUSED_LR_LATER = 1.0
+FUSED_LR_CANDIDATES = (1.0, 3.0, 10.0, 30.0, 100.0)
+FUSED_MOMENTUM = 0.9
 SEED = 0
 
 # card peaks for the roofline bound (NVIDIA H100 SXM data sheet, dense)
@@ -121,6 +152,9 @@ TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative
 # flip and are held at 1e-4.
 TOL_TRAIN_GRAD = 5e-3
 TOL_TRAIN_GRAD_TOP = 1e-4
+# the Module route's step-1 loss against the gluon path's on the same
+# weights: the same ops on the same values, one summation order apart
+TOL_ROUTE_LOSS = 1e-6
 # the user kernels (mx.rtc) against their plain versions: axpy is exact
 # (2x is exact, so fma and mul-then-add round alike); softmax differs by
 # expf and the order of a row's sum, (p - onehot)*scale by at most an ulp
@@ -421,17 +455,20 @@ def sinusoid_table(max_len: int, units: int) -> np.ndarray:
     return table
 
 
-def build_lm_symbol(sym, vocab, units, layers, heads, ffn):
+def build_lm_symbol(sym, vocab, units, layers, heads, ffn, max_len=None):
     """The causal TransformerLM graph exactly as the JAX package's gluon
     ``export()`` writes it (Embedding, sinusoidal positions, pre-norm blocks
     with fused-QKV flash attention and a ReLU FFN, final LayerNorm, untied
     head), built with ``sym`` — either package's ``mx.sym``. Inputs: ``data``
-    (B, T) token ids; argument ``pos_table`` (max_len, units)."""
+    (B, T) token ids; argument ``pos_table`` (max_len, units), its shape
+    declared on the variable when ``max_len`` is given (so that a Module
+    can infer it from the data shapes alone)."""
     d = units // heads
     x = sym.Embedding(sym.Variable("data"), input_dim=vocab,
                       output_dim=units, name="embed")
-    tab = sym.slice_like(sym.expand_dims(sym.Variable("pos_table"), axis=0),
-                         x, axes=(1,))
+    table = sym.Variable("pos_table", shape=None if max_len is None
+                         else (max_len, units))
+    tab = sym.slice_like(sym.expand_dims(table, axis=0), x, axes=(1,))
     x = sym.broadcast_add(x, tab)
     for i in range(layers):
         p = f"layer{i}_"
@@ -863,14 +900,18 @@ def ce_phase(hk, dev):
             ms = _time_ms(lambda: hk._ce_fwd_dispatch(x, labels), reps=20)
             plain_ms = _time_ms(lambda: hk.softmax_cross_entropy_reference(
                 x, labels), reps=5)
-            lib_ms = _time_ms(lambda: torch.logsumexp(x, dim=1), reps=20)
+            lib_ms = _time_ms(lambda: torch.nn.functional.cross_entropy(
+                x, labels, reduction="none"), reps=20)
+            lse_ms = _time_ms(lambda: torch.logsumexp(x, dim=1), reps=20)
             # logits read once, labels read, lse and loss written; about
             # 4 operations an element (max, subtract, exp, add)
             bound_ms, bound_by, route = roofline_ms(4.0 * n * c,
                                                     4.0 * n * c + 16.0 * n)
             print(f"softmax_cross_entropy_fwd f32 ({n}, {c}): kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.logsumexp "
-                  f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"F.cross_entropy(reduction='none') {lib_ms:.3f} ms, "
+                  f"torch.logsumexp (the lse alone) {lse_ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({bound_by})")
             rec = {"name": "softmax_cross_entropy_fwd", "route": "cuda",
                    "source": "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
                    "replaces": "mxnet_tpu/ops/pallas_kernels.py:325",
@@ -1188,15 +1229,15 @@ def serving_phase(mx, hk, dev, workdir, profile=False):
 
 
 # --------------------------------------------------------------- training
-def _plain_weights(net):
-    """{``plain_forward`` name: (parameter, its tensor as a new leaf that
-    shares the storage)} of the port's TransformerLM."""
+def lm_param_map(net):
+    """{``build_lm_symbol`` argument name: parameter} of a
+    ``TransformerLM`` of either package (untied head)."""
     body = net.body
     params = {"embed_weight": net.embed.weight, "pos_table": net.pos.table,
               "lnf_gamma": body.final_ln.gamma, "lnf_beta": body.final_ln.beta,
               "head_weight": net.head.weight}
-    for i, cell in enumerate(body.layers):
-        p = f"layer{i}_"
+    for i in range(len(body.layers)):
+        cell, p = body.layers[i], f"layer{i}_"
         for name, blk in (("ln1", cell.ln1), ("ln2", cell.ln2)):
             params[p + name + "_gamma"] = blk.gamma
             params[p + name + "_beta"] = blk.beta
@@ -1204,15 +1245,15 @@ def _plain_weights(net):
                           ("fc1", cell.ffn.fc1), ("fc2", cell.ffn.fc2)):
             params[p + name + "_weight"] = blk.weight
             params[p + name + "_bias"] = blk.bias
-    return {n: (p, p.data()._data.detach().requires_grad_(p.grad_req != "null"))
-            for n, p in params.items()}
+    return params
 
 
-def _plain_step_grads(hk, weights, tokens, labels, names):
-    """Loss and gradients of the plain float32 LM: ``plain_forward`` with
-    the attention kernels' plain version (recomputed in the backward, so
-    the (T, T) scores of one layer live at a time) and the cross-entropy
-    kernel's plain version, under torch autograd."""
+def _plain_step_grads(hk, tensors, tokens, labels, names):
+    """Loss and gradients of the plain float32 LM at ``tensors`` ({argument
+    name: tensor}): ``plain_forward`` with the attention kernels' plain
+    version (recomputed in the backward, so the (T, T) scores of one layer
+    live at a time) and the cross-entropy kernel's plain version, under
+    torch autograd; the loss is the sum over tokens."""
     import torch
     from torch.utils.checkpoint import checkpoint
     cfg = OPT_6_7B
@@ -1221,7 +1262,8 @@ def _plain_step_grads(hk, weights, tokens, labels, names):
         return checkpoint(lambda q, k, v: hk.flash_attention_reference(
             q, k, v, causal=True)[0], q, k, v, use_reentrant=False)
 
-    w = {n: t for n, (_, t) in weights.items()}
+    w = {n: t.detach().requires_grad_(n in names)
+         for n, t in tensors.items()}
     logits = plain_forward(w, tokens, cfg["vocab"], cfg["units"],
                            cfg["layers"], cfg["heads"], attend=attend)
     loss = hk.softmax_cross_entropy_reference(
@@ -1234,17 +1276,35 @@ def _norm_rel(got, ref) -> float:
     return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def training_gate(hk, net, x, y, loss):
-    """Step 1's loss and gradients against the plain float32 reference on
-    the same weights; the reference in TF32 and in bf16 must miss."""
-    import torch
-    weights = _plain_weights(net)
-    names = [n for n, (p, _) in weights.items() if p.grad_req != "null"]
+def _top(names):
+    """The tensors above the last ReLU: the head, the final LayerNorm and
+    the last fc2."""
     last = f"layer{OPT_6_7B['layers'] - 1}_fc2_"
-    top = [n for n in names if n.startswith(("head_", "lnf_", last))]
-    port = {n: weights[n][0].grad._data for n in names}
+    return [n for n in names if n.startswith(("head_", "lnf_", last))]
+
+
+def _plain_controls(hk, tensors, tokens, labels, names, score):
+    """``score(plain gradients)`` for the plain reference in TF32 and in
+    bf16: the controls, which must miss each gate."""
+    import torch
+    out = []
+    for ctx in (tf32_matmuls(), torch.autocast("cuda", dtype=torch.bfloat16)):
+        with ctx:
+            ctl = _plain_step_grads(hk, tensors, tokens, labels, names)[1]
+        out.append(score(ctl))
+        del ctl
+    return out
+
+
+def grad_gate(hk, what, tensors, port, x, y, loss):
+    """Step 1's loss (the sum over tokens) and gradients ``port`` ({name:
+    gradient}) against the plain float32 reference at ``tensors``; the
+    reference in TF32 and in bf16 must miss. Returns the worst
+    ``||g - plain|| / ||plain||`` (all, top)."""
+    names = list(port)
+    top = _top(names)
     tokens, labels = x._data.long(), y._data.long()
-    ref_loss, ref = _plain_step_grads(hk, weights, tokens, labels, names)
+    ref_loss, ref = _plain_step_grads(hk, tensors, tokens, labels, names)
     loss_err = abs(loss - ref_loss.item()) / abs(ref_loss.item())
 
     def worst(grads):
@@ -1254,15 +1314,9 @@ def training_gate(hk, net, x, y, loss):
 
     w_all, w_top, errs = worst(port)
     max_err = max(_max_rel(port[n], ref[n]) for n in names)
-    with tf32_matmuls():
-        ctl = _plain_step_grads(hk, weights, tokens, labels, names)[1]
-    c_tf32 = worst(ctl)[:2]
-    del ctl
-    with torch.autocast("cuda", dtype=torch.bfloat16):
-        ctl = _plain_step_grads(hk, weights, tokens, labels, names)[1]
-    c_bf16 = worst(ctl)[:2]
-    del ctl
-    print(f"training: step-1 loss {loss:.6f}, plain {ref_loss.item():.6f} "
+    c_tf32, c_bf16 = _plain_controls(hk, tensors, tokens, labels, names,
+                                     lambda g: worst(g)[:2])
+    print(f"{what}: step-1 loss {loss:.6f}, plain {ref_loss.item():.6f} "
           f"(relative {loss_err:.3e}, tol {TOL_TRAIN_LOSS}); "
           f"||g-plain||/||plain||: worst of {len(names)} tensors "
           f"{w_all:.3e} ({max(errs, key=errs.get)}; tol {TOL_TRAIN_GRAD}),"
@@ -1273,34 +1327,66 @@ def training_gate(hk, net, x, y, loss):
           f"{c_bf16[1]:.3e}")
     if not (loss_err <= TOL_TRAIN_LOSS and w_all <= TOL_TRAIN_GRAD
             and w_top <= TOL_TRAIN_GRAD_TOP):
-        raise AssertionError("step-1 loss or gradients disagree with the "
-                             "plain float32 reference")
+        raise AssertionError(f"{what}: step-1 loss or gradients disagree "
+                             f"with the plain float32 reference")
     for ctl_all, ctl_top in (c_tf32, c_bf16):
         if not (ctl_all > TOL_TRAIN_GRAD and ctl_top > TOL_TRAIN_GRAD_TOP):
             raise AssertionError("a TF32 or bf16 control passes a gradient "
                                  "tolerance: it is too loose")
+    return w_all, w_top
+
+
+def training_gate(hk, net, x, y, loss):
+    """Step 1 of the gluon path against the plain reference."""
+    params = lm_param_map(net)
+    grad_gate(hk, "training", {n: p.data()._data for n, p in params.items()},
+              {n: p.grad._data for n, p in params.items()
+               if p.grad_req != "null"}, x, y, loss)
+
+
+def seeded_lm(mx):
+    """The 4-layer OPT-6.7B-width TransformerLM (untied head, dropout 0)
+    with ``init.Normal(0.02)`` weights from the seed, on the card."""
+    from mxnet_tpu_torch.gluon.contrib import transformer as tfm
+    cfg = OPT_6_7B
+    mx.random.seed(SEED)
+    net = tfm.TransformerLM(vocab_size=cfg["vocab"], units=cfg["units"],
+                            num_layers=cfg["layers"], num_heads=cfg["heads"],
+                            hidden_size=cfg["ffn"], max_len=cfg["max_len"])
+    net.initialize(mx.init.Normal(0.02))
+    return net
+
+
+def train_batch():
+    """The training batch, tokens and next-token labels, (4, 2048) float32
+    numpy arrays from the seed."""
+    rng = np.random.RandomState(SEED)
+    shape = (TRAIN_BATCH, OPT_6_7B["max_len"])
+    return (rng.randint(0, OPT_6_7B["vocab"], shape).astype(np.float32),
+            rng.randint(0, OPT_6_7B["vocab"], shape).astype(np.float32))
+
+
+def per_step_launches(b2: int):
+    """Kernel launches a training step of the LM makes: B1 once a layer,
+    B3's two kernels once a layer, B2 ``b2`` times."""
+    L = OPT_6_7B["layers"]
+    return {"flash_attention_fwd": L, "flash_attention_bwd_dkdv": L,
+            "flash_attention_bwd_dq": L, "softmax_cross_entropy_fwd": b2}
 
 
 def training_phase(mx, hk, dev, profile=False):
     """Train the 4-layer OPT-6.7B-width TransformerLM three Adam steps
-    through gluon on the card; returns {kernel name: launches in the
-    three steps}."""
+    through gluon on the card; returns ({kernel name: launches in the
+    three steps}, the step-1 loss)."""
     import torch
     from mxnet_tpu_torch import autograd, gluon
-    from mxnet_tpu_torch.gluon.contrib import transformer as tfm
     cfg = OPT_6_7B
     V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
     torch.cuda.reset_peak_memory_stats()
-    mx.random.seed(SEED)
-    net = tfm.TransformerLM(vocab_size=V, units=cfg["units"],
-                            num_layers=cfg["layers"], num_heads=cfg["heads"],
-                            hidden_size=cfg["ffn"], max_len=T)
-    net.initialize(mx.init.Normal(0.02))
+    net = seeded_lm(mx)
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": TRAIN_LR})
-    rng = np.random.RandomState(SEED)
-    x = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
-    y = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+    x, y = (mx.nd.array(a) for a in train_batch())
 
     def forward_backward():
         with autograd.record():
@@ -1343,34 +1429,21 @@ def training_phase(mx, hk, dev, profile=False):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses {losses} not finite and "
                              f"falling")
-    per_step = {"flash_attention_fwd": cfg["layers"],
-                "flash_attention_bwd_dkdv": cfg["layers"],
-                "flash_attention_bwd_dq": cfg["layers"],
-                "softmax_cross_entropy_fwd": 1}
-    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"training launched {launches}, expected "
-                             f"{want} ({TRAIN_STEPS} steps)")
+    _check_launches("training", launches, 1)
     if profile:
         def one_step():
             forward_backward()
             trainer.step(B * T)
         profile_breakdown(f"one training step of {B} x {T} tokens",
                           one_step)
-    return launches
+    return launches, losses[0]
 
 
 # ------------------------------------------------------------- extension
 def _ext_net(V, T):
     """The LM and an Adam trainer with the lr schedule, from the seed."""
     from mxnet_tpu_torch import gluon
-    from mxnet_tpu_torch.gluon.contrib import transformer as tfm
-    cfg = OPT_6_7B
-    mx.random.seed(SEED)
-    net = tfm.TransformerLM(vocab_size=V, units=cfg["units"],
-                            num_layers=cfg["layers"], num_heads=cfg["heads"],
-                            hidden_size=cfg["ffn"], max_len=T)
-    net.initialize(mx.init.Normal(0.02))
+    net = seeded_lm(mx)
     sched = mx.lr_scheduler.FactorScheduler(step=EXT_LR_STEP,
                                             factor=EXT_LR_FACTOR)
     trainer = gluon.Trainer(net.collect_params(), "adam",
@@ -1396,9 +1469,7 @@ def extension_phase(hk, dev, workdir, profile=False):
     V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
     N = B * T
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.RandomState(SEED)
-    x = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
-    y = mx.nd.array(rng.randint(0, V, (B, T)).astype(np.float32))
+    x, y = (mx.nd.array(a) for a in train_batch())
     launches = {}
 
     def counted(fn):
@@ -1564,12 +1635,292 @@ def extension_phase(hk, dev, workdir, profile=False):
     return launches
 
 
+# ------------------------------------------------ symbolic and fused routes
+def lm_loss_head(sym, lm, vocab):
+    """``MakeLoss(softmax_cross_entropy(logits, labels))`` over the LM
+    graph ``lm``: the summed CE of every token (B2 on the card), labels in
+    the argument ``label``."""
+    return sym.MakeLoss(sym.softmax_cross_entropy(
+        sym.reshape(lm, shape=(-1, vocab)),
+        sym.reshape(sym.Variable("label"), shape=(-1,))))
+
+
+def export_lm(mx, prefix) -> float:
+    """Write the seeded LM as a checkpoint of the symbolic route: its graph
+    (``build_lm_symbol``, the table's shape declared) and its weights under
+    the graph's names, through ``model.save_checkpoint``. Returns the
+    seconds it took."""
+    cfg = OPT_6_7B
+    t0 = time.perf_counter()
+    net = seeded_lm(mx)
+    net(mx.nd.array(np.zeros((1, 1), np.float32)))  # the deferred shapes
+    graph = build_lm_symbol(mx.sym, cfg["vocab"], cfg["units"],
+                            cfg["layers"], cfg["heads"], cfg["ffn"],
+                            max_len=cfg["max_len"])
+    mx.model.save_checkpoint(prefix, 0, graph,
+                             {n: p.data() for n, p in
+                              lm_param_map(net).items()}, {})
+    return time.perf_counter() - t0
+
+
+def _free() -> None:
+    """Release what the last phase held: a gluon net is a reference cycle
+    (each block's name scope points back at it), so its weights, gradients
+    and optimizer states wait for the cycle collector, not for the last
+    name to go."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_step(run):
+    """(host seconds until ``run()`` returns, device ms between CUDA events
+    around it, wall seconds to its end on the card)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    t_host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return t_host, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def _check_launches(what, launches, b2):
+    want = {n: c * TRAIN_STEPS for n, c in per_step_launches(b2).items()}
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want} "
+                             f"({TRAIN_STEPS} steps)")
+
+
+def module_phase(mx, hk, dev, prefix, gluon_loss, profile=False):
+    """Train the exported LM three Adam steps through ``mx.mod.Module``
+    with the ``MakeLoss(softmax_cross_entropy)`` head, fed by an
+    ``NDArrayIter``; returns {kernel name: launches in the three steps}."""
+    import torch
+    cfg = OPT_6_7B
+    V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
+    print(f"module: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"on entry")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    t_load = time.perf_counter() - t0
+    x, y = train_batch()
+    it = mx.io.NDArrayIter({"data": x}, {"label": y}, batch_size=B)
+    mod = mx.mod.Module(lm_loss_head(mx.sym, lm, V), data_names=("data",),
+                        label_names=("label",), context=mx.gpu(dev.index),
+                        fixed_param_names=["pos_table"])
+    t0 = time.perf_counter()
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    del arg_params, aux_params
+    mod.init_optimizer(optimizer="adam", optimizer_params={
+        "learning_rate": TRAIN_LR, "rescale_grad": 1.0 / (B * T)})
+    torch.cuda.synchronize()
+    print(f"module: load_checkpoint {t_load:.1f} s (host), bind + "
+          f"init_params + init_optimizer {time.perf_counter() - t0:.1f} s")
+    ex = mod._exec_group.execs[0]
+    losses, step_ms, host_ms, device_ms = [], [], [], []
+    hk.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        it.reset()
+        batch = it.next()
+        t_host, t_dev, t_fb = _timed_step(lambda: mod.forward_backward(batch))
+        host_ms.append(t_host * 1e3)
+        device_ms.append(t_dev)
+        losses.append(mod.get_outputs()[0].asscalar().item())
+        if step == 0:
+            seen = dict(hk.launch_counts)
+            grad_gate(hk, "module", {n: a._data for n, a in
+                                     ex.arg_dict.items()},
+                      {n: g._data for n, g in ex.grad_dict.items()},
+                      mx.nd.array(x), mx.nd.array(y), losses[0])
+            if dict(hk.launch_counts) != seen:
+                raise AssertionError("the plain reference launched a kernel")
+            rel = abs(losses[0] - gluon_loss) / abs(gluon_loss)
+            print(f"module: step-1 loss {losses[0]:.6f}, the gluon path's "
+                  f"on the same weights {gluon_loss:.6f} (relative "
+                  f"{rel:.3e}, tol {TOL_ROUTE_LOSS})")
+            if not rel <= TOL_ROUTE_LOSS:
+                raise AssertionError("the Module's step-1 loss differs from "
+                                     "the gluon path's")
+            torch.cuda.empty_cache()
+            gate_peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((t_fb + time.perf_counter() - t0) * 1e3)
+    launches = dict(hk.launch_counts)
+    print(f"module: losses {losses}; step times {step_ms} ms "
+          f"({B * T / (step_ms[-1] / 1e3):.1f} tokens/s at the last step); "
+          f"forward_backward: host dispatch {host_ms} ms, device (events) "
+          f"{device_ms} ms; peak memory of steps 2-3 "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (step 1 with "
+          f"its gate {gate_peak:.2f} GB); launches {launches}; card "
+          f"{_card_line()}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"module losses {losses} not finite and "
+                             f"falling")
+    _check_launches("module", launches, 1)
+    if profile:
+        def one_step():
+            it.reset()
+            mod.forward_backward(it.next())
+            mod.update()
+        profile_breakdown(f"one Module step of {B} x {T} tokens", one_step)
+    return launches
+
+
+def fused_gate(hk, w0, w1, x, y, loss, lr):
+    """Step 1 of the fused trainer: its loss against the plain reference's
+    mean, and each weight's step ``w0 − w1`` against ``lr·g_plain`` (at
+    optax's first SGD-momentum step ``m = g``), by
+    ``||(w0 − w1) − lr·g|| / ||lr·g||`` per tensor; the same made with the
+    plain gradient in TF32 must miss. The f32 rounding of ``w0 − lr·g``
+    alone (the noise floor) must lie 10× below each gate."""
+    import torch
+    names = list(w1)
+    top = _top(names)
+    tokens, labels = x._data.long(), y._data.long()
+    n_tok = tokens.numel()
+    ref_sum, ref = _plain_step_grads(hk, w0, tokens, labels, names)
+    ref_loss = ref_sum.item() / n_tok
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+
+    def step_err(n, w_new, step_lr=lr):
+        """||(w0 - w_new) - lr·g_plain|| / ||lr·g_plain||, in float64."""
+        want = ref[n].double() * (step_lr / n_tok)
+        got = w0[n].double() - w_new.double()
+        return ((got - want).norm() / want.norm().clamp_min(1e-300)).item()
+
+    def sgd_step(n, g_sum, step_lr=lr):
+        """w0 − fl32(lr·g) in float32, as the trainer's first step."""
+        return w0[n] - g_sum * (step_lr / n_tok)
+
+    def worst(errs):
+        return max(errs.values()), max(errs[n] for n in top)
+
+    errs = {n: step_err(n, w1[n]) for n in names}
+    w_all, w_top = worst(errs)
+    floors = {}
+    for cand in FUSED_LR_CANDIDATES:
+        floors[cand] = worst({n: step_err(n, sgd_step(n, ref[n], cand),
+                                          cand) for n in names})
+    floor_all, floor_top = floors[lr]
+    with tf32_matmuls():
+        ctl = _plain_step_grads(hk, w0, tokens, labels, names)[1]
+    c_all, c_top = worst({n: step_err(n, sgd_step(n, ctl[n]))
+                          for n in names})
+    del ctl
+    print(f"fused: step-1 loss {loss:.6f}, plain mean {ref_loss:.6f} "
+          f"(relative {loss_err:.3e}, tol {TOL_TRAIN_LOSS}); "
+          f"||(w0-w1) - lr·g_plain|| / ||lr·g_plain|| at lr {lr}: worst of "
+          f"{len(names)} tensors {w_all:.3e} ({max(errs, key=errs.get)}; "
+          f"tol {TOL_TRAIN_GRAD}), worst of the {len(top)} above the last "
+          f"ReLU {w_top:.3e} (tol {TOL_TRAIN_GRAD_TOP}); f32 rounding floor "
+          f"(all, top) by lr: "
+          + ", ".join(f"{c}: {a:.2e}, {t:.2e}" for c, (a, t) in
+                      floors.items())
+          + f"; control, the step made with the plain gradient in TF32: "
+          f"{c_all:.3e}, {c_top:.3e}")
+    if not (loss_err <= TOL_TRAIN_LOSS and w_all <= TOL_TRAIN_GRAD
+            and w_top <= TOL_TRAIN_GRAD_TOP):
+        raise AssertionError("fused: step-1 loss or weights disagree with "
+                             "the plain float32 reference")
+    if not (floor_all * 10 <= TOL_TRAIN_GRAD
+            and floor_top * 10 <= TOL_TRAIN_GRAD_TOP):
+        raise AssertionError(f"fused: the f32 rounding of w - lr·g at lr "
+                             f"{lr} is not 10x below the gates")
+    if not (c_all > TOL_TRAIN_GRAD and c_top > TOL_TRAIN_GRAD_TOP):
+        raise AssertionError("the TF32 control passes a weight-step "
+                             "tolerance: it is too loose")
+
+
+def fused_phase(mx, hk, dev, prefix, profile=False):
+    """Train the exported LM three steps through ``gluon.SymbolBlock.
+    imports`` and ``parallel.DataParallelTrainer`` (optax's SGD with
+    momentum) on one card with ``gluon.loss.SoftmaxCrossEntropyLoss``;
+    returns {kernel name: launches in the three steps}."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    cfg = OPT_6_7B
+    T, B = cfg["max_len"], TRAIN_BATCH
+    print(f"fused: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"on entry")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    block = gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                      prefix + "-0000.params",
+                                      ctx=mx.gpu(dev.index))
+    # an argument of the graph; frozen, it is the gluon LM's Constant
+    block.collect_params()["pos_table"].grad_req = "null"
+    torch.cuda.synchronize()
+    print(f"fused: SymbolBlock.imports {time.perf_counter() - t0:.1f} s")
+    trainer = parallel.DataParallelTrainer(
+        block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": lambda count: FUSED_LR if count == 0
+         else FUSED_LR_LATER, "momentum": FUSED_MOMENTUM})
+    x, y = (mx.nd.array(a) for a in train_batch())
+    losses, step_ms, host_ms = [], [], []
+    hk.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        out = []
+        t_host, _, t_step = _timed_step(lambda: out.append(trainer.step(x, y)))
+        host_ms.append(t_host * 1e3)
+        step_ms.append(t_step * 1e3)
+        losses.append(out[0].asscalar().item())
+        if step == 0:
+            names = sorted(n for n in block.collect_params()
+                           if n != "pos_table")
+            if sorted(trainer._param_names) != names:
+                raise AssertionError(f"the trainer's parameters "
+                                     f"{sorted(trainer._param_names)} are "
+                                     f"not the file's")
+            seen = dict(hk.launch_counts)
+            fused_gate(hk, {n: p.data()._data for n, p in
+                            block.collect_params().items()},
+                       trainer._params, x, y, losses[0], FUSED_LR)
+            if dict(hk.launch_counts) != seen:
+                raise AssertionError("the plain reference launched a kernel")
+            torch.cuda.empty_cache()
+            gate_peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+    launches = dict(hk.launch_counts)
+    trainer.sync_to_net()
+    params = block.collect_params()
+    same = all(torch.equal(params[n].data()._data, t)
+               for src in (trainer._params, trainer._aux)
+               for n, t in src.items())
+    print(f"fused: losses {losses}; step times {step_ms} ms "
+          f"({B * T / (step_ms[-1] / 1e3):.1f} tokens/s at the last step); "
+          f"host dispatch {host_ms} ms; peak memory of steps 2-3 "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (step 1 with "
+          f"its gate {gate_peak:.2f} GB); launches {launches}; "
+          f"sync_to_net bitwise: {same}; card {_card_line()}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fused losses {losses} not finite and falling")
+    if not same:
+        raise AssertionError("sync_to_net did not give the block the "
+                             "trainer's weights")
+    _check_launches("fused", launches, 0)
+    if profile:
+        profile_breakdown(f"one fused step of {B} x {T} tokens",
+                          lambda: trainer.step(x, y))
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served dispatch, one training "
-                         "step and one custom-head step (torch.profiler)")
+                         "step, one custom-head step, one Module step and "
+                         "one fused step (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1599,28 +1950,40 @@ def main(argv=None) -> int:
     records = [kernel_phase(hk, dev)]
     records += backward_kernel_phase(hk, dev)
     records.append(ce_phase(hk, dev))
-    torch.cuda.empty_cache()
+    _free()
     workdir = os.path.join(os.path.dirname(os.path.abspath(mx.__file__)),
                            "_build", "smoke_lm")
     try:
         served = serving_phase(mx, hk, dev, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
-    trained = training_phase(mx, hk, dev, args.profile)
-    torch.cuda.empty_cache()
+    _free()
+    trained, gluon_loss = training_phase(mx, hk, dev, args.profile)
+    _free()
     for rec in records:
         rec["compiler"] = "nvcc"
     records += rtc_kernel_phase(dev)
-    torch.cuda.empty_cache()
+    _free()
     try:
         extended = extension_phase(hk, dev, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    _free()
+    try:
+        os.makedirs(workdir, exist_ok=True)
+        prefix = os.path.join(workdir, "lm")
+        print(f"module: export_lm wrote the LM's graph and weights with "
+              f"model.save_checkpoint in {export_lm(mx, prefix):.1f} s")
+        _free()
+        moduled = module_phase(mx, hk, dev, prefix, gluon_loss, args.profile)
+        _free()
+        fused = fused_phase(mx, hk, dev, prefix, args.profile)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for rec in records:
         name = rec["name"]
-        rec["launches"] = (served.get(name, 0) + trained.get(name, 0)
-                           + extended.get(name, 0))
+        rec["launches"] = sum(path.get(name, 0) for path in
+                              (served, trained, extended, moduled, fused))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
     print(f"chip_smoke: every phase passed in "

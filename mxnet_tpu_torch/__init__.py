@@ -4,7 +4,9 @@ The JAX package ``mxnet_tpu`` stays the reference; this package keeps its
 module paths and public names (``mx.nd``, ``mx.sym``, the op registry, the
 executor, the predictor, the serving stack, and ``mx.autograd``,
 ``mx.gluon``, ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler`` for
-training, ``mx.operator`` and ``mx.rtc`` for user extensions) over plain
+training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
+``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model`` and
+``mx.parallel`` for symbolic and fused training) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
 TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
@@ -39,8 +41,16 @@ from . import optimizer
 from . import gluon
 from . import operator
 from . import rtc
+from . import io
+from . import metric
+from . import callback
+from . import model
+from . import module
+from . import module as mod
+from . import parallel
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
-           "gluon", "operator", "rtc"]
+           "gluon", "operator", "rtc", "io", "metric", "callback", "model",
+           "module", "mod", "parallel"]

@@ -1,23 +1,28 @@
-"""Executor — runs a bound Symbol graph.
+"""Executor — runs a bound Symbol graph, forward and backward.
 
 Counterpart of ``mxnet_tpu/executor.py``. Where the JAX package lowers the
-whole graph to one jitted XLA program, the port interprets it eagerly over
-its op registry: each node is one call of its op, launched asynchronously
-on the card's stream. XLA's buffer assignment becomes a last-use rule: a
-node's outputs are dropped as soon as their last consumer has run, so the
-interpreter holds only live activations.
+whole graph to one jitted XLA program (and its gradient to ``jax.vjp`` of
+that program), the port interprets it eagerly over its op registry: each
+node is one call of its op, launched asynchronously on the card's stream,
+so the graph reaches the same op functions, and the same Hopper kernels,
+as gluon does. XLA's buffer assignment becomes a last-use rule: a node's
+outputs are dropped as soon as their last consumer has run, so the
+interpreter holds only live activations (and, in training, what torch
+autograd saved for the backward).
 
-Inference only: ``forward(is_train=False)`` runs under
-``torch.inference_mode()``, a graph-mode ``Custom`` op (``mx.operator``)
-included, forward only as in the JAX package. Training goes through gluon
-and ``autograd``; the symbolic executor's train step and ``backward``
-wait for a later slice (ROADMAP A1).
+``forward(is_train=False)`` runs under ``torch.inference_mode()``, a
+graph-mode ``Custom`` op (``mx.operator``) included, forward only as in
+the JAX package. ``forward(is_train=True)`` records the graph with torch
+autograd and keeps it only until :meth:`Executor.backward` (or the next
+forward) consumes it; the BatchNorm moving statistics are written after
+the forward, outside autograd (``_AUX_UPDATE_RULES``).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ._imperative import _op_signature_flags
@@ -43,19 +48,43 @@ def _ln_param_shapes(attrs, ds):
     return {"gamma": (ds[ax],), "beta": (ds[ax],)}
 
 
+def _bn_param_shapes(attrs, ds):
+    c = ds[int(attrs.get("axis", 1)) % len(ds)]
+    return {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
+            "moving_var": (c,)}
+
+
 def _emb_param_shapes(attrs, ds):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
 
 _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "FullyConnected": _fc_param_shapes,
+    "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
     "Embedding": _emb_param_shapes,
 }
 
 
+# Ops whose extra outputs update auxiliary state during training:
+# op -> fn(attrs, in_arrays, out_tuple) -> {input_index: new_value}
+def _bn_aux_update(attrs, ins, outs):
+    """``moving ← moving·momentum + batch·(1 − momentum)``, the batch's
+    biased variance; nothing under ``use_global_stats``."""
+    if attrs.get("use_global_stats", False):
+        return {}
+    mom = float(attrs.get("momentum", 0.9))
+    _, mean, var = outs
+    return {3: ins[3] * mom + mean.detach() * (1.0 - mom),
+            4: ins[4] * mom + var.detach() * (1.0 - mom)}
+
+
+_AUX_UPDATE_RULES: Dict[str, Callable] = {"BatchNorm": _bn_aux_update}
+
+
 class _GraphLowering:
-    """Turns a Symbol DAG into ``fn(inputs: dict) -> outputs: list``."""
+    """Turns a Symbol DAG into ``fn(inputs: dict) -> (outputs: list,
+    aux_updates: dict)``."""
 
     def __init__(self, symbol):
         self.symbol = symbol
@@ -68,9 +97,13 @@ class _GraphLowering:
                 if id(src) not in pinned:
                     self.last_use[id(src)] = i
 
-    def lower(self) -> Callable:
-        """The inference function: ops that take ``is_train`` get False,
-        random ops no generator (Dropout is the identity)."""
+    def lower(self, is_train: bool = False) -> Callable:
+        """The graph as a function. Ops that take ``is_train`` get it; in
+        training a random op draws from the generator of its first input's
+        device and the aux-update rules give the new moving statistics
+        (computed without gradient); at inference random ops get no
+        generator (Dropout is the identity) and nothing is updated."""
+        from . import random as _random
         nodes, out_entries = self.nodes, self.symbol._outputs
         dying: Dict[int, List[int]] = {}
         for nid, i in self.last_use.items():
@@ -78,6 +111,7 @@ class _GraphLowering:
 
         def fn(inputs: Dict[str, Any]):
             vals: Dict[int, Tuple] = {}
+            aux_updates: Dict[str, Any] = {}
             for i, node in enumerate(nodes):
                 if node.is_var:
                     vals[id(node)] = (inputs[node.name],)
@@ -85,22 +119,40 @@ class _GraphLowering:
                 opdef = get_op(node.op)
                 in_arrays = [vals[id(src)][idx] for (src, idx) in node.inputs]
                 attrs = dict(node.attrs)
-                if _op_signature_flags(opdef)[0]:
-                    attrs.setdefault("is_train", False)
+                accepts_train, accepts_rng = _op_signature_flags(opdef)
+                if accepts_train:
+                    attrs.setdefault("is_train", is_train)
+                if accepts_rng and is_train and in_arrays:
+                    attrs["rng"] = _random.generator(in_arrays[0].device)
                 out = opdef.fn(*in_arrays, **attrs)
-                vals[id(node)] = out if isinstance(out, tuple) else (out,)
+                out = out if isinstance(out, tuple) else (out,)
+                vals[id(node)] = out
+                rule = _AUX_UPDATE_RULES.get(node.op) if is_train else None
+                if rule is not None:
+                    with torch.no_grad():
+                        upd = rule(attrs, in_arrays, out)
+                    for in_idx, new_val in upd.items():
+                        src, _ = node.inputs[in_idx]
+                        if src.is_var:
+                            aux_updates[src.name] = new_val
                 for nid in dying.get(i, ()):
                     vals.pop(nid, None)
-            return [vals[id(node)][idx] for (node, idx) in out_entries]
+            return ([vals[id(node)][idx] for (node, idx) in out_entries],
+                    aux_updates)
 
         return fn
 
     def infer_shapes(self, known: Dict[str, Tuple[int, ...]]):
-        """Forward shape inference with parameter-shape backfill, in
+        """Forward shape inference with parameter-shape backfill (and the
+        variables' ``__shape__`` hints where ``known`` has no shape), in
         fixpoint sweeps (a node whose inputs are still unknown waits for
         the next sweep); each op runs on ``meta`` tensors. The backfill
         through pass-inserted transposes comes with the graph-pass layer."""
-        shapes: Dict[str, Tuple[int, ...]] = dict(known)
+        shapes: Dict[str, Tuple[int, ...]] = {
+            n.name: tuple(n.attrs["__shape__"]) for n in self.nodes
+            if n.is_var and all(d > 0 for d in
+                                n.attrs.get("__shape__", (0,)))}
+        shapes.update(known)
         entry_shape: Dict[Tuple[int, int], Tuple[int, ...]] = {}
         op_nodes = [n for n in self.nodes if not n.is_var]
         meta = torch.device("meta")
@@ -168,46 +220,211 @@ class _GraphLowering:
         return shapes
 
 
-class Executor:
-    """Bound inference executor (reference ``GraphExecutor``): owns the
-    argument and auxiliary arrays; :meth:`forward` runs the graph."""
+_GRAD_REQS = ("write", "add", "null")
 
-    def __init__(self, symbol, ctx, args, aux_states=None):
+
+class Executor:
+    """Bound executor (reference ``GraphExecutor``): owns the argument,
+    gradient and auxiliary arrays; :meth:`forward` runs the graph,
+    :meth:`backward` delivers the gradients by each argument's
+    ``grad_req``."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None):
         self._symbol = symbol
         self._ctx = ctx
+        arg_names = symbol.list_arguments()
         if isinstance(args, (list, tuple)):
-            args = dict(zip(symbol.list_arguments(), args))
+            args = dict(zip(arg_names, args))
         self.arg_dict = dict(args or {})
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
+        self.grad_dict = {n: g for n, g in (args_grad or {}).items()
+                          if g is not None}
         if isinstance(aux_states, (list, tuple)):
             aux_states = dict(zip(symbol.list_auxiliary_states(),
                                   aux_states))
         self.aux_dict = dict(aux_states or {})
+        if isinstance(grad_req, str):
+            grad_req = dict.fromkeys(arg_names, grad_req)
+        elif isinstance(grad_req, (list, tuple)):
+            grad_req = dict(zip(arg_names, grad_req))
+        self.grad_req = {n: grad_req.get(n, "null") for n in arg_names}
+        bad = {r for r in self.grad_req.values() if r not in _GRAD_REQS}
+        if bad:
+            raise MXNetError(f"grad_req must be write, add or null, got "
+                             f"{sorted(bad)}")
         missing = [n for n in symbol.list_inputs()
                    if n not in self.arg_dict and n not in self.aux_dict]
         if missing:
             raise MXNetError(f"bind: no array for inputs {missing}")
-        self._fn = _GraphLowering(symbol).lower()
+        self._lowering = _GraphLowering(symbol)
+        self._fns: Dict[bool, Callable] = {}
+        # (differentiated leaves by name, graph outputs) of the last train
+        # forward, until backward consumes them
+        self._pending = None
         self._outputs: List = []
 
     @property
     def outputs(self) -> List:
         return self._outputs
 
-    def forward(self, is_train: bool = False):
-        """Run the graph over the bound arrays; returns the outputs."""
-        from .ndarray.ndarray import NDArray
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._symbol.list_arguments()]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._symbol.list_arguments()]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n]
+                for n in self._symbol.list_auxiliary_states()]
+
+    def _fn(self, is_train: bool) -> Callable:
+        if is_train not in self._fns:
+            self._fns[is_train] = self._lowering.lower(is_train)
+        return self._fns[is_train]
+
+    def forward(self, is_train: bool = False, **kwargs):
+        """Run the graph over the bound arrays (``kwargs`` first set named
+        arguments, copied onto their arrays' device); returns the outputs.
+        With ``is_train`` the graph is recorded for :meth:`backward` and
+        the moving statistics are updated."""
+        from .ndarray.ndarray import NDArray, array
+        for k, v in kwargs.items():
+            if k in self.arg_dict:
+                self.arg_dict[k]._set_data(v._data if isinstance(v, NDArray)
+                                           else v)
+            else:
+                self.arg_dict[k] = v if isinstance(v, NDArray) \
+                    else array(v, ctx=self._ctx)
+        # a new forward drops the graph of the last one, failed or not
+        self._pending = None
+        inputs = {n: a._data for n, a in self.aux_dict.items()}
+        leaves = {}
+        for n, a in self.arg_dict.items():
+            t = a._data
+            if is_train and self.grad_req.get(n, "null") != "null" \
+                    and t.is_floating_point():
+                t = leaves[n] = t.detach().requires_grad_()
+            inputs[n] = t
+        try:
+            if is_train:
+                with torch.enable_grad():
+                    outs, aux_updates = self._fn(True)(inputs)
+            else:
+                with torch.inference_mode():
+                    outs, aux_updates = self._fn(False)(inputs)
+        except (TypeError, ValueError) as e:
+            raise MXNetError(f"graph execution failed: {e}") from e
+        with torch.no_grad():
+            for name, val in aux_updates.items():
+                if name in self.aux_dict:
+                    self.aux_dict[name]._data.copy_(val)
         if is_train:
-            raise NotImplementedError(
-                "forward(is_train=True) and backward of the symbolic "
-                "executor wait for a later slice (ROADMAP A1); train "
-                "through gluon and autograd")
-        inputs = {n: a._data for n, a in self.arg_dict.items()}
-        inputs.update({n: a._data for n, a in self.aux_dict.items()})
-        with torch.inference_mode():
-            outs = self._fn(inputs)
-        self._outputs = [NDArray(o) for o in outs]
+            self._pending = (leaves, outs)
+        self._outputs = [NDArray(o.detach()) for o in outs]
         return self._outputs
 
     def backward(self, out_grads=None):
-        raise NotImplementedError("backward of the symbolic executor "
-                                  "waits for a later slice (ROADMAP A1)")
+        """Deliver the gradients of the last train forward's outputs,
+        seeded with ``out_grads`` (one array or a list; ones on every
+        output by default), to ``grad_dict`` by ``grad_req``: ``write``
+        overwrites, ``add`` adds, ``null`` takes nothing. Loss heads
+        (``MakeLoss``, ``SoftmaxOutput``) ignore their seed. The recorded
+        graph is released: a second backward needs a new forward."""
+        from .ndarray.ndarray import NDArray
+        if self._pending is None:
+            raise MXNetError("backward called without forward(is_train=True)")
+        leaves, outs = self._pending
+        self._pending = None
+        if out_grads is not None and not isinstance(out_grads,
+                                                    (list, tuple)):
+            out_grads = [out_grads]
+        if out_grads is not None and len(out_grads) != len(outs):
+            raise MXNetError(f"backward: {len(out_grads)} head gradients "
+                             f"for {len(outs)} outputs")
+        heads, seeds = [], []
+        for i, o in enumerate(outs):
+            if not o.requires_grad:
+                continue
+            heads.append(o)
+            if out_grads is None:
+                # one element expanded: a (8192, 50272) head needs no 1.6 GB
+                # of ones
+                seeds.append(torch.ones((), dtype=o.dtype,
+                                        device=o.device).expand(o.shape))
+            else:
+                g = out_grads[i]
+                g = g._data if isinstance(g, NDArray) else torch.as_tensor(g)
+                seeds.append(g.to(device=o.device, dtype=o.dtype))
+        names = list(leaves)
+        got = [None] * len(names)
+        if heads and names:
+            got = torch.autograd.grad(heads, [leaves[n] for n in names],
+                                      seeds, allow_unused=True)
+        with torch.no_grad():
+            for name, g in zip(names, got):
+                buf = self.grad_dict.get(name)
+                req = self.grad_req.get(name, "null")
+                if buf is None or req == "null":
+                    continue
+                if g is None:     # not reached from the outputs
+                    g = torch.zeros((), dtype=buf._data.dtype,
+                                    device=buf._data.device)
+                if req == "add":
+                    buf._data.add_(g)
+                else:
+                    buf._data.copy_(g)
+        return self.grad_arrays
+
+    # ------------------------------------------------------------- misc API
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor at the given input shapes: arrays whose shape is
+        unchanged are shared, the others are new zeros."""
+        from .ndarray.utils import zeros
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        new_args, new_grads = {}, {}
+        for n, s in zip(self._symbol.list_arguments(), arg_shapes):
+            old = self.arg_dict.get(n)
+            if old is not None and tuple(old.shape) == tuple(s):
+                new_args[n] = old
+                if n in self.grad_dict:
+                    new_grads[n] = self.grad_dict[n]
+            else:
+                new_args[n] = zeros(s, ctx=self._ctx)
+                if self.grad_req.get(n, "null") != "null":
+                    new_grads[n] = zeros(s, ctx=self._ctx)
+        new_aux = {n: self.aux_dict.get(n, zeros(s, ctx=self._ctx))
+                   for n, s in zip(self._symbol.list_auxiliary_states(),
+                                   aux_shapes)}
+        return Executor(self._symbol, self._ctx, new_args, new_grads,
+                        self.grad_req, new_aux)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy values into the bound arguments and auxiliary states, in
+        place (onto each bound array's device)."""
+        for src, dst, what in ((arg_params, self.arg_dict, "argument"),
+                               (aux_params, self.aux_dict, "aux state")):
+            for k, v in (src or {}).items():
+                if k in dst:
+                    _copy_into(dst[k], v)
+                elif not allow_extra_params:
+                    raise MXNetError(f"unknown {what} {k}")
+
+
+def _copy_into(dst, src) -> None:
+    """Copy an NDArray, tensor or array-like into ``dst`` in place; a value
+    of another shape replaces the tensor."""
+    from .ndarray.ndarray import NDArray
+    t = src._data if isinstance(src, NDArray) else torch.as_tensor(
+        np.asarray(src))
+    if tuple(t.shape) == tuple(dst.shape):
+        with torch.no_grad():
+            dst._data.copy_(t)
+    else:
+        dst._set_data(t.detach().to(dst._data.dtype))

@@ -1,9 +1,9 @@
 """Gluon — the imperative model API (counterpart of ``mxnet_tpu/gluon``):
-parameters, blocks, the layers of the causal TransformerLM, losses and the
-Trainer."""
+parameters, blocks (``SymbolBlock`` for a saved graph), the layers of the
+causal TransformerLM and BatchNorm, losses and the Trainer."""
 from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401

@@ -11,6 +11,8 @@ autograd records it under ``autograd.record()``. The first call after
 ``hybridize()`` also traces ``hybrid_forward`` once with ``F = mx.sym`` to
 a :class:`~mxnet_tpu_torch.symbol.Symbol` (only the outermost hybridized
 block of a call traces), which :meth:`HybridBlock.export` writes.
+:class:`SymbolBlock` goes the other way: it wraps a Symbol graph (an
+exported file, through :meth:`SymbolBlock.imports`) as a block.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from ..base import MXNetError
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -283,3 +285,94 @@ class HybridBlock(Block):
         param_file = f"{path}-{epoch:04d}.params"
         nd_save(param_file, params)
         return sym_file, param_file
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block (reference ``gluon/block.py:SymbolBlock``,
+    the JAX package's ``block.py:482-541``). Every input of ``outputs``
+    that is not one of ``inputs`` becomes a parameter under its graph name
+    (no prefix); auxiliary states take ``grad_req="null"``, as in the
+    reference. Called on NDArrays it runs the graph through the executor's
+    interpreter, recorded under ``autograd.record()`` and updating the
+    moving statistics in training; called on Symbols it returns the graph
+    with its inputs replaced by them, which is how
+    ``parallel.DataParallelTrainer`` traces it."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        from .. import symbol as sym_mod
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(list(outputs))
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sym_outputs = outputs
+        self._input_names_ordered = [s.name for s in inputs]
+        self._lowerings: Dict[bool, object] = {}
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name not in self._input_names_ordered:
+                self._reg_params[name] = self.params.get(
+                    name, allow_deferred_init=True,
+                    grad_req="null" if name in aux else "write")
+        self._set_values(params or {}, None)
+
+    def _set_values(self, values, ctx) -> None:
+        """Give each parameter named in ``values`` that value, on ``ctx``
+        (the current context by default); other names are ignored."""
+        for name, v in values.items():
+            p = self._reg_params.get(name)
+            if p is not None:
+                p.shape = tuple(v.shape)
+                p.initialize(ctx=ctx)
+                p.set_data(v)
+
+    @staticmethod
+    def imports(symbol_file: str, input_names, param_file=None, ctx=None):
+        """A block over ``symbol_file`` (graph JSON) with ``input_names`` as
+        its inputs and the values of ``param_file`` (``arg:``/``aux:``
+        prefixes stripped), loaded through the host onto ``ctx`` (the card,
+        ``gpu(0)``, unless the caller asks for the CPU)."""
+        from .. import symbol as sym_mod
+        from .parameter import _load_host
+        graph = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(graph, [sym_mod.Variable(n) for n in input_names])
+        if param_file:
+            block._set_values({k.split(":", 1)[-1]: v for k, v in
+                               _load_host(param_file).items()}, ctx)
+        return block
+
+    def _trace_symbol(self, n_inputs):
+        from .. import symbol as sym_mod
+        return self._sym_outputs, [sym_mod.Variable(n)
+                                   for n in self._input_names_ordered]
+
+    def forward(self, x, *args):
+        inputs = [x] + list(args)
+        if not isinstance(x, NDArray):
+            return self._sym_outputs._compose(
+                {n: s._outputs[0] for n, s in
+                 zip(self._input_names_ordered, inputs)})
+        if any(p._data is None for p in self._reg_params.values()):
+            self._deferred_infer_shape(inputs)
+        return self._run(inputs)
+
+    def _run(self, inputs):
+        import torch
+        from ..executor import _GraphLowering
+        is_train = autograd.is_training()
+        if is_train not in self._lowerings:
+            self._lowerings[is_train] = \
+                _GraphLowering(self._sym_outputs).lower(is_train)
+        feed = {n: a._data for n, a in zip(self._input_names_ordered,
+                                            inputs)}
+        feed.update({n: p.data()._data
+                     for n, p in self._reg_params.items()})
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs, aux_updates = self._lowerings[is_train](feed)
+        with torch.no_grad():
+            for name, val in aux_updates.items():
+                self._reg_params[name].data()._data.copy_(val)
+        outs = [NDArray(o) for o in outs]
+        return outs[0] if len(outs) == 1 else outs

@@ -1,17 +1,21 @@
 """Basic Gluon layers.
 
 Counterpart of ``Sequential``, ``HybridSequential``, ``Dense``,
-``Dropout``, ``LayerNorm`` and ``Embedding`` in
+``Dropout``, ``BatchNorm``, ``LayerNorm`` and ``Embedding`` in
 ``mxnet_tpu/gluon/nn/basic_layers.py`` (reference
 ``python/mxnet/gluon/nn/basic_layers.py``); the rest of that module waits
 for a later slice.
 """
 from __future__ import annotations
 
+import torch
+
+from ... import autograd
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "LayerNorm",
-           "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding"]
 
 
 class Sequential(Block):
@@ -98,6 +102,56 @@ class Dropout(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization over ``axis``; the moving statistics are
+    ``grad_req="null"`` parameters that a training forward updates (the
+    executor's aux rule): ``moving ← moving·momentum + batch·(1 −
+    momentum)``."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True,
+                grad_req="write" if center else "null")
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                grad_req="null")
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                grad_req="null")
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out = F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                          **self._kwargs)
+        if isinstance(x, NDArray) and autograd.is_training():
+            # eager: fold the batch statistics in here, as the reference's
+            # imperative BatchNorm does; in a graph the executor does it
+            from ...executor import _bn_aux_update
+            moving = (running_mean._data, running_var._data)
+            with torch.no_grad():
+                upd = _bn_aux_update(self._kwargs, (None, None, None)
+                                     + moving, [o._data for o in out])
+            for idx, t in zip((3, 4), moving):
+                if idx in upd:
+                    t.copy_(upd[idx])
+        return out[0]
 
 
 class LayerNorm(HybridBlock):

@@ -88,7 +88,7 @@ class Predictor:
         self._aux = {n: aux_params[n] for n in sym.list_auxiliary_states()
                      if n in aux_params}
         self._args = args
-        self._exec = sym.bind(self._ctx, args,
+        self._exec = sym.bind(self._ctx, args, grad_req="null",
                               aux_states=self._aux if self._aux else None)
         self._lock = threading.RLock()
 
@@ -124,7 +124,8 @@ class Predictor:
                 args[n] = nd_utils.zeros(s, ctx=self._ctx)
             clone._args = args
             clone._exec = self._sym.bind(
-                self._ctx, args, aux_states=self._aux if self._aux else None)
+                self._ctx, args, grad_req="null",
+                aux_states=self._aux if self._aux else None)
             clone._input_names = list(self._input_names)
             clone._lock = threading.RLock()
             return clone

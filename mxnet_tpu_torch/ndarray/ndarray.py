@@ -97,10 +97,13 @@ class NDArray:
         return self._grad
 
     def asnumpy(self) -> np.ndarray:
+        """A copy on the host: a CPU tensor's numpy view would change with
+        the in-place updates of gradients, weights and moving statistics."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.cpu().numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:

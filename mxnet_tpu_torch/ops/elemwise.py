@@ -1,6 +1,7 @@
 """Elementwise unary and scalar ops.
 
-Counterpart of ``negative``, ``square``, ``sigmoid`` and the ``_*_scalar`` family in
+Counterpart of ``negative``, ``square``, ``sigmoid``, ``BlockGrad`` and the
+``_*_scalar`` family in
 ``mxnet_tpu/ops/elemwise.py`` (reference
 ``src/operator/tensor/elemwise_unary_op_basic.cc``,
 ``elemwise_binary_scalar_op_basic.cc``): what NDArray and Symbol
@@ -28,3 +29,4 @@ _scalar_op("_rminus_scalar", lambda x, s: s - x)
 _scalar_op("_mul_scalar", lambda x, s: x * s)
 _scalar_op("_div_scalar", lambda x, s: x / s)
 _scalar_op("_rdiv_scalar", lambda x, s: s / x)
+register("BlockGrad", aliases=["stop_gradient"])(lambda x: x.detach())

@@ -1,9 +1,11 @@
-"""Neural-network ops of the LM and its loss.
+"""Neural-network ops of the LM, its losses and the symbolic heads.
 
-Counterpart of ``FullyConnected``, ``LayerNorm``, ``Activation``,
-``Dropout``, ``log_softmax``, ``softmax_cross_entropy`` and
-``_contrib_flash_attention`` in ``mxnet_tpu/ops/nn.py`` (reference
-``src/operator/nn/``, ``src/operator/loss_binary_op.cc``). Matrix products
+Counterpart of ``FullyConnected``, ``LayerNorm``, ``BatchNorm``,
+``Activation``, ``Dropout``, ``log_softmax``, ``softmax_cross_entropy``,
+``SoftmaxOutput`` and ``_contrib_flash_attention`` in
+``mxnet_tpu/ops/nn.py``, and ``MakeLoss`` in ``mxnet_tpu/ops/parity_ops.py``
+(reference ``src/operator/nn/``, ``src/operator/loss_binary_op.cc``,
+``softmax_output.cc``, ``make_loss.cc``). Matrix products
 go to ``torch`` (cuBLAS on the card, in full float32: TF32 stays off);
 attention and the fused cross-entropy go to the hand-written Hopper
 kernels in :mod:`.hopper_kernels`.
@@ -99,3 +101,134 @@ def _softmax_cross_entropy(data, label):
     fused Hopper kernel on the card, its gradient ``(softmax − onehot)·g``."""
     from .hopper_kernels import softmax_cross_entropy
     return softmax_cross_entropy(data, label.reshape(-1)).sum().reshape(1)
+
+
+# ------------------------------------------------------------ symbolic heads
+# The ops below carry the reference's own backward rules, each a
+# ``torch.autograd.Function`` in plain torch (none is a TPU kernel).
+
+@register("BatchNorm", num_outputs=3,
+          arg_names=("data", "gamma", "beta", "moving_mean", "moving_var"),
+          aux_args=("moving_mean", "moving_var"))
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                is_train=True):
+    """Batch statistics in training (one float32 pass: ``var = E[x²] −
+    E[x]²`` clamped at 0, the biased variance), the moving ones otherwise
+    or under ``use_global_stats``; ``fix_gamma`` scales by 1 (gamma gets
+    no gradient). Outputs (out, mean, var) like the JAX package; the
+    executor folds mean and var into the moving statistics
+    (``executor._bn_aux_update``)."""
+    ax = int(axis) % data.ndim
+    red = tuple(i for i in range(data.ndim) if i != ax)
+    bshape = [data.shape[ax] if i == ax else 1 for i in range(data.ndim)]
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if is_train and not use_global_stats:
+        xf = data.float()
+        mean = xf.mean(dim=red)
+        var = ((xf * xf).mean(dim=red) - mean * mean).clamp_min(0.0)
+    else:
+        mean, var = moving_mean.float(), moving_var.float()
+    scale = torch.rsqrt(var + eps) * g.float()
+    shift = beta.float() - mean * scale
+    out = data * scale.to(data.dtype).reshape(bshape) \
+        + shift.to(data.dtype).reshape(bshape)
+    return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward ignores the head gradient and emits
+    ``(p − onehot(label))·scale`` (reference ``softmax_output.cc``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        multi = attrs["multi_output"]
+        out = torch.softmax(data, dim=1) if multi else torch.softmax(
+            data.reshape(data.shape[0], -1), dim=-1).reshape(data.shape)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = attrs
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        a = ctx.attrs
+        lab = label.to(torch.int64)
+        if a["multi_output"]:            # data (N, C, ...), label (N, ...)
+            oh = F.one_hot(lab, out.shape[1]).movedim(-1, 1).to(out.dtype)
+        else:
+            flat = out.reshape(out.shape[0], -1)
+            oh = F.one_hot(lab.reshape(-1), flat.shape[-1]).to(
+                out.dtype).reshape(out.shape)
+        alpha = a["smooth_alpha"]
+        if alpha:
+            k = oh.shape[1] if a["multi_output"] else \
+                oh.reshape(oh.shape[0], -1).shape[-1]
+            oh = oh * (1.0 - alpha) + alpha / (k - 1) * (1.0 - oh)
+        grad = out - oh
+        keep = label != a["ignore_label"]
+        if a["use_ignore"]:
+            mask = keep.to(out.dtype)
+            mask = mask.unsqueeze(1) if a["multi_output"] else \
+                mask.reshape((-1,) + (1,) * (out.ndim - 1))
+            grad = grad * mask
+        scale = a["grad_scale"]
+        if a["normalization"] == "batch":
+            scale = scale / out.shape[0]
+        elif a["normalization"] == "valid" and a["use_ignore"]:
+            grad = grad / keep.to(out.dtype).sum().clamp_min(1.0)
+        return grad * scale, torch.zeros_like(label), None
+
+
+@register("SoftmaxOutput", aliases=["Softmax"], arg_names=("data", "label"))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """Softmax with the implicit cross-entropy gradient: the head gradient
+    is ignored, ``(p − onehot)·grad_scale`` flows back, normalised by
+    ``batch`` or by the ``valid`` (not ignored) labels."""
+    return _SoftmaxOutput.apply(data, label, {
+        "grad_scale": float(grad_scale), "ignore_label": float(ignore_label),
+        "multi_output": bool(multi_output), "use_ignore": bool(use_ignore),
+        "normalization": str(normalization),
+        "smooth_alpha": float(smooth_alpha)})
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward ignores the head gradient and emits
+    ``grad_scale`` (reference ``make_loss.cc``)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        # the loss itself is kept only where its values set the scale
+        if normalization == "valid":
+            ctx.save_for_backward(data)
+        ctx.like = torch.empty_like(data, device="meta")
+        ctx.attrs = (grad_scale, valid_thresh, normalization)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        # built on the device (a fill, no copy from the host): a host
+        # scalar copied in would wait for the whole forward to finish
+        grad_scale, valid_thresh, normalization = ctx.attrs
+        like = ctx.like
+        if normalization == "batch":
+            grad_scale /= like.shape[0]
+        grad = torch.full(like.shape, grad_scale, dtype=like.dtype,
+                          device=g.device)
+        if normalization == "valid":
+            (d,) = ctx.saved_tensors
+            grad /= (d > valid_thresh).to(d.dtype).sum().clamp_min(1.0)
+        return grad, None, None, None
+
+
+@register("MakeLoss", arg_names=("data",))
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """Marks a loss head: forward passes ``data`` through, backward emits
+    ``grad_scale`` (normalised by ``valid`` elements or ``batch``) whatever
+    the head gradient."""
+    return _MakeLoss.apply(data, float(grad_scale), float(valid_thresh),
+                           str(normalization))

@@ -13,14 +13,15 @@ import threading
 import time
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .base import get_env
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "host_rng"]
 
 _lock = threading.Lock()
-_state: Dict[str, object] = {"seed": None, "gens": {}}
+_state: Dict[str, object] = {"seed": None, "gens": {}, "host": None}
 
 
 def _root() -> int:
@@ -36,6 +37,7 @@ def seed(seed_state: int, ctx="all") -> None:
     with _lock:
         _state["seed"] = int(seed_state)
         _state["gens"] = {}
+        _state["host"] = None
 
 
 def generator(device: torch.device) -> torch.Generator:
@@ -48,3 +50,12 @@ def generator(device: torch.device) -> torch.Generator:
             gen.manual_seed(_root())
             _state["gens"][key] = gen
         return gen
+
+
+def host_rng() -> np.random.RandomState:
+    """The numpy stream of host-side draws (``NDArrayIter``'s shuffle
+    seed), restarted by :func:`seed`."""
+    with _lock:
+        if _state["host"] is None:
+            _state["host"] = np.random.RandomState(_root())
+        return _state["host"]

@@ -14,9 +14,9 @@ from typing import Any, Dict, List
 from ..base import MXNetError
 from ..name import NameManager
 from ..ops.registry import _REGISTRY, get_op, list_ops
-from .symbol import Group, Symbol, Variable, _Node, load_json, var
+from .symbol import Group, Symbol, Variable, _Node, load, load_json, var
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 def _invoke_sym(op_name: str, sym_inputs: List[Symbol],

@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/symbol/symbol.py`` (reference ``nnvm::Symbol``
 and ``python/mxnet/symbol/symbol.py``): composition, argument/output
-listing, JSON in the JAX package's format, shape inference and ``bind``.
-The bound graph runs through :class:`~mxnet_tpu_torch.executor.Executor`,
-an eager interpreter over the port's op registry.
+listing, JSON in the JAX package's format, shape inference, ``bind`` and
+``simple_bind``. The bound graph runs through
+:class:`~mxnet_tpu_torch.executor.Executor`, an eager interpreter over the
+port's op registry, forward and backward.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..base import MXNetError
 from ..ops.registry import get_op
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -136,6 +137,27 @@ class Symbol:
     def list_inputs(self) -> List[str]:
         return self.list_arguments() + self.list_auxiliary_states()
 
+    def _compose(self, entries: Dict[str, Tuple[_Node, int]]) -> "Symbol":
+        """A copy of this graph with each variable named in ``entries``
+        replaced by that output entry of another graph (the reference's
+        ``Symbol._compose``); this graph is left as it is."""
+        new: Dict[int, _Node] = {}
+
+        def entry(src, idx):
+            if src.is_var and src.name in entries:
+                return entries[src.name]
+            return (new.get(id(src), src), idx)
+
+        for n in self.topo_nodes():
+            if not n.is_var:
+                node = _Node.__new__(_Node)
+                node.op, node.name, node.num_outputs = (n.op, n.name,
+                                                        n.num_outputs)
+                node.attrs = dict(n.attrs)
+                node.inputs = [entry(src, idx) for (src, idx) in n.inputs]
+                new[id(n)] = node
+        return Symbol([entry(node, idx) for (node, idx) in self._outputs])
+
     def get_internals(self) -> "Symbol":
         return Symbol([(n, i) for n in self.topo_nodes()
                        for i in range(n.num_outputs)])
@@ -155,17 +177,36 @@ class Symbol:
                 [shapes.get(n) for n in self.list_auxiliary_states()])
 
     # ---------------------------------------------------------------- binding
-    def bind(self, ctx, args, args_grad=None, grad_req="null",
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
-        """Bind arrays to an inference executor. The executor's gradients
-        wait for a later slice (ROADMAP A1): ``args_grad`` or a
-        ``grad_req`` other than ``"null"`` raises."""
+        """Bind arrays (lists in ``list_arguments`` order or dicts by name)
+        to an :class:`~mxnet_tpu_torch.executor.Executor`. ``grad_req``
+        (``write``, ``add`` or ``null``; one for all, a list or a dict)
+        defaults to ``write`` as in the reference; gradients land only in
+        the arrays ``args_grad`` provides."""
         from ..executor import Executor
-        if args_grad is not None or grad_req not in ("null", None):
-            raise NotImplementedError(
-                "bind with gradients waits for a later slice (ROADMAP A1); "
-                "train through gluon and autograd")
-        return Executor(self, ctx, args, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **shapes):
+        """Infer every shape from the given input shapes and bind zeros:
+        arguments, gradients (for each argument whose ``grad_req`` is not
+        ``null``) and auxiliary states, float32 on ``ctx``."""
+        from ..executor import Executor
+        from ..ndarray.utils import zeros
+        arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
+        arg_names = self.list_arguments()
+        if isinstance(grad_req, str):
+            reqs = dict.fromkeys(arg_names, grad_req)
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(arg_names, grad_req))
+        else:
+            reqs = dict(grad_req)
+        args = {n: zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)}
+        grads = {n: zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)
+                 if reqs.get(n, "null") != "null"}
+        aux = {n: zeros(s, ctx=ctx) for n, s in
+               zip(self.list_auxiliary_states(), aux_shapes)}
+        return Executor(self, ctx, args, grads, reqs, aux)
 
     # ---------------------------------------------------------------- JSON
     def tojson(self) -> str:
@@ -189,10 +230,14 @@ class Symbol:
 
 
 def Variable(name: str, shape=None, dtype=None, **kwargs) -> Symbol:
-    """A named graph input. Shape and dtype hints are accepted and not
-    kept: shapes come to ``infer_shape`` by name. Attribute scopes and
-    ``lr_mult``-style metadata wait for a later slice."""
-    return Symbol([(_Node(None, name, {}, []), 0)])
+    """A named graph input. A ``shape`` hint is kept as the node's
+    ``__shape__`` attribute (written to the graph JSON, as the reference
+    writes it) and ``infer_shape`` takes it where no shape is given for the
+    name; a dtype hint, attribute scopes and ``lr_mult``-style metadata
+    wait for a later slice."""
+    attrs = {} if shape is None else {"__shape__": tuple(int(d)
+                                                         for d in shape)}
+    return Symbol([(_Node(None, name, attrs, []), 0)])
 
 
 var = Variable
@@ -226,3 +271,9 @@ def load_json(json_str: str) -> Symbol:
         inputs = [(nodes[i], idx) for (i, idx, _) in jn.get("inputs", [])]
         nodes.append(_Node(op, jn["name"], attrs, inputs))
     return Symbol([(nodes[i], idx) for (i, idx, _) in data["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    """Read a graph JSON file (:meth:`Symbol.save` of either package)."""
+    with open(fname) as f:
+        return load_json(f.read())

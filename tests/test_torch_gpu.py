@@ -7,7 +7,10 @@ SASS for tensor-core instructions (``HMMA``). Also ``mx.rtc``
 on the card: the user kernels of ``chip_smoke.py`` through ``extern "C"``
 and template exports, what a launch refuses, a launch from a second
 thread, one above 48 KB of dynamic shared memory, and the CustomOp loss
-head against its plain version at OPT's vocabulary. Marked ``gpu``; it
+head against its plain version at OPT's vocabulary. And one step of the
+symbolic route (``mx.mod.Module``) and of the fused one
+(``parallel.DataParallelTrainer`` over a ``SymbolBlock``) of a small LM,
+with their launch counts, against the CPU run. Marked ``gpu``; it
 skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -19,6 +22,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -312,3 +316,117 @@ def test_custom_head_matches_plain(cuda, cs, n):
     p, g = probs._data, data.grad._data
     assert (p - ref_p).abs().max().item() <= 1e-5 * ref_p.max().item()
     assert (g - ref_g).abs().max().item() <= 1e-5 * ref_g.abs().max().item()
+
+
+# ------------------------------------------- the symbolic and fused routes
+# A small LM whose heads fit the kernels (head dim 32): 2 layers, 128
+# units, 4 heads, FFN 256, vocab 97, 2 x 64 tokens. One step of each route
+# on the card and on the CPU (the kernels' plain versions) from the same
+# checkpoint; the card's gradients (or weight steps) against the CPU's by
+# ||d|| / ||cpu|| per tensor with chip_smoke.py's gates (all tensors, and
+# the ones above the last ReLU).
+SMALL = dict(vocab=97, units=128, layers=2, heads=4, ffn=256, T=64, B=2)
+
+
+@pytest.fixture(scope="module")
+def small_lm(cs, tmp_path_factory):
+    c = SMALL
+    graph = cs.build_lm_symbol(mx.sym, c["vocab"], c["units"], c["layers"],
+                               c["heads"], c["ffn"], max_len=c["T"])
+    arg, _, _ = graph.infer_shape(data=(c["B"], c["T"]))
+    rng = np.random.RandomState(0)
+    params = {n: (rng.randn(*s) * 0.05).astype("float32")
+              for n, s in zip(graph.list_arguments(), arg) if n != "data"}
+    params["pos_table"] = cs.sinusoid_table(c["T"], c["units"])
+    prefix = str(tmp_path_factory.mktemp("small_lm") / "lm")
+    with mx.cpu():
+        mx.model.save_checkpoint(prefix, 0, graph,
+                                 {n: mx.nd.array(v) for n, v in
+                                  params.items()}, {})
+    shape = (c["B"], c["T"])
+    return {"prefix": prefix,
+            "x": rng.randint(0, c["vocab"], shape).astype("float32"),
+            "y": rng.randint(0, c["vocab"], shape).astype("float32")}
+
+
+def _route_gate(cs, card, cpu):
+    """Per tensor ||card - cpu|| / ||cpu|| within chip_smoke.py's gates."""
+    last = f"layer{SMALL['layers'] - 1}_fc2_"
+    for n, ref in cpu.items():
+        err = np.linalg.norm(card[n] - ref) / max(np.linalg.norm(ref), 1e-30)
+        top = n.startswith(("head_", "lnf_", last))
+        assert err <= (cs.TOL_TRAIN_GRAD_TOP if top else cs.TOL_TRAIN_GRAD), \
+            f"{n}: {err:.3e}"
+
+
+def _module_step(cs, files, ctx):
+    lm, arg, aux = mx.model.load_checkpoint(files["prefix"], 0)
+    it = mx.io.NDArrayIter({"data": files["x"]}, {"label": files["y"]},
+                           batch_size=SMALL["B"])
+    mod = mx.mod.Module(cs.lm_loss_head(mx.sym, lm, SMALL["vocab"]),
+                        data_names=("data",), label_names=("label",),
+                        context=ctx, fixed_param_names=["pos_table"])
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1})
+    hk.reset_launch_counts()
+    mod.forward_backward(it.next())
+    counts = dict(hk.launch_counts)
+    ex = mod._exec_group.execs[0]
+    return (counts, mod.get_outputs()[0].asscalar(),
+            {n: g.asnumpy() for n, g in ex.grad_dict.items()})
+
+
+def test_module_step_on_card_matches_cpu(cuda, cs, small_lm):
+    """A Module step of the LM with the MakeLoss(softmax_cross_entropy)
+    head launches B1 and B3's kernels once a layer and B2 once, and its
+    loss and gradients match the CPU run."""
+    counts, loss, grads = _module_step(cs, small_lm, mx.gpu(0))
+    L = SMALL["layers"]
+    assert counts == {"flash_attention_fwd": L, "flash_attention_bwd_dkdv": L,
+                      "flash_attention_bwd_dq": L,
+                      "softmax_cross_entropy_fwd": 1}
+    cpu_counts, cpu_loss, cpu_grads = _module_step(cs, small_lm, mx.cpu())
+    assert not any(cpu_counts.values())
+    assert abs(loss - cpu_loss) <= cs.TOL_TRAIN_LOSS * abs(cpu_loss)
+    assert len(grads) == len(cpu_grads) == 4 + 12 * L
+    _route_gate(cs, grads, cpu_grads)
+
+
+def _fused_step(files, ctx):
+    from mxnet_tpu_torch import gluon, parallel
+    prefix = files["prefix"]
+    with ctx:
+        block = gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                          prefix + "-0000.params")
+        block.collect_params()["pos_table"].grad_req = "null"
+        w0 = {n: p.data().asnumpy() for n, p in
+              block.collect_params().items()}
+        trainer = parallel.DataParallelTrainer(
+            block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9})
+        hk.reset_launch_counts()
+        loss = trainer.step(mx.nd.array(files["x"]),
+                            mx.nd.array(files["y"]))
+        counts = dict(hk.launch_counts)
+        assert trainer._mesh.devices[0] == ctx
+    return counts, loss.asscalar(), {
+        n: w0[n] - t.detach().cpu().numpy()
+        for n, t in trainer._params.items()}
+
+
+def test_fused_step_on_card_matches_cpu(cuda, cs, small_lm):
+    """A DataParallelTrainer step over the SymbolBlock of the same files
+    (mesh=None: the current context) launches B1 and B3's kernels once a
+    layer and B2 never, and its loss and weight steps match the CPU run."""
+    counts, loss, steps = _fused_step(small_lm, mx.gpu(0))
+    L = SMALL["layers"]
+    assert counts == {"flash_attention_fwd": L, "flash_attention_bwd_dkdv": L,
+                      "flash_attention_bwd_dq": L,
+                      "softmax_cross_entropy_fwd": 0}
+    cpu_counts, cpu_loss, cpu_steps = _fused_step(small_lm, mx.cpu())
+    assert not any(cpu_counts.values())
+    assert abs(loss - cpu_loss) <= cs.TOL_TRAIN_LOSS * abs(cpu_loss)
+    assert len(steps) == len(cpu_steps) == 4 + 12 * L
+    _route_gate(cs, steps, cpu_steps)

@@ -38,7 +38,16 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/gluon/contrib/transformer.py",
             "mxnet_tpu_torch/rtc.py", "mxnet_tpu_torch/operator.py",
             "mxnet_tpu_torch/lr_scheduler.py",
-            "mxnet_tpu_torch/_cuda_driver.py"} <= rel
+            "mxnet_tpu_torch/_cuda_driver.py",
+            "mxnet_tpu_torch/executor.py", "mxnet_tpu_torch/io/io.py",
+            "mxnet_tpu_torch/metric.py", "mxnet_tpu_torch/callback.py",
+            "mxnet_tpu_torch/model.py",
+            "mxnet_tpu_torch/module/module.py",
+            "mxnet_tpu_torch/module/base_module.py",
+            "mxnet_tpu_torch/module/executor_group.py",
+            "mxnet_tpu_torch/parallel/mesh.py",
+            "mxnet_tpu_torch/parallel/data_parallel.py",
+            "mxnet_tpu_torch/parallel/fused_rules.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -51,7 +60,11 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.name, mxnet_tpu_torch.rtc, "
             "mxnet_tpu_torch.operator, mxnet_tpu_torch.lr_scheduler, "
-            "mxnet_tpu_torch._cuda_driver; "
+            "mxnet_tpu_torch._cuda_driver, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.metric, "
+            "mxnet_tpu_torch.callback, mxnet_tpu_torch.model, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.parallel, "
+            "mxnet_tpu_torch.parallel.fused_rules; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
