@@ -16,7 +16,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    full-vocabulary shapes — with controls (the plain versions in TF32, or
    on TF32-rounded logits) that must miss each float32 tolerance; launch
    each flash kernel twice at the main shape and require bitwise-equal
-   results; then time each kernel, its plain version and the library's
+   results (and of Embedding's backward at the training shape, beside
+   the ``index_select`` it replaced); then time each kernel, its plain version and the library's
    call at the shapes the main paths give it. Each bound is the least time
    over the routes that meet the gates (``roofline_ms``): float32 products
    as three TF32 passes on the tensor cores, bf16 on the tensor cores, or
@@ -68,11 +69,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    floor of that subtraction); ``sync_to_net`` must give the block the
    trainer's weights bitwise. Both routes check their launch counts per
    step: B1 4, B3 4 + 4, and B2 1 (Module) or 0 (fused).
+9. mixed: the same files through ``SymbolBlock.imports`` with the table
+   as a data input and ``DataParallelTrainer(compute_dtype="bfloat16")``
+   on int32 token ids (B1 and B3 in bf16): three steps for each of
+   ``remat=None``, ``"dots"`` and ``"full"`` from the file's weights (the
+   losses and weights of the three bitwise equal, B1 launched 4 or 8 times
+   a step, peak memory printed and lower under ``"full"``), then one step
+   with loss scaling (bitwise the unscaled step) and one on a batch
+   holding an ``inf`` (skipped: weights and momentum unchanged, the scale
+   halved). Step 1's gradient against the plain float32 step may be at
+   most 1.25× as far as the plain bf16 control's, tensor by tensor.
+10. bucketing: ``BucketingModule`` over the LM graph at buckets T = 2048
+   and 1024 with the ``MakeLoss`` head, steps on 2048, 1024 and 2048: the
+   first loss bitwise the Module route's, the 1024 step through the
+   Module route's gates at T = 1024, one storage for every parameter in
+   both buckets.
+11. sequential: one step of ``SequentialModule`` (the LM up to its logits,
+   then the loss module): loss and weights those of the Module route.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
-one training step, one custom-head step, one Module step and one fused
-step. The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+one training step, one custom-head step, one Module step, one fused step
+and one bf16 fused step. The line before the last is a JSON object with
+one entry per kernel (the flash kernels' bf16 times at the main shape
+under ``"bf16"``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -497,11 +516,13 @@ def build_lm_symbol(sym, vocab, units, layers, heads, ffn, max_len=None):
                               flatten=False, name="head")
 
 
-def plain_forward(w, tokens, vocab, units, layers, heads, attend=None):
+def plain_forward(w, tokens, vocab, units, layers, heads, attend=None,
+                  norm=None):
     """The same LM as one plain float32 PyTorch function: no registry, no
     executor, no kernel. ``w`` maps argument names to tensors; ``tokens``
     (B, T) int64; ``attend(q, k, v)`` on (B, H, T, D) is causal attention,
-    by default a dense masked softmax."""
+    by default a dense masked softmax; ``norm(x, gamma, beta)`` is the
+    LayerNorm, by default ``F.layer_norm``."""
     import torch
     import torch.nn.functional as F
     B, T = tokens.shape
@@ -517,6 +538,8 @@ def plain_forward(w, tokens, vocab, units, layers, heads, attend=None):
     attend = attend or dense_attention
 
     def ln(x, name):
+        if norm is not None:
+            return norm(x, w[name + "_gamma"], w[name + "_beta"])
         return F.layer_norm(x, (units,), w[name + "_gamma"],
                             w[name + "_beta"], eps=1e-5)
 
@@ -639,7 +662,8 @@ def _card_line() -> str:
 # --------------------------------------------------------------- kernels
 def kernel_phase(hk, dev):
     """Flash-attention forward vs its plain version; returns the record of
-    the serving shape (f32, causal, (4, 32, 2048, 128))."""
+    the serving shape (causal, (4, 32, 2048, 128)): float32, and bfloat16
+    under ``"bf16"``."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -661,7 +685,7 @@ def kernel_phase(hk, dev):
         grid += attention_edge_cases(dtype, hk.SUPPORTED_HEAD_DIMS)
         grid.append((dtype, (4, 32, 2048, 2048, 128), True, 0, 0))
     worst = {}
-    main = None
+    mains = {}
     for dtype, (B, H, Tq, Tk, D), causal, qo, ko in grid:
         q, k, v = qkv(B, H, Tq, Tk, D, dtype)
         out, lse = hk.flash_attention_with_lse(q, k, v, causal, None, qo, ko)
@@ -680,8 +704,9 @@ def kernel_phase(hk, dev):
                                  f"plain version at {tag}")
         key = str(dtype)
         worst[key] = max(worst.get(key, 0.0), err)
+        if (B, H, Tq, D) == (4, 32, 2048, 128):
+            mains[dtype] = dict(q=q, k=k, v=v, err=err, ref=ref)
         if dtype == torch.float32 and (B, H, Tq, D) == (4, 32, 2048, 128):
-            main = dict(q=q, k=k, v=v, err=err)
             # control: the plain version with TF32 matmuls must fail both
             # f32 tolerances, or they could not tell a TF32 path apart
             with tf32_matmuls():
@@ -698,6 +723,7 @@ def kernel_phase(hk, dev):
             del c_out, c_lse
         del q, k, v, out, lse, ref, ref_lse
 
+    main = mains[torch.float32]
     q, k, v = main["q"], main["k"], main["v"]
     BH, T, D = 4 * 32, 2048, 128
     # the same inputs twice: the kernel has no atomics, so bitwise equal
@@ -723,12 +749,43 @@ def kernel_phase(hk, dev):
           f"{bound_ms:.3f} ms ({bound_by}, {route}; {flops:.3e} FLOP, "
           f"{nbytes:.3e} B), f32 CUDA-core bound {cuda_core_ms:.3f} ms; "
           f"worst errors {worst}; card {_card_line()}")
+    # the grid's bf16 case at this shape, the mixed-precision route's
+    mb = mains[torch.bfloat16]
+    qb, kb, vb = mb["q"], mb["k"], mb["v"]
+    timed = {}
+
+    def run_bf16():
+        timed["out"] = hk.flash_attention(qb, kb, vb, True)
+
+    bf16 = {
+        "max_abs_err": mb["err"],
+        "ms": _time_ms(run_bf16, reps=5),
+        "plain_ms": _time_ms(lambda: hk.flash_attention_reference(
+            qb, kb, vb, True), reps=5),
+        "library_ms": _time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True), reps=5)}
+    # the last timed launch's output, held to the grid's tolerance
+    t_err = (timed["out"].float() - mb["ref"]).abs().max().item()
+    if not t_err <= TOL_OUT_BF16:
+        raise AssertionError(f"flash_attention_fwd's timed bf16 launch "
+                             f"disagrees with its plain version: {t_err}")
+    bnbytes = 2.0 * 4 * BH * T * D + 4.0 * BH * T   # bf16 q, k, v, out; lse
+    bf16["bound_ms"], bf16["bound_by"], _ = roofline_ms(flops, bnbytes,
+                                                        "bf16")
+    print(f"flash_attention_fwd bf16 causal (4, 32, 2048, 128): "
+          f"max|out-plain| {mb['err']:.3e} in the grid, {t_err:.3e} at the "
+          f"last timed launch (tol {TOL_OUT_BF16}); kernel "
+          f"{bf16['ms']:.3f} ms, plain {bf16['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {bf16['library_ms']:.3f} ms, bound "
+          f"{bf16['bound_ms']:.3f} ms ({bf16['bound_by']}, bf16 tensor "
+          f"cores; {bnbytes:.3e} B); card {_card_line()}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:63",
             "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_route": route, "library_ms": lib_ms}
+            "bound_route": route, "library_ms": lib_ms, "bf16": bf16}
 
 
 def _max_rel(got, ref) -> float:
@@ -738,8 +795,8 @@ def _max_rel(got, ref) -> float:
 
 def backward_kernel_phase(hk, dev):
     """The flash-attention backward kernels vs their plain version; returns
-    the records of the dK/dV and dQ kernels at the training shape (f32,
-    causal, (4, 32, 2048, 128))."""
+    the records of the dK/dV and dQ kernels at the training shape (causal,
+    (4, 32, 2048, 128)): float32, and bfloat16 under ``"bf16"``."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -752,8 +809,8 @@ def backward_kernel_phase(hk, dev):
         grid.append((dtype, (1, 2, 77, 1000, 64), True, 923, 0))
         grid.append((dtype, (2, 2, 64, 100, 128), True, 0, 30))
         grid += attention_edge_cases(dtype, hk.SUPPORTED_HEAD_DIMS)
-    grid.append((torch.float32, (4, 32, 2048, 2048, 128), True, 0, 0))
-    main = None
+        grid.append((dtype, (4, 32, 2048, 2048, 128), True, 0, 0))
+    mains = {}
     for dtype, (B, H, Tq, Tk, D), causal, qo, ko in grid:
         q, k, v = (torch.randn(B * H, t, D, generator=gen, device=dev)
                    .to(dtype) for t in (Tq, Tk, Tk))
@@ -778,10 +835,12 @@ def backward_kernel_phase(hk, dev):
         if causal and ko > qo and bool(got[0][:, :ko - qo].any()):
             raise AssertionError("rows that see no key got a gradient")
         if Tq == 2048:
-            main = dict(q=q, k=k, v=v, out=out, lse=lse, g=g, sc=sc,
-                        err_dq=(got[0] - ref[0]).abs().max().item(),
-                        err_dkdv=max((got[1] - ref[1]).abs().max().item(),
-                                     (got[2] - ref[2]).abs().max().item()))
+            mains[dtype] = dict(
+                q=q, k=k, v=v, out=out, lse=lse, g=g, sc=sc, ref=ref,
+                err_dq=(got[0].float() - ref[0]).abs().max().item(),
+                err_dkdv=max((got[1].float() - ref[1]).abs().max().item(),
+                             (got[2].float() - ref[2]).abs().max().item()))
+        if Tq == 2048 and dtype == torch.float32:
             with tf32_matmuls():
                 ctl = hk.flash_attention_bwd_reference(q, k, v, out, lse, g,
                                                        sc, True)
@@ -795,6 +854,7 @@ def backward_kernel_phase(hk, dev):
             del ctl
         del got, ref
 
+    main = mains[torch.float32]
     q, k, v, out, lse, g, sc = (main[n] for n in
                                 ("q", "k", "v", "out", "lse", "g", "sc"))
     BH, T, D = q.shape
@@ -843,15 +903,63 @@ def backward_kernel_phase(hk, dev):
           f"scaled_dot_product_attention backward {lib_ms:.3f} ms; card "
           f"{_card_line()}")
     del o4, q4, k4, v4
+    # the grid's bf16 case at this shape, the mixed-precision route's
+    mb = mains[torch.bfloat16]
+    qb, kb, vb, gb, ob, lseb = (mb[n] for n in
+                                ("q", "k", "v", "g", "out", "lse"))
+    deltab = (gb.float() * ob.float()).sum(-1)
+    dqb, dkb, dvb = (torch.empty_like(t) for t in (qb, kb, vb))
+    bf16_ms = {which: _time_ms(lambda w=which: hk._fa_bwd_launch(
+        w, qb, kb, vb, gb, lseb, deltab, dqb, dkb, dvb, sc, True, 0, 0),
+        reps=5) for which in ("dkdv", "dq")}
+    # the timed launches' outputs, held to the grid's tolerance
+    t_errs = [_max_rel(a, b) for a, b in zip((dqb, dkb, dvb), mb["ref"])]
+    print(f"flash_attention_bwd bf16 causal (4, 32, 2048, 128), the timed "
+          f"launches' outputs: max|d-plain|/max|plain| dq {t_errs[0]:.3e} "
+          f"dk {t_errs[1]:.3e} dv {t_errs[2]:.3e} (tol {TOL_GRAD_BF16})")
+    if not max(t_errs) <= TOL_GRAD_BF16:
+        raise AssertionError("flash_attention_bwd's timed bf16 launches "
+                             "disagree with their plain version")
+    del dqb, dkb, dvb
+    bf16_whole = _time_ms(lambda: hk._fa_bwd_dispatch(
+        qb, kb, vb, ob, lseb, gb, sc, True, 0, 0), reps=5)
+    bf16_plain = _time_ms(lambda: hk.flash_attention_bwd_reference(
+        qb, kb, vb, ob, lseb, gb, sc, True), reps=3)
+    q4, k4, v4 = (t.reshape(4, 32, T, D).detach().requires_grad_()
+                  for t in (qb, kb, vb))
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)
+    g4 = gb.reshape(4, 32, T, D)
+    bf16_lib = _time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), g4, retain_graph=True), reps=5)
+    btile = tile / 2.0
+    bwork = {"dkdv": (work["dkdv"][0], 6 * btile + 8.0 * BH * T),
+             "dq": (work["dq"][0], 5 * btile + 8.0 * BH * T),
+             "function": (work["function"][0], 7 * btile + 8.0 * BH * T)}
+    bbounds = {w: roofline_ms(f, b, "bf16") for w, (f, b) in bwork.items()}
+    print(f"flash_attention_bwd bf16 causal (4, 32, 2048, 128): dK/dV kernel "
+          f"{bf16_ms['dkdv']:.3f} ms (bound {bbounds['dkdv'][0]:.3f}), dQ "
+          f"kernel {bf16_ms['dq']:.3f} ms (bound {bbounds['dq'][0]:.3f}), "
+          f"whole backward {bf16_whole:.3f} ms (bound of the function "
+          f"{bbounds['function'][0]:.3f} ms, {bbounds['function'][1]}); "
+          f"plain {bf16_plain:.3f} ms, scaled_dot_product_attention "
+          f"backward {bf16_lib:.3f} ms; card {_card_line()}")
+    del o4, q4, k4, v4
     records = []
-    for which, err in (("dkdv", main["err_dkdv"]), ("dq", main["err_dq"])):
+    for which in ("dkdv", "dq"):
         records.append({
             "name": f"flash_attention_bwd_{which}", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:220",
-            "max_abs_err": err, "ms": times[which], "plain_ms": plain_ms,
-            "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
-            "bound_route": bounds[which][2], "library_ms": lib_ms})
+            "max_abs_err": main[f"err_{which}"], "ms": times[which],
+            "plain_ms": plain_ms, "bound_ms": bounds[which][0],
+            "bound_by": bounds[which][1], "bound_route": bounds[which][2],
+            "library_ms": lib_ms,
+            "bf16": {"max_abs_err": mb[f"err_{which}"],
+                     "ms": bf16_ms[which], "whole_ms": bf16_whole,
+                     "plain_ms": bf16_plain, "library_ms": bf16_lib,
+                     "bound_ms": bbounds[which][0],
+                     "bound_by": bbounds[which][1]}})
     return records
 
 
@@ -919,7 +1027,72 @@ def ce_phase(hk, dev):
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_route": route, "library_ms": lib_ms}
         del x, labels, loss, lse, ref_loss, ref_lse
+    ce_label_cases(hk, dev, gen)
     return rec
+
+
+def ce_label_cases(hk, dev, gen):
+    """B2 with labels outside [0, C) and with one label for every row,
+    against its plain version: a label in [-C, 0) picks class C + label,
+    one at C or below -C gives NaN (as the JAX package's
+    ``take_along_axis``), and one label broadcasts to every row (the
+    wrapper hands the kernel N labels)."""
+    import torch
+    V = OPT_6_7B["vocab"]
+    x = 2.0 * torch.randn(8, V, generator=gen, device=dev)
+    cases = {"negative and out-of-range labels": torch.tensor(
+                 [-1, -V, 0, V - 1, V, -V - 1, -7, 3], device=dev),
+             "one label for every row": torch.tensor([5], device=dev)}
+    for what, labels in cases.items():
+        before = hk.launch_counts["softmax_cross_entropy_fwd"]
+        loss = hk.softmax_cross_entropy(x, labels)
+        ref_loss = hk.softmax_cross_entropy_reference(
+            x, labels.expand(x.shape[0]))[0]
+        torch.cuda.synchronize()
+        same_nan = torch.equal(loss.isnan(), ref_loss.isnan())
+        ok = ~ref_loss.isnan()
+        err = (loss[ok] - ref_loss[ok]).abs().max().item()
+        launched = hk.launch_counts["softmax_cross_entropy_fwd"] - before
+        print(f"softmax_cross_entropy_fwd, {what} {labels.tolist()}: "
+              f"max|loss - plain| {err:.3e} over {int(ok.sum())} finite "
+              f"rows (tol {TOL_CE}), NaN rows as the plain version's: "
+              f"{same_nan}, launches {launched}")
+        if not (err <= TOL_CE and same_nan and launched == 1):
+            raise AssertionError(f"softmax_cross_entropy_fwd with {what} "
+                                 f"disagrees with its plain version")
+
+
+def embedding_determinism(dev) -> None:
+    """The op of the LM's backward that did not repeat: Embedding's gather
+    at the training shape (8192 ids, a quarter of them one id, into the
+    (50272, 4096) float32 table). The port's op (``F.embedding`` on the
+    clamped ids) must give the same weight gradient twice, bitwise; the
+    ``index_select`` it replaced, whose CUDA backward is an atomic
+    ``index_add_`` over repeated ids, is printed beside it."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+    V, D = OPT_6_7B["vocab"], OPT_6_7B["units"]
+    N = TRAIN_BATCH * OPT_6_7B["max_len"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    ids = torch.randint(0, V, (N,), generator=gen, device=dev)
+    ids[: N // 4] = ids[0]
+    w = torch.randn(V, D, generator=gen, device=dev, requires_grad=True)
+    up = torch.randn(N, D, generator=gen, device=dev)
+    embedding = get_op("Embedding").fn
+
+    def twice(fn):
+        a, b = (torch.autograd.grad(fn(), w, up)[0] for _ in range(2))
+        return torch.equal(a, b), (a - b).abs().max().item()
+
+    port = twice(lambda: embedding(ids.float(), w, input_dim=V,
+                                   output_dim=D))
+    old = twice(lambda: w.index_select(0, ids))
+    print(f"Embedding backward at ({N} ids, {V} x {D}), run twice: the "
+          f"op's (F.embedding) bitwise equal {port[0]}; index_select's "
+          f"(index_add_) bitwise equal {old[0]}, max|a - b| {old[1]:.3e}")
+    if not port[0]:
+        raise AssertionError("Embedding's backward does not repeat")
 
 
 def rtc_kernel_phase(dev):
@@ -1065,7 +1238,7 @@ def _kernel_class(key: str) -> str:
         return "rtc softmax_ce_bwd"
     if "memcpy" in low:
         return "memcpy"
-    if "gemm" in low or "cutlass" in low:
+    if "gemm" in low or "cutlass" in low or "nvjet" in low:
         return "matmul (cuBLAS)"
     return "other kernels"
 
@@ -1609,19 +1782,21 @@ def extension_phase(hk, dev, workdir, profile=False):
     loss_r = _head_loss(probs, y)
     step_ms.append(ms)
     del probs
-    worst_r = 0.0
+    worst_r, bitwise = 0.0, True
     for k, p in net._collect_params_with_prefix().items():
         ref = w3[k].to(dev)
+        bitwise = bitwise and torch.equal(p.data()._data, ref)
         worst_r = max(worst_r, ((p.data()._data - ref).abs().max()
                                 / ref.abs().max()).item())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"extension: losses (mean CE a token) {losses}, resumed step 3 "
           f"{loss_r}; lr after step 3 {lr3:.3e} in both; resumed step-3 "
           f"weights vs uninterrupted: max|dw|/"
-          f"max|w| {worst_r:.3e} (tol {TOL_RESUME}); step times {step_ms} ms"
+          f"max|w| {worst_r:.3e} (tol {TOL_RESUME}), bitwise equal: "
+          f"{bitwise}; step times {step_ms} ms"
           f" ({N / (step_ms[2] / 1e3):.1f} tokens/s at step 3); peak memory "
           f"{peak_gb:.2f} GB; launches {launches}; card {_card_line()}")
-    if not worst_r <= TOL_RESUME:
+    if not (bitwise and worst_r <= TOL_RESUME):
         raise AssertionError("the resumed step 3 differs from the "
                              "uninterrupted one")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -1755,6 +1930,10 @@ def module_phase(mx, hk, dev, prefix, gluon_loss, profile=False):
         mod.update()
         torch.cuda.synchronize()
         step_ms.append((t_fb + time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            # the step-1 weights, on the host, for the sequential route
+            w1 = _host({n: a._data for n, a in ex.arg_dict.items()
+                        if n in ex.grad_dict})
     launches = dict(hk.launch_counts)
     print(f"module: losses {losses}; step times {step_ms} ms "
           f"({B * T / (step_ms[-1] / 1e3):.1f} tokens/s at the last step); "
@@ -1773,7 +1952,7 @@ def module_phase(mx, hk, dev, prefix, gluon_loss, profile=False):
             mod.forward_backward(it.next())
             mod.update()
         profile_breakdown(f"one Module step of {B} x {T} tokens", one_step)
-    return launches
+    return launches, losses[0], w1
 
 
 def fused_gate(hk, w0, w1, x, y, loss, lr):
@@ -1839,6 +2018,14 @@ def fused_gate(hk, w0, w1, x, y, loss, lr):
     if not (c_all > TOL_TRAIN_GRAD and c_top > TOL_TRAIN_GRAD_TOP):
         raise AssertionError("the TF32 control passes a weight-step "
                              "tolerance: it is too loose")
+    return w_all, w_top
+
+
+def fused_lr(count):
+    """``FUSED_LR`` for the first update and ``FUSED_LR_LATER`` after, as
+    arithmetic: the trainer calls a schedule with its update count, a 0-d
+    tensor on the card, and the step reads nothing back to the host."""
+    return FUSED_LR_LATER + (FUSED_LR - FUSED_LR_LATER) * (count == 0)
 
 
 def fused_phase(mx, hk, dev, prefix, profile=False):
@@ -1863,8 +2050,7 @@ def fused_phase(mx, hk, dev, prefix, profile=False):
     print(f"fused: SymbolBlock.imports {time.perf_counter() - t0:.1f} s")
     trainer = parallel.DataParallelTrainer(
         block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
-        {"learning_rate": lambda count: FUSED_LR if count == 0
-         else FUSED_LR_LATER, "momentum": FUSED_MOMENTUM})
+        {"learning_rate": fused_lr, "momentum": FUSED_MOMENTUM})
     x, y = (mx.nd.array(a) for a in train_batch())
     losses, step_ms, host_ms = [], [], []
     hk.reset_launch_counts()
@@ -1882,9 +2068,9 @@ def fused_phase(mx, hk, dev, prefix, profile=False):
                                      f"{sorted(trainer._param_names)} are "
                                      f"not the file's")
             seen = dict(hk.launch_counts)
-            fused_gate(hk, {n: p.data()._data for n, p in
-                            block.collect_params().items()},
-                       trainer._params, x, y, losses[0], FUSED_LR)
+            f32_errs = fused_gate(hk, {n: p.data()._data for n, p in
+                                       block.collect_params().items()},
+                                  trainer._params, x, y, losses[0], FUSED_LR)
             if dict(hk.launch_counts) != seen:
                 raise AssertionError("the plain reference launched a kernel")
             torch.cuda.empty_cache()
@@ -1911,6 +2097,399 @@ def fused_phase(mx, hk, dev, prefix, profile=False):
     if profile:
         profile_breakdown(f"one fused step of {B} x {T} tokens",
                           lambda: trainer.step(x, y))
+    return launches, f32_errs
+
+
+# ------------------------------------------------- mixed precision (bf16)
+MIXED_MODES = (None, "dots", "full")
+MIXED_SCALE = 2.0 ** 15
+# the mixed step's gradients against the plain float32 step may be no
+# worse, tensor by tensor, than this multiple of the plain bf16 control's
+# (the plain versions under the same cast rule)
+MIXED_GRAD_RATIO = 1.25
+
+
+def jax_layer_norm(x, gamma, beta, eps=1e-5):
+    """The LayerNorm op's rule (both packages): statistics in float32, the
+    normalised value cast back to the input's dtype before the affine."""
+    import torch
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+def _plain_mixed_grads(hk, tensors, tokens, labels, names):
+    """Gradients of the mean token loss of the plain LM under the
+    trainer's cast rule: every weight and the table cast to bf16, the
+    plain attention (float32 inside, bf16 out) and the gluon loss's
+    ``log_softmax`` and ``pick`` in bf16, the mean in float32; the
+    gradients land on the float32 weights (the control)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    cfg = OPT_6_7B
+    bf16 = torch.bfloat16
+
+    def attend(q, k, v):
+        return checkpoint(lambda q, k, v: hk.flash_attention_reference(
+            q, k, v, causal=True)[0], q, k, v, use_reentrant=False)
+
+    w = {n: t.detach().requires_grad_(n in names)
+         for n, t in tensors.items()}
+    logits = plain_forward({n: t.to(bf16) for n, t in w.items()}, tokens,
+                           cfg["vocab"], cfg["units"], cfg["layers"],
+                           cfg["heads"], attend=attend, norm=jax_layer_norm)
+    picked = torch.log_softmax(logits, -1).gather(-1, labels[..., None])
+    loss = (-picked).mean(dim=(1, 2)).float().mean()
+    grads = torch.autograd.grad(loss, [w[n] for n in names])
+    return dict(zip(names, grads))
+
+
+def mixed_gate(hk, w0, w1, tokens, labels, table, f32_errs):
+    """Step 1 of the bf16 trainer: its gradient ``(w0 − w1)/lr`` (optax's
+    first SGD-momentum step) against the plain float32 step's, per tensor
+    ``||Δg|| / ||g||``, may be at most ``MIXED_GRAD_RATIO`` times the plain
+    bf16 control's. Prints the TF32 control and the float32 fused route's
+    errors beside it."""
+    import torch
+    names = sorted(w1)
+    top = _top(names)
+    n_tok = tokens.numel()
+    full = dict(w0, pos_table=table)
+    ref = {n: g / n_tok for n, g in
+           _plain_step_grads(hk, full, tokens, labels, names)[1].items()}
+
+    def err(n, g):
+        r = ref[n].double()
+        return ((g.double() - r).norm() / r.norm().clamp_min(1e-300)).item()
+
+    port = {n: err(n, (w0[n].double() - w1[n].to(w0[n].device).double())
+                   / FUSED_LR) for n in names}
+    ctl = _plain_mixed_grads(hk, full, tokens, labels, names)
+    ctl_err = {n: err(n, ctl[n]) for n in names}
+    del ctl
+    with tf32_matmuls():
+        tf32 = _plain_step_grads(hk, full, tokens, labels, names)[1]
+    tf32_err = {n: err(n, tf32[n] / n_tok) for n in names}
+    del tf32
+    ratio = {n: port[n] / max(ctl_err[n], 1e-30) for n in names}
+    worst = max(ratio, key=ratio.get)
+
+    def pair(e):
+        return max(e.values()), max(e[n] for n in top)
+
+    print(f"mixed: step-1 gradient ||g-plain f32||/||plain f32||, worst of "
+          f"{len(names)} tensors and of the {len(top)} above the last ReLU:"
+          f" bf16 trainer {pair(port)[0]:.3e}, {pair(port)[1]:.3e}; plain "
+          f"bf16 control {pair(ctl_err)[0]:.3e}, {pair(ctl_err)[1]:.3e}; "
+          f"TF32 control {pair(tf32_err)[0]:.3e}, {pair(tf32_err)[1]:.3e}; "
+          f"float32 fused route {f32_errs[0]:.3e}, {f32_errs[1]:.3e}; "
+          f"worst ratio trainer/control {ratio[worst]:.3f} ({worst}: "
+          f"{port[worst]:.3e} vs {ctl_err[worst]:.3e}; tol "
+          f"{MIXED_GRAD_RATIO})")
+    if not ratio[worst] <= MIXED_GRAD_RATIO:
+        raise AssertionError(f"mixed: the bf16 step's gradient of {worst} "
+                             f"is further from the float32 step than the "
+                             f"plain bf16 control allows")
+
+
+def _host(params):
+    """Copies of ``params`` on the host."""
+    return {n: t.detach().to("cpu", copy=True) for n, t in params.items()}
+
+
+def _equal_to_host(params, host) -> bool:
+    import torch
+    return all(torch.equal(t, host[n].to(t.device))
+               for n, t in params.items())
+
+
+def mixed_phase(mx, hk, dev, prefix, f32_errs, profile=False):
+    """Train the exported LM through ``SymbolBlock.imports`` (the table an
+    input) and ``DataParallelTrainer(compute_dtype="bfloat16")`` on int32
+    token ids: three optax SGD-momentum steps for each ``remat`` mode, each
+    from the file's float32 weights; one step with loss scaling, then one
+    on a batch holding an ``inf``, which the guard skips. Returns {kernel
+    name: launches}."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    cfg = OPT_6_7B
+    T, B = cfg["max_len"], TRAIN_BATCH
+    print(f"mixed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"on entry")
+    block = gluon.SymbolBlock.imports(prefix + "-symbol.json",
+                                      ["data", "pos_table"],
+                                      prefix + "-0000.params",
+                                      ctx=mx.gpu(dev.index))
+    w0 = {n: p.data()._data for n, p in block.collect_params().items()}
+    x, y = train_batch()
+    ids = x.astype(np.int32)
+    table = sinusoid_table(T, cfg["units"])
+    total = {}
+
+    def trainer_for(remat, **kw):
+        return parallel.DataParallelTrainer(
+            block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": fused_lr, "momentum": FUSED_MOMENTUM},
+            compute_dtype="bfloat16", remat=remat, **kw)
+
+    def counted(run):
+        # launches of the step by kernel and by (kernel, dtype): every
+        # flash launch must take bf16 q, k and v
+        before = dict(hk.launch_counts)
+        before_dt = dict(hk.launch_dtypes)
+        out = run()
+        step = {k: v - before[k] for k, v in hk.launch_counts.items()}
+        by_dtype = {k: v - before_dt.get(k, 0)
+                    for k, v in hk.launch_dtypes.items()
+                    if v != before_dt.get(k, 0)}
+        if any(dt != "bfloat16" for (_, dt) in by_dtype):
+            raise AssertionError(f"mixed: a kernel took inputs other than "
+                                 f"bf16: {by_dtype}")
+        for k, v in step.items():
+            total[k] = total.get(k, 0) + v
+        return out, step
+
+    def want(remat):
+        L = cfg["layers"]
+        return {"flash_attention_fwd": L * (1 if remat is None else 2),
+                "flash_attention_bwd_dkdv": L, "flash_attention_bwd_dq": L,
+                "softmax_cross_entropy_fwd": 0}
+
+    hk.reset_launch_counts()
+    runs = {}
+    for remat in MIXED_MODES:
+        _free()
+        trainer = trainer_for(remat)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, host_ms, launches = [], [], [], []
+        for step in range(TRAIN_STEPS):
+            out = []
+            (t_host, _, t_step), n = counted(lambda: _timed_step(
+                lambda: out.append(trainer.step(ids, table, y))))
+            losses.append(out[0].asscalar().item())
+            step_ms.append(t_step * 1e3)
+            host_ms.append(t_host * 1e3)
+            launches.append(n)
+            if step == 0 and remat is None:
+                w1 = _host(trainer._params)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs[remat] = {"losses": losses, "peak": peak}
+        print(f"mixed remat={remat}: losses {losses}; step times {step_ms} "
+              f"ms ({B * T / (step_ms[-1] / 1e3):.1f} tokens/s at the last "
+              f"step); host dispatch {host_ms} ms; peak memory "
+              f"{peak:.2f} GB; launches a step {launches}; card "
+              f"{_card_line()}")
+        if any(n != want(remat) for n in launches):
+            raise AssertionError(f"mixed remat={remat} launched {launches}, "
+                                 f"expected {want(remat)} a step")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"mixed losses {losses} not finite and "
+                                 f"falling")
+        if remat is None:
+            final = _host(trainer._params)
+            if profile:
+                profile_breakdown(f"one bf16 fused step of {B} x {T} tokens",
+                                  lambda: trainer.step(ids, table, y))
+        else:
+            same = _equal_to_host(trainer._params, final)
+            same_loss = losses == runs[None]["losses"]
+            print(f"mixed remat={remat}: losses bitwise those of remat=None: "
+                  f"{same_loss}; weights after {TRAIN_STEPS} steps bitwise "
+                  f"equal: {same}")
+            if not (same and same_loss):
+                raise AssertionError(f"mixed remat={remat} differs from "
+                                     f"remat=None")
+        del trainer
+    del final
+    print(f"mixed: launches by (kernel, input dtype) over the remat modes "
+          f"{dict(hk.launch_dtypes)}")
+    peaks = {str(m): runs[m]["peak"] for m in MIXED_MODES}
+    print(f"mixed: peak memory by remat mode {peaks} GB")
+    if not runs["full"]["peak"] < runs[None]["peak"]:
+        raise AssertionError("mixed: remat='full' does not lower the peak")
+
+    # loss scaling: the scaled step's weights are the unscaled step's
+    _free()
+    trainer = trainer_for(None, loss_scaling={"init_scale": MIXED_SCALE})
+    (_, _, t_step), n = counted(lambda: _timed_step(
+        lambda: trainer.step(ids, table, y)))
+    same = _equal_to_host(trainer._params, w1)
+    stats = trainer.anomaly_stats()
+    print(f"mixed loss_scaling init_scale {MIXED_SCALE:g}: step {t_step * 1e3:.1f}"
+          f" ms, weights bitwise those of the unscaled step: {same}; "
+          f"launches {n}; {stats}")
+    if not (same and n == want(None) and not stats["last_step_skipped"]):
+        raise AssertionError("mixed: the loss-scaled step differs from the "
+                             "unscaled one")
+    # a batch holding an inf: the guard skips it
+    state = {n: tuple(t.clone() for t in s)
+             for n, s in trainer._opt_state.items()}
+    kept = {n: t.clone() for n, t in trainer._params.items()}
+    bad = table.copy()
+    bad[7, 11] = np.inf
+    loss_inf, n = counted(lambda: trainer.step(ids, bad, y))
+    stats = trainer.anomaly_stats()
+    unchanged = (all(torch.equal(t, kept[k])
+                     for k, t in trainer._params.items())
+                 and all(torch.equal(a, b) for k, s in
+                         trainer._opt_state.items()
+                         for a, b in zip(s, state[k])))
+    print(f"mixed: a batch holding an inf: loss {loss_inf.asscalar().item()}"
+          f", weights and optimizer state unchanged: {unchanged}; launches "
+          f"{n}; {stats}")
+    if not (unchanged and stats["last_step_skipped"]
+            and stats["grad_skipped_steps"] == 1
+            and stats["loss_scale"] == MIXED_SCALE / 2):
+        raise AssertionError("mixed: the guard did not skip the inf batch "
+                             "and halve the scale")
+    del trainer, state, kept
+    _free()
+    mixed_gate(hk, w0, w1, torch.from_numpy(x).long().to(dev),
+               torch.from_numpy(y).long().to(dev),
+               torch.from_numpy(table).to(dev), f32_errs)
+    return total
+
+
+# ------------------------------------------------- bucketing and sequential
+BUCKETS = (2048, 1024)
+
+
+def _lm_batch(mx, x, y, T):
+    """A ``DataBatch`` of the first ``T`` tokens of each sequence, keyed by
+    its bucket."""
+    B = x.shape[0]
+    return mx.io.DataBatch(
+        [mx.nd.array(x[:, :T])], [mx.nd.array(y[:, :T])], bucket_key=T,
+        provide_data=[mx.io.DataDesc("data", (B, T))],
+        provide_label=[mx.io.DataDesc("label", (B, T))])
+
+
+def bucketing_phase(mx, hk, dev, prefix, module_loss):
+    """Train the exported LM three Adam steps through ``BucketingModule``
+    at buckets T = 2048 and 1024 (the table declared at 2048 and sliced by
+    the graph), with the ``MakeLoss(softmax_cross_entropy)`` head: steps
+    on 2048, 1024 and 2048. Returns {kernel name: launches}."""
+    import torch
+    cfg = OPT_6_7B
+    V, B = cfg["vocab"], TRAIN_BATCH
+    print(f"bucketing: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry")
+    torch.cuda.reset_peak_memory_stats()
+    lm, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    mod = mx.mod.BucketingModule(
+        lambda T: (lm_loss_head(mx.sym, lm, V), ("data",), ("label",)),
+        default_bucket_key=BUCKETS[0], context=mx.gpu(dev.index),
+        fixed_param_names=["pos_table"])
+    x, y = train_batch()
+    first = _lm_batch(mx, x, y, BUCKETS[0])
+    mod.bind(first.provide_data, first.provide_label)
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    del arg_params, aux_params
+    mod.init_optimizer(optimizer="adam", optimizer_params={
+        "learning_rate": TRAIN_LR, "rescale_grad": 1.0 / (B * BUCKETS[0])})
+    hk.reset_launch_counts()
+    losses, step_ms = [], []
+    for i, T in enumerate((BUCKETS[0], BUCKETS[1], BUCKETS[0])):
+        batch = _lm_batch(mx, x, y, T)
+        before = dict(hk.launch_counts)
+        _, _, t_fb = _timed_step(lambda: mod.forward_backward(batch))
+        launched = {k: v - before[k] for k, v in hk.launch_counts.items()}
+        losses.append(mod.get_outputs()[0].asscalar().item())
+        if i == 0 and losses[0] != module_loss:
+            raise AssertionError(f"bucketing: the 2048 bucket's step-1 loss "
+                                 f"{losses[0]} is not the Module route's "
+                                 f"{module_loss}")
+        if i == 1:
+            ex = mod._curr_module._exec_group.execs[0]
+            grad_gate(hk, f"bucketing T={T}",
+                      {n: a._data for n, a in ex.arg_dict.items()},
+                      {n: g._data for n, g in ex.grad_dict.items()},
+                      mx.nd.array(x[:, :T]), mx.nd.array(y[:, :T]),
+                      losses[1])
+        t0 = time.perf_counter()
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((t_fb + time.perf_counter() - t0) * 1e3)
+        if launched != per_step_launches(1):
+            raise AssertionError(f"bucketing T={T} launched {launched}")
+    big, small = (mod._buckets[T]._exec_group.execs[0] for T in BUCKETS)
+    shared = [n for n in big.arg_dict if n not in ("data", "label")]
+    one_storage = all(
+        big.arg_dict[n]._data.data_ptr() == small.arg_dict[n]._data.data_ptr()
+        for n in shared) and all(
+        big.grad_dict[n]._data.data_ptr() == small.grad_dict[n]._data.data_ptr()
+        for n in small.grad_dict)
+    launches = dict(hk.launch_counts)
+    print(f"bucketing: buckets {BUCKETS}, steps on T = {BUCKETS[0]}, "
+          f"{BUCKETS[1]}, {BUCKETS[0]}: losses {losses} (step 1 bitwise "
+          f"the Module route's {module_loss}); step times {step_ms} ms; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{len(shared)} parameters and {len(small.grad_dict)} gradients "
+          f"on one storage in both buckets: {one_storage}; launches "
+          f"{launches}; card {_card_line()}")
+    if not one_storage:
+        raise AssertionError("bucketing: the buckets hold separate storages")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bucketing losses {losses} not finite")
+    return launches
+
+
+def sequential_phase(mx, hk, dev, prefix, module_loss, module_w1):
+    """One Adam step of ``SequentialModule``: the LM up to its logits, then
+    a loss module (``take_labels=True, auto_wiring=True``) whose input
+    gradient is the LM's head gradient. Its loss and weights must be the
+    Module route's step 1. Returns {kernel name: launches}."""
+    import torch
+    cfg = OPT_6_7B
+    V, T, B = cfg["vocab"], cfg["max_len"], TRAIN_BATCH
+    print(f"sequential: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry")
+    torch.cuda.reset_peak_memory_stats()
+    lm, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    ctx = mx.gpu(dev.index)
+    body = mx.mod.Module(lm, data_names=("data",), label_names=(),
+                         context=ctx, fixed_param_names=["pos_table"])
+    head = mx.mod.Module(lm_loss_head(mx.sym, mx.sym.Variable("logits"), V),
+                         data_names=("logits",), label_names=("label",),
+                         context=ctx)
+    seq = mx.mod.SequentialModule()
+    seq.add(body).add(head, take_labels=True, auto_wiring=True)
+    x, y = train_batch()
+    batch = _lm_batch(mx, x, y, T)
+    seq.bind(batch.provide_data, batch.provide_label)
+    seq.init_params(arg_params=arg_params, aux_params=aux_params)
+    w0 = {n: a for n, a in arg_params.items() if n in module_w1}
+    seq.init_optimizer(optimizer="adam", optimizer_params={
+        "learning_rate": TRAIN_LR, "rescale_grad": 1.0 / (B * T)})
+    hk.reset_launch_counts()
+    _, _, t_fb = _timed_step(lambda: seq.forward_backward(batch))
+    loss = seq.get_outputs()[0].asscalar().item()
+    t0 = time.perf_counter()
+    seq.update()
+    torch.cuda.synchronize()
+    step_ms = (t_fb + time.perf_counter() - t0) * 1e3
+    launches = dict(hk.launch_counts)
+    ex = body._exec_group.execs[0]
+    worst = 0.0
+    for n, w1 in module_w1.items():
+        start = w0[n]._data.cpu() if hasattr(w0[n], "_data") else w0[n]
+        got = ex.arg_dict[n]._data.cpu() - start
+        want = w1 - start
+        worst = max(worst, ((got - want).abs().max()
+                            / want.abs().max().clamp_min(1e-30)).item())
+    rel = abs(loss - module_loss) / abs(module_loss)
+    print(f"sequential: step-1 loss {loss} (the Module route's "
+          f"{module_loss}, relative {rel:.3e}, tol {TOL_ROUTE_LOSS}); weight "
+          f"step vs the Module route's, worst max|Δ|/max|step| {worst:.3e} "
+          f"(tol {TOL_ROUTE_LOSS}); step {step_ms:.1f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{launches}; card {_card_line()}")
+    if not (rel <= TOL_ROUTE_LOSS and worst <= TOL_ROUTE_LOSS):
+        raise AssertionError("sequential: step 1 differs from the Module "
+                             "route's")
+    if launches != per_step_launches(1):
+        raise AssertionError(f"sequential launched {launches}")
     return launches
 
 
@@ -1919,8 +2498,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served dispatch, one training "
-                         "step, one custom-head step, one Module step and "
-                         "one fused step (torch.profiler)")
+                         "step, one custom-head step, one Module step, one "
+                         "fused step and one bf16 fused step "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1950,6 +2530,7 @@ def main(argv=None) -> int:
     records = [kernel_phase(hk, dev)]
     records += backward_kernel_phase(hk, dev)
     records.append(ce_phase(hk, dev))
+    embedding_determinism(dev)
     _free()
     workdir = os.path.join(os.path.dirname(os.path.abspath(mx.__file__)),
                            "_build", "smoke_lm")
@@ -1975,23 +2556,34 @@ def main(argv=None) -> int:
         print(f"module: export_lm wrote the LM's graph and weights with "
               f"model.save_checkpoint in {export_lm(mx, prefix):.1f} s")
         _free()
-        moduled = module_phase(mx, hk, dev, prefix, gluon_loss, args.profile)
+        moduled, module_loss, module_w1 = module_phase(
+            mx, hk, dev, prefix, gluon_loss, args.profile)
         _free()
-        fused = fused_phase(mx, hk, dev, prefix, args.profile)
+        fused, f32_errs = fused_phase(mx, hk, dev, prefix, args.profile)
+        _free()
+        mixed = mixed_phase(mx, hk, dev, prefix, f32_errs, args.profile)
+        _free()
+        bucketed = bucketing_phase(mx, hk, dev, prefix, module_loss)
+        _free()
+        sequenced = sequential_phase(mx, hk, dev, prefix, module_loss,
+                                     module_w1)
+        del module_w1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in
-                              (served, trained, extended, moduled, fused))
+                              (served, trained, extended, moduled, fused,
+                               mixed, bucketed, sequenced))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the build included")
     keys = ("name", "route", "compiler", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "bound_route", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+            "bound_route", "library_ms", "bf16")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys
+                                   if k != "bf16" or k in rec}
                                   for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

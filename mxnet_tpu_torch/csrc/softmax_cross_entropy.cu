@@ -7,8 +7,9 @@
 //   lse_i  = log(sum_j exp(x_ij))
 //   loss_i = lse_i - x_i[label_i]
 // with the label gather fused in (the TPU kernel left it to XLA). A label
-// outside [0, C) gives a NaN loss, as the JAX package's gather does in its
-// fill mode. Any N and C: the TPU kernel only ran when C % 128 == 0 and
+// in [-C, 0) picks class C + label and any other outside [0, C) gives a NaN
+// loss, as the JAX package's take_along_axis does. The wrapper hands it
+// exactly N labels (one label broadcasts to every row there). Any N and C: the TPU kernel only ran when C % 128 == 0 and
 // N % 8 == 0, and OPT's vocabulary (50272) is not a multiple of 128. The
 // gradient, (softmax - onehot) * g, is plain PyTorch from the saved lse, as
 // the JAX package left `_ce_bwd` to XLA.
@@ -90,7 +91,8 @@ __global__ void __launch_bounds__(kThreads)
     s = ss[0];
     for (int w = 1; w < kWarps; ++w) merge(m, s, sm[w], ss[w]);
     const float r = m == -INFINITY ? -INFINITY : m + logf(s);
-    const int64_t label = labels[row];
+    int64_t label = labels[row];
+    if (label < 0) label += c;  // [-C, 0) wraps, as take_along_axis does
     const float picked =
         (label >= 0 && label < c) ? to_f32(x[label]) : NAN;
     lse[row] = r;

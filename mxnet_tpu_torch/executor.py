@@ -97,46 +97,97 @@ class _GraphLowering:
                 if id(src) not in pinned:
                     self.last_use[id(src)] = i
 
-    def lower(self, is_train: bool = False) -> Callable:
+    def _run_node(self, node, vals, aux_updates, is_train: bool) -> None:
+        """One op node: its outputs into ``vals``, the moving statistics it
+        updates (training only, without gradient) into ``aux_updates``."""
+        from . import random as _random
+        opdef = get_op(node.op)
+        in_arrays = [vals[id(src)][idx] for (src, idx) in node.inputs]
+        attrs = dict(node.attrs)
+        accepts_train, accepts_rng = _op_signature_flags(opdef)
+        if accepts_train:
+            attrs.setdefault("is_train", is_train)
+        if accepts_rng and is_train and in_arrays:
+            attrs["rng"] = _random.generator(in_arrays[0].device)
+        out = opdef.fn(*in_arrays, **attrs)
+        out = out if isinstance(out, tuple) else (out,)
+        vals[id(node)] = out
+        rule = _AUX_UPDATE_RULES.get(node.op) if is_train else None
+        if rule is not None:
+            with torch.no_grad():
+                upd = rule(attrs, in_arrays, out)
+            for in_idx, new_val in upd.items():
+                src, _ = node.inputs[in_idx]
+                if src.is_var:
+                    aux_updates[src.name] = new_val
+
+    def lower(self, is_train: bool = False,
+              segment: Callable = None) -> Callable:
         """The graph as a function. Ops that take ``is_train`` get it; in
         training a random op draws from the generator of its first input's
         device and the aux-update rules give the new moving statistics
         (computed without gradient); at inference random ops get no
-        generator (Dropout is the identity) and nothing is updated."""
-        from . import random as _random
+        generator (Dropout is the identity) and nothing is updated.
+
+        With ``segment`` the n op nodes run in ⌈√n⌉ consecutive segments
+        of about equal length, each as ``segment(run, *tensors)``: ``run``
+        maps the tensors the segment reads to those it leaves for later
+        nodes and the outputs. The trainer's rematerialisation passes
+        ``torch.utils.checkpoint`` there, so that only the tensors between
+        segments are kept for the backward and each segment is recomputed
+        when the backward reaches it."""
         nodes, out_entries = self.nodes, self.symbol._outputs
         dying: Dict[int, List[int]] = {}
         for nid, i in self.last_use.items():
             dying.setdefault(i, []).append(nid)
+        ops = [i for i, node in enumerate(nodes) if not node.is_var]
+        size = max(1, len(ops))
+        if segment is not None:
+            size = max(1, math.ceil(len(ops) / math.ceil(math.sqrt(size))))
+        chunks = [ops[j:j + size] for j in range(0, len(ops), size)]
+        # each chunk's (node indices, entries it reads from earlier nodes,
+        # entries it leaves for later chunks and the outputs)
+        plans = []
+        pinned = {(id(node), idx) for (node, idx) in out_entries}
+        for c, chunk in enumerate(chunks):
+            pos = {id(nodes[i]): j for j, i in enumerate(chunk)}
+            reads = list(dict.fromkeys(
+                (id(src), idx) for i in chunk
+                for (src, idx) in nodes[i].inputs if id(src) not in pos))
+            later = pinned | {(id(src), idx) for rest in chunks[c + 1:]
+                              for i in rest for (src, idx) in nodes[i].inputs}
+            leaves = sorted((e for e in later if e[0] in pos),
+                            key=lambda e: (pos[e[0]], e[1]))
+            plans.append((chunk, reads, leaves))
 
-        def fn(inputs: Dict[str, Any]):
-            vals: Dict[int, Tuple] = {}
-            aux_updates: Dict[str, Any] = {}
-            for i, node in enumerate(nodes):
-                if node.is_var:
-                    vals[id(node)] = (inputs[node.name],)
-                    continue
-                opdef = get_op(node.op)
-                in_arrays = [vals[id(src)][idx] for (src, idx) in node.inputs]
-                attrs = dict(node.attrs)
-                accepts_train, accepts_rng = _op_signature_flags(opdef)
-                if accepts_train:
-                    attrs.setdefault("is_train", is_train)
-                if accepts_rng and is_train and in_arrays:
-                    attrs["rng"] = _random.generator(in_arrays[0].device)
-                out = opdef.fn(*in_arrays, **attrs)
-                out = out if isinstance(out, tuple) else (out,)
-                vals[id(node)] = out
-                rule = _AUX_UPDATE_RULES.get(node.op) if is_train else None
-                if rule is not None:
-                    with torch.no_grad():
-                        upd = rule(attrs, in_arrays, out)
-                    for in_idx, new_val in upd.items():
-                        src, _ = node.inputs[in_idx]
-                        if src.is_var:
-                            aux_updates[src.name] = new_val
+        def run_nodes(chunk, vals, aux_updates) -> None:
+            for i in chunk:
+                self._run_node(nodes[i], vals, aux_updates, is_train)
                 for nid in dying.get(i, ()):
                     vals.pop(nid, None)
+
+        def fn(inputs: Dict[str, Any]):
+            vals: Dict[int, Any] = {id(node): (inputs[node.name],)
+                                    for node in nodes if node.is_var}
+            aux_updates: Dict[str, Any] = {}
+            for chunk, reads, leaves in plans:
+                if segment is None:
+                    run_nodes(chunk, vals, aux_updates)
+                    continue
+
+                def run(*tensors, chunk=chunk, reads=reads, leaves=leaves):
+                    seg: Dict[int, Dict[int, Any]] = {}
+                    for (nid, idx), t in zip(reads, tensors):
+                        seg.setdefault(nid, {})[idx] = t
+                    run_nodes(chunk, seg, aux_updates)
+                    return tuple(seg[nid][idx] for nid, idx in leaves)
+
+                got = segment(run, *[vals[nid][idx] for nid, idx in reads])
+                for i in chunk:
+                    for nid in dying.get(i, ()):
+                        vals.pop(nid, None)
+                for (nid, idx), t in zip(leaves, got):
+                    vals.setdefault(nid, {})[idx] = t
             return ([vals[id(node)][idx] for (node, idx) in out_entries],
                     aux_updates)
 

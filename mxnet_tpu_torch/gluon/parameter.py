@@ -145,6 +145,14 @@ class Parameter:
             self.shape = tuple(src.shape)
             self._attach()
 
+    def cast(self, dtype) -> None:
+        """Hold the value (and its gradient) in ``dtype`` from now on."""
+        self.dtype = dtype
+        if self._data is not None:
+            self._data._set_data(
+                self._data._data.detach().to(torch_dtype(dtype)))
+            self._attach()
+
     def zero_grad(self) -> None:
         if self._data is not None and self._data._grad is not None:
             self._data._grad._data.zero_()

@@ -5,6 +5,10 @@ Counterpart of ``mxnet_tpu/module/executor_group.py`` (reference
 logical executor and leaves devices to SPMD sharding; the port binds one
 executor on one card. Several contexts, which the reference splits the
 batch across, raise: data-parallel work across cards waits for ROADMAP A8.
+With ``shared_group`` (a bucket of ``BucketingModule``) the executor binds
+the shared group's parameter, gradient and auxiliary arrays themselves:
+one storage for each across every bucket, as the JAX package shares them
+by reference.
 """
 from __future__ import annotations
 
@@ -23,9 +27,6 @@ class DataParallelExecutorGroup:
                 f"a Module over {len(contexts)} contexts: the port binds one "
                 f"card per process; splitting the batch across cards waits "
                 f"for ROADMAP A8")
-        if shared_group is not None:
-            raise NotImplementedError("shared_module (bucketing) waits for "
-                                      "BucketingModule (ROADMAP A1)")
         self.symbol = symbol
         self.contexts = contexts
         self.param_names = param_names
@@ -47,8 +48,44 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = grad_req if for_training else "null"
         shapes = {d.name: d.shape for d in data_shapes}
         shapes.update({d.name: d.shape for d in label_shapes or []})
-        self.execs = [symbol.simple_bind(contexts[0], grad_req=self.grad_req,
-                                         **shapes)]
+        if shared_group is None:
+            self.execs = [symbol.simple_bind(contexts[0],
+                                             grad_req=self.grad_req,
+                                             **shapes)]
+        else:
+            self.execs = [self._bind_shared(symbol, contexts[0], shapes,
+                                            shared_group.execs[0])]
+
+    def _bind_shared(self, symbol, ctx, shapes, shared):
+        """Bind ``symbol`` over ``shared``'s arrays: every argument the
+        shared executor has (the inputs excepted) and every auxiliary
+        state is the same ``NDArray``; the inputs get arrays of this
+        bucket's shapes. A shared parameter must keep its shape."""
+        from ..ndarray.utils import zeros
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        args, grads = {}, {}
+        for name, shape in zip(symbol.list_arguments(), arg_shapes):
+            need_grad = self.grad_req[name] != "null"
+            if name not in shapes and name in shared.arg_dict:
+                have = tuple(shared.arg_dict[name].shape)
+                if have != tuple(shape):
+                    raise MXNetError(
+                        f"shared parameter {name} has shape {have} in the "
+                        f"shared module and {tuple(shape)} here; declare it "
+                        f"at one shape for every bucket")
+                args[name] = shared.arg_dict[name]
+                grad = shared.grad_dict.get(name)
+            else:
+                args[name] = zeros(shape, ctx=ctx)
+                grad = None
+            if need_grad:
+                grads[name] = grad if grad is not None \
+                    else zeros(shape, ctx=ctx)
+        aux = {name: shared.aux_dict[name] if name in shared.aux_dict
+               else zeros(shape, ctx=ctx)
+               for name, shape in zip(symbol.list_auxiliary_states(),
+                                      aux_shapes)}
+        return symbol.bind(ctx, args, grads, self.grad_req, aux)
 
     def forward(self, data_batch, is_train=None):
         kwargs = dict(zip(self.data_names, data_batch.data))

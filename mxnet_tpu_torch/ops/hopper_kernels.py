@@ -14,7 +14,9 @@ Dispatch is by the device of the tensors, nothing else:
 * a ``meta`` tensor (shape inference) gets empty outputs of the right shape.
 
 Every launch adds one to :data:`launch_counts` under the kernel's name, so
-a run can show that its main path went through the kernel.
+a run can show that its main path went through the kernel, and one to
+:data:`launch_dtypes` under the kernel's name and its inputs' dtype, so
+that it can show in which dtype.
 
 Kernels:
 
@@ -55,7 +57,7 @@ from ..base import MXNetError
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "softmax_cross_entropy", "softmax_cross_entropy_reference",
-           "launch_counts", "reset_launch_counts", "build",
+           "launch_counts", "launch_dtypes", "reset_launch_counts", "build",
            "SUPPORTED_HEAD_DIMS"]
 
 _NEG_INF = -1e30  # the TPU kernel's sentinel; ring attention's merge needs it
@@ -72,6 +74,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts: Dict[str, int] = {
     "flash_attention_fwd": 0, "flash_attention_bwd_dkdv": 0,
     "flash_attention_bwd_dq": 0, "softmax_cross_entropy_fwd": 0}
+#: (kernel name, dtype name of its inputs) -> launches since the last reset
+launch_dtypes: Dict[Tuple[str, str], int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,6 +103,13 @@ _ENTRIES = {
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    launch_dtypes.clear()
+
+
+def _launched(name: str, dtype: torch.dtype) -> None:
+    launch_counts[name] += 1
+    key = (name, str(dtype).replace("torch.", ""))
+    launch_dtypes[key] = launch_dtypes.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +300,7 @@ def _fa_kernel(q, k, v, scale, causal, q_offset, k_offset):
             float(scale), int(bool(causal)), int(q_offset), int(k_offset),
             _stream(q.device))
     _check(lib, err, "flash_attention_fwd launch")
-    launch_counts["flash_attention_fwd"] += 1
+    _launched("flash_attention_fwd", q.dtype)
     return out, lse
 
 
@@ -307,7 +318,7 @@ def _fa_bwd_launch(which, q, k, v, g, lse, delta, dq, dk, dv, scale, causal,
             float(scale), int(bool(causal)), int(q_offset), int(k_offset),
             _stream(q.device))
     _check(lib, err, f"flash_attention_bwd_{which} launch")
-    launch_counts[f"flash_attention_bwd_{which}"] += 1
+    _launched(f"flash_attention_bwd_{which}", q.dtype)
 
 
 def _fa_bwd_kernel(q, k, v, out, lse, g, scale, causal, q_offset, k_offset):
@@ -411,11 +422,13 @@ def softmax_cross_entropy_reference(logits, labels
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: logits (N, C), int64 labels
     (N,) -> (per-row loss, lse), both (N,) float32. ``lse`` is taken in
-    float32 as ``_ce_fwd`` takes it; a label outside [0, C) gives a NaN
-    loss."""
+    float32 as ``_ce_fwd`` takes it; a label in [−C, 0) picks class
+    ``C + label`` (``take_along_axis``'s wrap), any other outside [0, C)
+    gives a NaN loss."""
     x = logits.float()
     lse = torch.logsumexp(x, dim=1)
     C = x.shape[1]
+    labels = torch.where(labels < 0, labels + C, labels)
     valid = (labels >= 0) & (labels < C)
     picked = x.gather(1, labels.clamp(0, max(C - 1, 0))[:, None])[:, 0]
     picked = torch.where(valid, picked,
@@ -432,6 +445,10 @@ def _ce_kernel(logits, labels):
         raise MXNetError("softmax_cross_entropy: logits and labels on "
                          "different devices")
     N, C = logits.shape
+    if tuple(labels.shape) != (N,):
+        raise MXNetError(f"softmax_cross_entropy: the kernel reads one "
+                         f"label a row, got {tuple(labels.shape)} for {N} "
+                         f"rows")
     logits, labels = logits.contiguous(), labels.contiguous()
     lse = torch.empty(N, dtype=torch.float32, device=logits.device)
     loss = torch.empty_like(lse)
@@ -444,7 +461,7 @@ def _ce_kernel(logits, labels):
             loss.data_ptr(), _DTYPE_CODE[logits.dtype], N, C,
             _stream(logits.device))
     _check(lib, err, "softmax_cross_entropy_fwd launch")
-    launch_counts["softmax_cross_entropy_fwd"] += 1
+    _launched("softmax_cross_entropy_fwd", logits.dtype)
     return loss, lse
 
 
@@ -466,7 +483,8 @@ def _ce_fwd_dispatch(logits, labels):
 def softmax_cross_entropy_grad(logits, labels, lse, g):
     """``_ce_bwd`` (``pallas_kernels.py:370-374``) with the softmax taken
     from the saved lse: ``(exp(x − lse) − onehot)·g`` in float32, cast to
-    the logits' dtype; a label outside [0, C) has no one-hot entry. Built
+    the logits' dtype; a label outside [0, C), negative ones included, has
+    no one-hot entry (``jax.nn.one_hot``), unlike the forward's pick. Built
     in place on one (N, C) float32 buffer."""
     C = logits.shape[1]
     grad = (logits.float() - lse[:, None]).exp_()
@@ -494,7 +512,14 @@ class _SoftmaxCrossEntropy(torch.autograd.Function):
 
 def softmax_cross_entropy(logits, labels):
     """Per-row CE ``logsumexp(logits) − logits[label]``: logits (N, C),
-    labels (N,) of any type (truncated to integers, as the JAX package's
-    int32 cast does) -> (N,) float32, differentiable in ``logits``."""
-    labels = labels.detach().to(torch.int64)
+    labels (N,) or (1,) of any type (truncated to integers, as the JAX
+    package's int32 cast does; one label serves every row, as
+    ``take_along_axis`` broadcasts it) -> (N,) float32, differentiable in
+    ``logits``. The kernel and the plain version always get N labels."""
+    N = logits.shape[0]
+    if labels.ndim != 1 or labels.shape[0] not in (1, N):
+        raise MXNetError(f"softmax_cross_entropy: labels of shape "
+                         f"{tuple(labels.shape)} do not broadcast to the "
+                         f"{N} rows of the logits")
+    labels = labels.detach().to(torch.int64).expand(N)
     return _SoftmaxCrossEntropy.apply(logits, labels)

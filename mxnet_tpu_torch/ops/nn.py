@@ -23,10 +23,18 @@ from .registry import register
 def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                      flatten=True):
     """out = X·Wᵀ + b, weight (num_hidden, input_dim); with
-    ``flatten=False`` a 3-D input keeps its leading axes."""
+    ``flatten=False`` a 3-D input keeps its leading axes. Mixed input
+    types promote as the JAX op's ``jnp.dot(X, Wᵀ) + b`` promotes them:
+    the product in the type of X and W (bf16 data on a float32 weight runs
+    in float32), then a bias of another type promotes the sum."""
     if flatten and data.ndim > 2:
         data = data.reshape(data.shape[0], -1)
-    return F.linear(data, weight, None if no_bias else bias)
+    bias = None if no_bias else bias
+    dt = torch.promote_types(data.dtype, weight.dtype)
+    data, weight = data.to(dt), weight.to(dt)
+    if bias is None or bias.dtype == dt:
+        return F.linear(data, weight, bias)
+    return F.linear(data, weight) + bias
 
 
 @register("LayerNorm", num_outputs=3, arg_names=("data", "gamma", "beta"))

@@ -111,9 +111,11 @@ class Optimizer:
         return self.wd * (p.wd_mult if p is not None else 1.0)
 
     def _grad(self, index, weight, grad) -> torch.Tensor:
-        """``rescale·g``, clipped, plus ``wd·w``: a new float tensor."""
+        """``rescale·g``, clipped, plus ``wd·w``: a new float tensor. A
+        ``clip_gradient`` of 0 or None clips nothing, as in the JAX
+        package."""
         g = grad._data * self.rescale_grad
-        if self.clip_gradient is not None:
+        if self.clip_gradient:
             g.clamp_(-self.clip_gradient, self.clip_gradient)
         wd = self._get_wd(index)
         if wd:

@@ -1,7 +1,7 @@
 """DataParallelTrainer: a gluon net's whole training step on one card.
 
 Counterpart of the core of ``mxnet_tpu/parallel/data_parallel.py``
-(``:193-1186``). The JAX package captures the net and its loss through the
+(``:193-1346``). The JAX package captures the net and its loss through the
 same Symbol trace ``hybridize()`` uses and jits forward, backward, the
 gradient all-reduce and optax's update into one XLA program over a device
 mesh. The port captures the same graph and runs it through the executor's
@@ -11,21 +11,53 @@ rule (:mod:`.fused_rules`) updates the trainer's own copy of the weights
 in place, and the moving statistics take the graph's aux updates. The
 net's parameters are left alone until :meth:`DataParallelTrainer.sync_to_net`.
 
+The step's knobs, as the JAX package has them:
+
+* ``compute_dtype`` — the f32 master weights stay the trainer's; each step
+  casts them, and every floating data input but the label, to the compute
+  dtype inside the differentiated function (the cast's backward brings
+  the gradients back to f32), and casts the aux updates back to each aux
+  state's dtype. Token ids fed as floats are cast too, as in the JAX
+  package: under bfloat16 an id above 256 is rounded (feed integer ids).
+* ``remat`` — ``None``/``"none"``, ``"full"``, ``"dots"`` (save the
+  outputs of matrix products without batch dimensions, ``aten.mm`` and
+  ``aten.addmm``, recompute the rest) or a callable: a torch
+  selective-checkpoint policy (where the JAX package takes a
+  ``jax.checkpoint_policies`` function). The JAX package wraps the loss
+  run in ``jax.checkpoint`` and leaves the recompute's schedule to XLA.
+  In eager torch one checkpoint around the whole run rebuilds every saved
+  activation when the backward starts, so it lowers no peak (on the H100,
+  30.09 GB without it, 30.52 GB with it); the port checkpoints the
+  graph's ops in ⌈√n⌉ consecutive segments instead
+  (``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` around
+  each), which keeps only the tensors between segments and recomputes one
+  segment at a time. The recompute launches the attention kernel again,
+  and draws the random numbers the forward drew.
+* ``grad_guard``, ``loss_scaling``, ``dynamic_lr_scale`` — the skip-step
+  on a non-finite or spiking gradient norm, the dynamic loss scale and a
+  multiplier on every update, all held as 0-d tensors on the card: the
+  skip is a ``torch.where``, and a step reads nothing back to the host
+  (only :meth:`DataParallelTrainer.anomaly_stats` does).
+
 One card per process in this slice (``mesh=None`` is ``gpu(0)``, where the
 JAX package spans every local device). The other knobs raise
 ``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .. import autograd
+from .. import random as _random
 from ..base import MXNetError
 from ..executor import _GraphLowering
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, torch_dtype
+from ..resilience import recovery as _recovery
 from .fused_rules import FusedRule
 from .mesh import Mesh, local_mesh
 
@@ -33,17 +65,102 @@ __all__ = ["DataParallelTrainer"]
 
 # knob -> the ROADMAP item it waits for
 _UNPORTED = {
-    "compute_dtype": "A1 (the DataParallelTrainer knobs: mixed precision)",
-    "remat": "A1 (the DataParallelTrainer knobs: rematerialisation)",
-    "grad_guard": "A9 (resilience: the grad-anomaly guard)",
-    "loss_scaling": "A9 (resilience: loss scaling)",
-    "dynamic_lr_scale": "A9 (resilience: the lr backoff)",
     "step_attribution": "A9 (observability)",
     "kvstore": "A1 (the NCCL multi-card DataParallelTrainer)",
     "grad_reduce_dtype": "A1 (the NCCL multi-card DataParallelTrainer)",
     "bucket_bytes": "A1 (the NCCL multi-card DataParallelTrainer)",
     "compression": "A8 (gradient compression)",
 }
+
+# the kernels of the LM's path (B1, B3, B2) take float32 and bfloat16
+_CARD_DTYPES = (torch.float32, torch.bfloat16)
+_F16_ITEM = "B5 (f16 instantiations of B1/B3/B2)"
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matrix
+    products without batch dimensions, recompute everything else."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(remat):
+    """(remat on?, ``context_fn`` for ``checkpoint``) of a ``remat``
+    mode."""
+    if remat in (None, "none"):
+        return False, None
+    if remat == "full":
+        return True, None
+    if remat == "dots":
+        policy = _dots_policy
+    elif callable(remat):
+        policy = remat
+    else:
+        raise MXNetError(f"unknown remat mode {remat!r}")
+    return True, functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, policy)
+
+
+# ---- grad-anomaly guard (NaN/Inf + norm-spike skip inside the step) -------
+def _guard_config(grad_guard):
+    """Normalize the ``grad_guard`` argument. None/False = off; True =
+    NaN/Inf + spike detection with defaults; a dict overrides
+    ``spike_factor`` (0 disables spike detection, keeping only the NaN/Inf
+    check), ``ema_decay`` and ``warmup`` (good steps before spikes can
+    fire)."""
+    if not grad_guard:
+        return None
+    g = dict(grad_guard) if isinstance(grad_guard, dict) else {}
+    return {"spike_factor": float(g.get("spike_factor", 10.0)),
+            "ema_decay": float(g.get("ema_decay", 0.99)),
+            "warmup": int(g.get("warmup", 5))}
+
+
+def _guard_init_state(device) -> Dict[str, torch.Tensor]:
+    def z(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return {"ema": z(torch.float32), "last_norm": z(torch.float32),
+            "skips": z(torch.int32), "good": z(torch.int32),
+            "steps": z(torch.int32), "last_skipped": z(torch.int32)}
+
+
+def _guard_apply(cfg, gstate, gnorm):
+    """Skip-step verdict on the gradient norm: ``bad`` when it is NaN/Inf
+    or spikes past ``spike_factor``× its EMA (after ``warmup`` good steps).
+    Returns (bad, new guard state); keys of the scaler and the lr scale
+    pass through."""
+    gnorm = gnorm.float()
+    finite = torch.isfinite(gnorm)
+    if cfg["spike_factor"] > 0:
+        warm = gstate["good"] >= cfg["warmup"]
+        spike = warm & (gnorm > cfg["spike_factor"] * gstate["ema"])
+    else:
+        spike = torch.zeros((), dtype=torch.bool, device=gnorm.device)
+    bad = ~finite | spike
+    d = cfg["ema_decay"]
+    safe_norm = torch.where(finite, gnorm, gstate["ema"])
+    ema = torch.where(
+        bad, gstate["ema"],
+        torch.where(gstate["good"] == 0, safe_norm,
+                    d * gstate["ema"] + (1.0 - d) * safe_norm))
+    badi = bad.to(torch.int32)
+    new = dict(gstate)
+    new.update({"ema": ema, "last_norm": gnorm,
+                "skips": gstate["skips"] + badi,
+                "good": gstate["good"] + (1 - badi),
+                "steps": gstate["steps"] + 1,
+                "last_skipped": badi})
+    return bad, new
+
+
+def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm of every gradient together (the
+    norm of the per-tensor norms, so no squared copy is made)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(grads[k]) for k in sorted(grads)]))
 
 
 class DataParallelTrainer:
@@ -63,10 +180,7 @@ class DataParallelTrainer:
                  passes=None, grad_reduce: str = "all_reduce",
                  grad_reduce_dtype=None, bucket_bytes=None,
                  compression=None):
-        given = dict(compute_dtype=compute_dtype, remat=remat,
-                     grad_guard=grad_guard, loss_scaling=loss_scaling,
-                     dynamic_lr_scale=dynamic_lr_scale,
-                     step_attribution=step_attribution, kvstore=kvstore,
+        given = dict(step_attribution=step_attribution, kvstore=kvstore,
                      grad_reduce_dtype=grad_reduce_dtype,
                      bucket_bytes=bucket_bytes, compression=compression)
         for knob, value in given.items():
@@ -86,7 +200,29 @@ class DataParallelTrainer:
         self._loss_block = loss
         self._mesh = mesh or local_mesh(data_axis)
         self._device = self._mesh.devices[0].torch_device()
+        self._compute_dtype = (torch_dtype(compute_dtype)
+                               if compute_dtype is not None else None)
+        if (self._device.type == "cuda" and self._compute_dtype is not None
+                and self._compute_dtype not in _CARD_DTYPES):
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r} on the card: the "
+                f"attention and cross-entropy kernels take float32 and "
+                f"bfloat16; {self._compute_dtype} waits for ROADMAP "
+                f"{_F16_ITEM}")
+        self._remat, self._remat_context = _remat_context(remat)
         self._rule = FusedRule(optimizer, optimizer_params)
+        self._guard_cfg = _guard_config(grad_guard)
+        self._scaler_cfg = _recovery.scaler_config(loss_scaling)
+        if self._scaler_cfg is not None and self._guard_cfg is None:
+            # the scaler's overflow response is the guard's skip-step; only
+            # the unset default (None) upgrades to guard-on
+            if grad_guard is not None:
+                raise MXNetError(
+                    "loss_scaling= requires the grad-anomaly guard; drop "
+                    "grad_guard=%r or disable loss scaling" % (grad_guard,))
+            self._guard_cfg = _guard_config(True)
+        self._dynamic_lr = bool(dynamic_lr_scale)
+        self._guard_state: Optional[Dict[str, torch.Tensor]] = None
         self._fn = None
         self._n_inputs = None
         self._param_names = self._aux_names = None
@@ -129,10 +265,36 @@ class DataParallelTrainer:
         self._params = {n: copy(n, True) for n in self._param_names}
         self._aux = {n: copy(n, False) for n in self._aux_names}
         self._opt_state = self._rule.init(self._params)
-        self._fn = _GraphLowering(loss_sym).lower(is_train=True)
+        self._guard_state = _guard_init_state(dev)
+        if self._scaler_cfg is not None:
+            self._guard_state.update(
+                _recovery.scaler_init_state(self._scaler_cfg, dev))
+        if self._dynamic_lr:
+            self._guard_state["lr_scale"] = torch.ones(
+                (), dtype=torch.float32, device=dev)
+        self._fn = _GraphLowering(loss_sym).lower(
+            is_train=True,
+            segment=self._checkpointed if self._remat else None)
         self._n_inputs = len(arrays)
 
     # ------------------------------------------------------------- step
+    def _checkpointed(self, run, *tensors):
+        """One segment of the graph under ``torch.utils.checkpoint``; its
+        recompute puts the random stream back where the forward found it
+        (``jax.checkpoint`` replays the same key)."""
+        gen, start = _random.generator(self._device), []
+
+        def replay(*ts):
+            if start:
+                gen.set_state(start[0])
+            else:
+                start.append(gen.get_state())
+            return run(*ts)
+
+        kw = {} if self._remat_context is None else \
+            {"context_fn": self._remat_context}
+        return _ckpt.checkpoint(replay, *tensors, use_reentrant=False, **kw)
+
     def step(self, *data) -> NDArray:
         """One forward, backward and update on a batch (the data inputs,
         then the label). Returns the mean loss as a 0-d NDArray; reading
@@ -141,25 +303,56 @@ class DataParallelTrainer:
                   else torch.from_numpy(np.asarray(d)) for d in data]
         if self._fn is None or self._n_inputs != len(arrays):
             self._capture(arrays)
+        cdt = self._compute_dtype
         inputs = dict(self._aux)
-        inputs.update(zip(self._data_names,
-                          (a.to(self._device) for a in arrays)))
-        inputs.update(self._params)
+        for name, a in zip(self._data_names, arrays):
+            a = a.to(self._device)
+            if cdt is not None and a.is_floating_point() \
+                    and name != "__label":
+                a = a.to(cdt)
+            inputs[name] = a
+        gstate = self._guard_state
+        scale = gstate["loss_scale"] if self._scaler_cfg is not None \
+            else None
+        names = self._param_names
+        gen = _random.generator(self._device) if self._remat else None
         with torch.enable_grad():
+            inputs.update({n: self._params[n].to(cdt) if cdt is not None
+                           else self._params[n] for n in names})
             outs, aux_updates = self._fn(inputs)
             loss = outs[0].float().mean()
-        del outs
-        names = self._param_names
-        got = torch.autograd.grad(loss, [self._params[n] for n in names],
+            # the loss times the live scale; the host sees the true loss
+            scaled = loss if scale is None else loss * scale
+        del inputs, outs
+        after = gen.get_state() if gen is not None else None
+        got = torch.autograd.grad(scaled, [self._params[n] for n in names],
                                   allow_unused=True)
-        grads = {n: g if g is not None else torch.zeros_like(self._params[n])
-                 for n, g in zip(names, got)}
+        del scaled
+        if after is not None:
+            gen.set_state(after)
+        grads = {}
+        for n, g in zip(names, got):
+            g = torch.zeros_like(self._params[n]) if g is None else g.float()
+            grads[n] = g if scale is None else g / scale
         del got
-        self._rule.step(self._params, grads, self._opt_state)
+        skip = lr_scale = None
+        if self._guard_cfg is not None:
+            gnorm = _global_norm(grads)
+            skip, gstate = _guard_apply(self._guard_cfg, gstate, gnorm)
+            if self._scaler_cfg is not None:
+                gstate.update(_recovery.scaler_apply(
+                    self._scaler_cfg, gstate, ~torch.isfinite(gnorm), skip))
+        if self._dynamic_lr:
+            lr_scale = self._guard_state["lr_scale"]
+        self._rule.step(self._params, grads, self._opt_state, skip=skip,
+                        lr_scale=lr_scale)
         with torch.no_grad():
             for n, v in aux_updates.items():
                 if n in self._aux:
-                    self._aux[n].copy_(v)
+                    v = v.to(self._aux[n].dtype)
+                    self._aux[n].copy_(v if skip is None else
+                                       torch.where(skip, self._aux[n], v))
+        self._guard_state = gstate
         return NDArray(loss.detach())
 
     def sync_to_net(self) -> None:
@@ -169,6 +362,52 @@ class DataParallelTrainer:
             for src in (self._params, self._aux):
                 for n, t in src.items():
                     self._pmap[n].data()._data.copy_(t)
+
+    # ------------------------------------------------------------- guard
+    def anomaly_stats(self) -> Dict[str, Any]:
+        """Grad-anomaly guard counters (empty when the guard is off or no
+        step ran): skipped steps, the gradient norm's EMA, the last step's
+        norm and whether it was skipped; the scaler's state and the lr
+        scale where they are on. Reading copies the scalars to the host,
+        which waits for the card."""
+        if self._guard_cfg is None or self._guard_state is None:
+            return {}
+        gs = self._guard_state
+        stats = {"grad_skipped_steps": int(gs["skips"]),
+                 "grad_norm_ema": float(gs["ema"]),
+                 "last_grad_norm": float(gs["last_norm"]),
+                 "last_step_skipped": bool(int(gs["last_skipped"]))}
+        if self._scaler_cfg is not None:
+            stats["loss_scale"] = float(gs["loss_scale"])
+            stats["scaler_overflows"] = int(gs["ls_overflows"])
+            stats["scaler_good_steps"] = int(gs["ls_good"])
+        if self._dynamic_lr:
+            stats["lr_scale"] = float(gs["lr_scale"])
+        return stats
+
+    def set_loss_scale(self, scale: float) -> None:
+        """Set the loss scale from the host (a power of two, clamped to the
+        configured range); the growth counter restarts."""
+        if self._scaler_cfg is None or self._guard_state is None:
+            raise MXNetError("trainer has no loss scaler (construct with "
+                             "loss_scaling=...)")
+        _recovery._require_pow2("loss scale override", scale)
+        scale = min(max(float(scale), float(self._scaler_cfg["min_scale"])),
+                    float(self._scaler_cfg["max_scale"]))
+        self._guard_state = dict(self._guard_state)
+        self._guard_state["loss_scale"] = torch.tensor(
+            scale, dtype=torch.float32, device=self._device)
+        self._guard_state["ls_good"] = torch.zeros(
+            (), dtype=torch.int32, device=self._device)
+
+    def set_lr_scale(self, scale: float) -> None:
+        """Set the multiplier on every update from the host."""
+        if not self._dynamic_lr or self._guard_state is None:
+            raise MXNetError("trainer has no dynamic lr scale "
+                             "(construct with dynamic_lr_scale=True)")
+        self._guard_state = dict(self._guard_state)
+        self._guard_state["lr_scale"] = torch.tensor(
+            float(scale), dtype=torch.float32, device=self._device)
 
     # ------------------------------------------------------------- unported
     def aot_save(self, path, *data):

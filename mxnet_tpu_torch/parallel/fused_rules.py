@@ -18,13 +18,19 @@ transforms). They differ from MXNet's (``optimizer.py``) and from
   0.1, ``w ← w − lr·g/√(s + 1e-7)``;
 * ``wd``: ``g ← g + wd·w`` ahead of the rule (``add_decayed_weights``);
 * ``learning_rate`` a number, or a schedule of the update count as optax
-  takes it: ``lr(0)`` for the first update.
+  takes it: ``lr(0)`` for the first update. The count is a 0-d int64
+  tensor on the parameters' device, as optax's is a traced array, so a
+  schedule is arithmetic on it (``0.3 * 0.5 ** count``; ``count == 0``
+  is a tensor) and the step reads nothing back to the host.
 
-Updates are written in place under ``torch.no_grad()``.
+Each parameter and state tensor takes its new value in place (the
+tensor object stays, its storage is the new value's); under the gradient
+guard a skipped step leaves every tensor and the update count as they
+were.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -61,11 +67,14 @@ class FusedRule:
         if p:
             raise MXNetError(f"the fused {name} rule takes no "
                              f"{sorted(p)}")
-        self.count = 0
+        self.count: Optional[torch.Tensor] = None
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
         """The state of each parameter, zeros like it (adagrad's sum of
-        squares starts at 0.1)."""
+        squares starts at 0.1); the update count restarts at 0."""
+        dev = next(iter(params.values())).device if params else None
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+
         def z(t):
             return torch.zeros_like(t, memory_format=torch.contiguous_format)
 
@@ -81,11 +90,28 @@ class FusedRule:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor], state: Dict[str, tuple]) -> None:
-        """One update of every parameter in ``grads``, in place."""
-        lr = float(self.lr(self.count)) if callable(self.lr) else self.lr
-        self.count += 1
+             grads: Dict[str, torch.Tensor], state: Dict[str, tuple],
+             skip: Optional[torch.Tensor] = None,
+             lr_scale: Optional[torch.Tensor] = None) -> None:
+        """One update of every parameter in ``grads``, in place.
+
+        ``skip`` (the gradient guard's verdict, a 0-d bool tensor) keeps
+        every parameter, every state and the update count where it is
+        true, as the JAX step's ``jnp.where`` over its trees does.
+        ``lr_scale`` (a 0-d tensor) multiplies every update."""
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
+        count = self.count + 1
+        # adam's bias correction counts this update (in float64)
+        t = count.double() if self.name == "adam" else None
+        self.count = count if skip is None else \
+            torch.where(skip, self.count, count)
         hp = self.hp
+
+        def put(dst, new):
+            # the new value's storage, not a copy of it: dst stays the
+            # tensor the trainer (and autograd) hold
+            dst.data = new if skip is None else torch.where(skip, dst, new)
+
         for n, g in grads.items():
             w, s = params[n], state[n]
             if self.wd:
@@ -93,27 +119,36 @@ class FusedRule:
             if self.name in ("sgd", "nag"):
                 if s:
                     (m,) = s
-                    m.mul_(hp["momentum"]).add_(g)
-                    u = g + hp["momentum"] * m if self.name == "nag" else m
+                    m_new = m * hp["momentum"] + g
+                    u = g + hp["momentum"] * m_new \
+                        if self.name == "nag" else m_new
+                    put(m, m_new)
                 else:
                     u = g
-                w.sub_(lr * u)
             elif self.name == "adam":
                 m, v = s
                 b1, b2 = hp["beta1"], hp["beta2"]
-                m.mul_(b1).add_(g, alpha=1.0 - b1)
-                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-                m_hat = m / (1.0 - b1 ** self.count)
-                v_hat = v / (1.0 - b2 ** self.count)
-                w.sub_(lr * (m_hat / (v_hat.sqrt() + hp["epsilon"])))
+                m_new = torch.add(m * b1, g, alpha=1.0 - b1)
+                v_new = torch.addcmul(v * b2, g, g, value=1.0 - b2)
+                m_hat = m_new / (1.0 - b1 ** t)
+                v_hat = v_new / (1.0 - b2 ** t)
+                u = m_hat / (v_hat.sqrt() + hp["epsilon"])
+                put(m, m_new)
+                put(v, v_new)
             elif self.name == "rmsprop":
                 (nu,) = s
                 d = hp["gamma1"]
-                nu.mul_(d).addcmul_(g, g, value=1.0 - d)
-                w.sub_(lr * (g * torch.rsqrt(nu + hp["epsilon"])))
+                nu_new = torch.addcmul(nu * d, g, g, value=1.0 - d)
+                u = g * torch.rsqrt(nu_new + hp["epsilon"])
+                put(nu, nu_new)
             else:                                           # adagrad
                 (acc,) = s
-                acc.addcmul_(g, g)
-                scale = torch.where(acc > 0, torch.rsqrt(acc + _ADAGRAD_EPS),
+                acc_new = torch.addcmul(acc, g, g)
+                u = g * torch.where(acc_new > 0,
+                                    torch.rsqrt(acc_new + _ADAGRAD_EPS),
                                     torch.zeros((), device=acc.device))
-                w.sub_(lr * (g * scale))
+                put(acc, acc_new)
+            upd = lr * u
+            if lr_scale is not None:
+                upd = upd * lr_scale
+            put(w, w - upd)

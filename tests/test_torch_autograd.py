@@ -19,6 +19,7 @@ from mxnet_tpu import autograd as jag
 from mxnet_tpu.ops.registry import get_op as jax_op
 from mxnet_tpu_torch import autograd
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

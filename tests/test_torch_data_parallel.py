@@ -34,6 +34,7 @@ from mxnet_tpu import autograd as jag
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import parallel as jparallel
 from mxnet_tpu_torch import autograd, gluon, parallel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 V, UNITS, HEADS, FFN, B, T = 50, 32, 4, 64, 2, 16
@@ -235,12 +236,10 @@ def test_sync_to_net_is_bitwise():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("grad_guard", True, "A9"), ("loss_scaling", "dynamic", "A9"),
-    ("remat", "full", "A1"), ("compute_dtype", "bfloat16", "A1"),
     ("passes", "default", "A9"), ("kvstore", "dist_sync", "A1"),
     ("grad_reduce", "reduce_scatter", "A1"), ("bucket_bytes", 1 << 20, "A1"),
     ("compression", {"type": "2bit"}, "A8"),
-    ("dynamic_lr_scale", True, "A9"), ("step_attribution", True, "A9"),
+    ("step_attribution", True, "A9"),
     ("grad_reduce_dtype", "bfloat16", "A1"),
 ])
 def test_unported_knobs_raise(knob, value, item):

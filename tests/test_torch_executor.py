@@ -23,6 +23,7 @@ import pytest
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 V, UNITS, LAYERS, HEADS, FFN, B, T = 50, 32, 2, 4, 64, 2, 16

@@ -32,6 +32,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu import autograd as jag
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu_torch import autograd, gluon, interop
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 V, UNITS, LAYERS, HEADS, FFN, B, T = 97, 64, 2, 4, 128, 2, 16
 LR = 1e-3
@@ -191,6 +192,35 @@ def test_jax_resume_restarts_adam_and_the_schedule(runs):
     assert _max_diff(runs["jax_resumed"], runs["jax"]) > 1e-4
 
 
+def _by_structure(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_save_parameters_files_cross_packages(runs, direction):
+    """A net of one package loads the other's ``save_parameters`` file
+    (structural names, the ``MXTPU001`` container) to the bit."""
+    if direction == "jax_to_port":
+        fname = str(runs["dir"] / "jax.params")
+        want = {k: a.asnumpy() for k, a in jmx.nd.load(fname).items()}
+        with mx.cpu():
+            net = _lm(gluon)
+            net.initialize(mx.init.Normal(0.02))
+            net.load_parameters(fname)
+    else:
+        fname = str(runs["dir"] / "port.params")
+        want = {k: a.asnumpy()
+                for k, a in mx.nd.load(fname, ctx=mx.cpu()).items()}
+        net = _lm(jgluon)
+        net.initialize(jmx.init.Normal(0.02))
+        net.load_parameters(fname)
+    got = _by_structure(net)
+    assert got.keys() == want.keys() and len(want) == 29
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def _schedulers(m):
     ls = m.lr_scheduler
     return {
@@ -228,35 +258,6 @@ def test_optimizer_follows_the_scheduler():
         opt._update_count(0)
         lrs.append(opt._get_lr(0))
     assert lrs == [0.4, 0.4, 0.2, 0.2, 0.1]
-
-
-def _by_structure(net):
-    return {k: p.data().asnumpy()
-            for k, p in net._collect_params_with_prefix().items()}
-
-
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
-def test_save_parameters_files_cross_packages(runs, direction):
-    """A net of one package loads the other's ``save_parameters`` file
-    (structural names, the ``MXTPU001`` container) to the bit."""
-    if direction == "jax_to_port":
-        fname = str(runs["dir"] / "jax.params")
-        want = {k: a.asnumpy() for k, a in jmx.nd.load(fname).items()}
-        with mx.cpu():
-            net = _lm(gluon)
-            net.initialize(mx.init.Normal(0.02))
-            net.load_parameters(fname)
-    else:
-        fname = str(runs["dir"] / "port.params")
-        want = {k: a.asnumpy()
-                for k, a in mx.nd.load(fname, ctx=mx.cpu()).items()}
-        net = _lm(jgluon)
-        net.initialize(jmx.init.Normal(0.02))
-        net.load_parameters(fname)
-    got = _by_structure(net)
-    assert got.keys() == want.keys() and len(want) == 29
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

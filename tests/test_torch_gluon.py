@@ -32,6 +32,7 @@ from mxnet_tpu_torch import autograd, gluon, interop
 from mxnet_tpu_torch.gluon.contrib import transformer as tfm
 from mxnet_tpu_torch.serving import ModelServer
 from mxnet_tpu_torch.serving.load import model_config_from_files
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

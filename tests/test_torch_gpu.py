@@ -10,7 +10,10 @@ thread, one above 48 KB of dynamic shared memory, and the CustomOp loss
 head against its plain version at OPT's vocabulary. And one step of the
 symbolic route (``mx.mod.Module``) and of the fused one
 (``parallel.DataParallelTrainer`` over a ``SymbolBlock``) of a small LM,
-with their launch counts, against the CPU run. Marked ``gpu``; it
+with their launch counts, against the CPU run; the fused step in bf16
+under each remat mode (launches, bitwise across modes, no further from
+the CPU's f32 step than 1.5× the CPU's bf16 step), B2's label cases and
+the float16 refusal. Marked ``gpu``; it
 skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -430,3 +433,89 @@ def test_fused_step_on_card_matches_cpu(cuda, cs, small_lm):
     assert abs(loss - cpu_loss) <= cs.TOL_TRAIN_LOSS * abs(cpu_loss)
     assert len(steps) == len(cpu_steps) == 4 + 12 * L
     _route_gate(cs, steps, cpu_steps)
+
+
+def _mixed_step(cs, files, ctx, remat, dtype="bfloat16"):
+    """One step of ``DataParallelTrainer(compute_dtype=dtype, remat=...)``
+    over the SymbolBlock with the table as an input and int32 ids: the
+    launches, the loss and each weight's step ``w0 − w1``."""
+    from mxnet_tpu_torch import gluon, parallel
+    prefix = files["prefix"]
+    with ctx:
+        block = gluon.SymbolBlock.imports(prefix + "-symbol.json",
+                                          ["data", "pos_table"],
+                                          prefix + "-0000.params")
+        w0 = {n: p.data().asnumpy() for n, p in
+              block.collect_params().items()}
+        trainer = parallel.DataParallelTrainer(
+            block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9}, compute_dtype=dtype,
+            remat=remat)
+        hk.reset_launch_counts()
+        loss = trainer.step(files["x"].astype(np.int32),
+                            cs.sinusoid_table(SMALL["T"], SMALL["units"]),
+                            files["y"])
+        counts = dict(hk.launch_counts)
+    return counts, loss.asscalar(), {
+        n: w0[n] - t.detach().cpu().numpy()
+        for n, t in trainer._params.items()}
+
+
+def _worst(steps, ref):
+    return max(np.linalg.norm(steps[n] - ref[n])
+               / max(np.linalg.norm(ref[n]), 1e-30) for n in ref)
+
+
+def test_bf16_steps_with_remat_on_card(cuda, cs, small_lm):
+    """The bf16 step on the card, under each remat mode: B1 once a layer
+    (twice under remat: the recompute), B3 once, every launch on bf16
+    inputs; the remat modes give the
+    step without remat bitwise; and the card's bf16 step is no further
+    from the float32 step on the CPU than 1.5× the CPU's own bf16 step
+    (the plain versions under the same cast rule)."""
+    L = SMALL["layers"]
+    runs = {}
+    for remat in (None, "dots", "full"):
+        counts, loss, steps = _mixed_step(cs, small_lm, mx.gpu(0), remat)
+        assert counts == {
+            "flash_attention_fwd": L * (1 if remat is None else 2),
+            "flash_attention_bwd_dkdv": L, "flash_attention_bwd_dq": L,
+            "softmax_cross_entropy_fwd": 0}, (remat, counts)
+        assert {dt for (_, dt) in hk.launch_dtypes} == {"bfloat16"}, \
+            hk.launch_dtypes
+        runs[remat] = (loss, steps)
+    for remat in ("dots", "full"):
+        assert runs[remat][0] == runs[None][0]
+        for n, s in runs[None][1].items():
+            np.testing.assert_array_equal(runs[remat][1][n], s, err_msg=n)
+    _, cpu_f32_loss, cpu_f32 = _mixed_step(cs, small_lm, mx.cpu(), None,
+                                           dtype=None)
+    cpu_bf16 = _mixed_step(cs, small_lm, mx.cpu(), None)[2]
+    card = _worst(runs[None][1], cpu_f32)
+    ctl = _worst(cpu_bf16, cpu_f32)
+    assert card <= 1.5 * ctl, (card, ctl)
+    assert abs(runs[None][0] - cpu_f32_loss) <= 2e-2 * abs(cpu_f32_loss)
+
+
+def test_softmax_cross_entropy_label_cases_on_card(cuda):
+    """B2 with negative labels (class C + label), out-of-range ones (NaN)
+    and one label for every row, against its plain version."""
+    x = torch.randn(6, 37, device=cuda) * 2
+    for labels in ([-1, -37, 0, 36, 37, -38], [5]):
+        lab = torch.tensor(labels, device=cuda)
+        hk.reset_launch_counts()
+        loss = hk.softmax_cross_entropy(x, lab)
+        assert hk.launch_counts["softmax_cross_entropy_fwd"] == 1
+        ref = hk.softmax_cross_entropy_reference(x, lab.expand(6))[0]
+        assert torch.equal(loss.isnan(), ref.isnan())
+        ok = ~ref.isnan()
+        # lse and loss, absolute: chip_smoke.py's TOL_CE
+        assert (loss[ok] - ref[ok]).abs().max().item() <= 2e-5
+
+
+def test_float16_on_the_card_names_its_roadmap_item(cuda):
+    from mxnet_tpu_torch import gluon, parallel
+    net = gluon.nn.Dense(4, in_units=3)
+    with pytest.raises(NotImplementedError, match="B5"):
+        parallel.DataParallelTrainer(net, gluon.loss.L2Loss(), "sgd",
+                                     compute_dtype="float16")

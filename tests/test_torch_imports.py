@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")

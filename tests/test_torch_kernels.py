@@ -32,6 +32,7 @@ import torch
 
 from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.ops import hopper_kernels as hk
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 
@@ -290,17 +291,60 @@ def test_softmax_cross_entropy_matches_jax(interp, N, C):
 
 
 def test_softmax_cross_entropy_reference_edges():
-    """lse in float32 from bf16 logits; a label outside [0, C) gives a NaN
-    loss and no one-hot entry in the gradient; meta tensors get shapes."""
-    x = torch.randn(3, 5)
-    labels = torch.tensor([0, 5, -1])
+    """lse in float32 from bf16 logits; a label in [-C, 0) picks class
+    C + label in the forward but has no one-hot entry in the gradient (as
+    the JAX package's ``take_along_axis`` and ``one_hot``), a label at C
+    or below -C gives a NaN loss; meta tensors get shapes."""
+    x = torch.randn(4, 5)
+    labels = torch.tensor([0, 5, -6, -1])
     loss, lse = hk.softmax_cross_entropy_reference(x.bfloat16(), labels)
     assert lse.dtype == loss.dtype == torch.float32
-    assert torch.isfinite(loss[0]) and torch.isnan(loss[1:]).all()
+    assert torch.isfinite(loss[[0, 3]]).all()
+    assert torch.isnan(loss[1:3]).all()
+    np.testing.assert_allclose(loss[3].item(),
+                               (lse[3] - x.bfloat16()[3, 4].float()).item())
     grad = hk.softmax_cross_entropy_grad(x, labels, torch.logsumexp(x, 1),
-                                         torch.ones(3))
+                                         torch.ones(4))
     np.testing.assert_allclose(grad[1:].sum(1).numpy(), 1.0, rtol=1e-6)
     np.testing.assert_allclose(grad[0].sum().item(), 0.0, atol=1e-6)
     m = hk.softmax_cross_entropy(torch.empty(4, 9, device="meta"),
                                  torch.empty(4, device="meta"))
     assert m.shape == (4,) and m.device.type == "meta"
+
+
+@jax.jit
+def _ce_loss_and_grad(x, labels):
+    loss, vjp = jax.vjp(lambda a: pk.softmax_cross_entropy(a, labels), x)
+    return loss, vjp(jnp.ones_like(loss))[0]
+
+
+@pytest.mark.parametrize("labels", [[-1, 0], [3], [-5, 4], [5, -6]],
+                         ids=["negative", "one-label", "wrap-all",
+                              "out-of-range"])
+def test_softmax_cross_entropy_labels_like_jax(labels):
+    """Labels in [-C, 0) and a single label for every row, loss and
+    gradient, against the JAX package's ``softmax_cross_entropy``; NaN
+    where it gives NaN. The kernel's wrapper hands it one label a row."""
+    x = np.random.RandomState(5).randn(2, 5).astype("float32") * 2
+    lab = np.asarray(labels, "float32")
+    jloss, jgrad = _ce_loss_and_grad(jnp.asarray(x), jnp.asarray(lab))
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = hk.softmax_cross_entropy(tx, torch.from_numpy(lab))
+    loss.backward(torch.ones(2))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jloss),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_softmax_cross_entropy_labels_that_do_not_broadcast_raise():
+    """Neither package takes 3 labels for 2 rows; the kernel's wrapper
+    refuses a label count other than the rows'."""
+    x = np.zeros((2, 5), "float32")
+    lab = np.zeros(3, "float32")
+    with pytest.raises(Exception):
+        pk.softmax_cross_entropy(jnp.asarray(x), jnp.asarray(lab))
+    with pytest.raises(hk.MXNetError, match="broadcast"):
+        hk.softmax_cross_entropy(torch.from_numpy(x), torch.from_numpy(lab))
+    with pytest.raises(hk.MXNetError, match="one label a row"):
+        hk._ce_kernel(torch.zeros(2, 5), torch.zeros(1, dtype=torch.int64))

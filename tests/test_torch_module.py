@@ -29,6 +29,7 @@ from mxnet_tpu_torch import interop
 from mxnet_tpu.io import DataBatch as JDataBatch
 from mxnet_tpu.io import NDArrayIter as JNDArrayIter
 from mxnet_tpu.module import Module as JModule
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 V, UNITS, LAYERS, HEADS, FFN, B, T = 50, 32, 2, 4, 64, 2, 16

@@ -14,6 +14,7 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PACKAGES = {"jax": jmx, "torch": mx}
 

@@ -11,6 +11,7 @@ import torch
 import mxnet_tpu_torch as mxt
 from mxnet_tpu.ops.registry import get_op as jax_op
 from mxnet_tpu_torch.ops.registry import get_op as torch_op
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 
@@ -122,3 +123,97 @@ def test_shape_inference_on_meta():
         "data": (2, 3, 4), "fc_weight": (7, 4), "fc_bias": (7,),
         "ln_gamma": (7,), "ln_beta": (7,)}
     assert outs == [(2, 3, 7), (2, 3), (2, 3)] and aux == []
+
+
+@pytest.mark.parametrize("data_shape,index,axis,keepdims", [
+    ((2, 3), [[1]], 1, False),
+    ((2, 3), [0, 2], 1, False),
+    ((2, 3, 4), [[0], [3]], 2, True),
+    ((2, 3), [[0, 2], [1, 1]], 1, True),
+], ids=["broadcast-row", "per-row", "3d-broadcast", "several-keepdims"])
+def test_pick_broadcasts_the_index_like_jax(data_shape, index, axis,
+                                            keepdims):
+    """The index broadcasts to the data on every axis but ``axis``, as
+    ``take_along_axis`` broadcasts it; indices clip."""
+    data = _r(*data_shape)
+    idx = np.asarray(index, "float32")
+    want = jax_op("pick").fn(jnp.asarray(data), jnp.asarray(idx), axis=axis,
+                             keepdims=keepdims)
+    got = torch_op("pick").fn(torch.from_numpy(data), torch.from_numpy(idx),
+                              axis=axis, keepdims=keepdims)
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL)
+
+
+@pytest.mark.parametrize("data_shape,index,axis,keepdims", [
+    ((2, 3), [0, 2], 0, False),
+    ((2, 3), [[0, 2], [1, 1]], 1, False),
+    ((2, 3), [0, 1, 2], 1, False),
+], ids=["wrong-axis", "several-squeezed", "too-many-rows"])
+def test_pick_raises_where_jax_raises(data_shape, index, axis, keepdims):
+    data = _r(*data_shape)
+    idx = np.asarray(index, "float32")
+    with pytest.raises(Exception):
+        jax_op("pick").fn(jnp.asarray(data), jnp.asarray(idx), axis=axis,
+                          keepdims=keepdims)
+    with pytest.raises(mxt.MXNetError, match="pick"):
+        torch_op("pick").fn(torch.from_numpy(data), torch.from_numpy(idx),
+                            axis=axis, keepdims=keepdims)
+
+
+def test_embedding_backward_sums_repeated_ids_in_a_fixed_order():
+    """``Embedding``'s gradient goes through ``embedding_dense_backward``
+    (on the card: sorted ids, a fixed order of the sums over repeated
+    ids), not the ``index_add_`` of ``index_select``'s backward, whose
+    CUDA atomics sum the rows of repeated ids in a changing order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    ids = torch.tensor([[1.0, 1.0, 3.0, 9.5]])
+    w = torch.randn(8, 4, requires_grad=True)
+    with Ops() as ops:
+        out = torch_op("Embedding").fn(ids, w, input_dim=8, output_dim=4)
+        out.sum().backward()
+    assert "embedding_dense_backward" in ops.seen
+    assert not {"index_add", "index_add_", "index_select_backward"} & ops.seen
+    want = np.zeros((8, 4), "float32")
+    for i in (1, 1, 3, 7):
+        want[i] += 1.0
+    np.testing.assert_array_equal(w.grad.numpy(), want)
+
+
+def test_fully_connected_promotes_like_jnp_dot():
+    """bf16 data on float32 weights (the LM's products after its float32
+    table, under the trainer's bf16 cast) run in float32, as ``jnp.dot``
+    promotes them; bf16 on bf16 stays bf16."""
+    x, w, b = _r(2, 3, 4), _r(5, 4, seed=1), _r(5, seed=2)
+    attrs = {"num_hidden": 5, "flatten": False}
+    want = jax_op("FullyConnected").fn(jnp.asarray(x, jnp.bfloat16),
+                                       jnp.asarray(w), jnp.asarray(b), **attrs)
+    got = torch_op("FullyConnected").fn(torch.from_numpy(x).bfloat16(),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(b), **attrs)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    both = torch_op("FullyConnected").fn(
+        *(torch.from_numpy(a).bfloat16() for a in (x, w, b)), **attrs)
+    assert both.dtype == torch.bfloat16
+    # a float32 bias (a frozen parameter under the bf16 cast): the bf16
+    # product, then the float32 sum
+    want = jax_op("FullyConnected").fn(jnp.asarray(x, jnp.bfloat16),
+                                       jnp.asarray(w, jnp.bfloat16),
+                                       jnp.asarray(b), **attrs)
+    got = torch_op("FullyConnected").fn(torch.from_numpy(x).bfloat16(),
+                                        torch.from_numpy(w).bfloat16(),
+                                        torch.from_numpy(b), **attrs)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -22,6 +22,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import _cuda_driver as drv
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from mxnet_tpu_torch.native.predict_bridge import Predictor
 from mxnet_tpu_torch.serving import (DeadlineExceeded, Draining, ModelConfig,
                                      ModelServer, Overloaded)
 from mxnet_tpu_torch.serving.load import model_config_from_files
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, UNITS, LAYERS, HEADS, FFN, T = 64, 256, 2, 2, 512, 16
 TOL = 1e-4

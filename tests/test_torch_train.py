@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu import autograd as jag
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu_torch import autograd, gluon, interop
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 V, UNITS, LAYERS, HEADS, FFN, B, T = 128, 256, 2, 2, 512, 2, 16
 
@@ -219,3 +220,28 @@ def test_parameter_grad_req_across_steps(req):
     # write: w = 1 − 0.1·1 − 0.1·2; add: the second step sees 1 + 2
     want_w = {"write": 0.7, "add": 0.6}[req]
     np.testing.assert_allclose(p.data().asnumpy(), want_w, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name,params", [
+    ("sgd", {}), ("sgd", {"momentum": 0.9}), ("adam", {})],
+    ids=["sgd", "sgd-momentum", "adam"])
+def test_clip_gradient_zero_clips_nothing_like_jax(name, params):
+    """``clip_gradient=0`` means no clipping (the JAX package's ``clip or
+    1e30`` and ``clip if clip else inf``): lr 0.1, w = [1, 2, 3],
+    g = [.5, -.5, 2]; SGD gives w = [0.95, 2.05, 2.8]. Two updates."""
+    w0 = np.array([1.0, 2.0, 3.0], "float32")
+    g = np.array([0.5, -0.5, 2.0], "float32")
+    out = []
+    for pkg in (jmx, mx):
+        with pkg.cpu():
+            opt = pkg.optimizer.create(name, learning_rate=0.1,
+                                       clip_gradient=0, **params)
+            upd = pkg.optimizer.get_updater(opt)
+            w = pkg.nd.array(w0)
+            for _ in range(2):
+                upd(0, pkg.nd.array(g), w)
+            out.append(w.asnumpy())
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-6, atol=1e-7)
+    assert not np.allclose(out[1], w0)
+    if name == "sgd" and not params:
+        np.testing.assert_allclose(out[1], w0 - 2 * 0.1 * g, rtol=1e-6)
