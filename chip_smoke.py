@@ -86,10 +86,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    both buckets.
 11. sequential: one step of ``SequentialModule`` (the LM up to its logits,
    then the loss module): loss and weights those of the Module route.
+12. ResNet-50, route A (the headline, ``bench.py``'s ResNet step):
+   ``vision.resnet50_v1(classes=1000, layout="NHWC")`` at its published
+   depth and widths, Xavier, ``SoftmaxCrossEntropyLoss`` and the fused
+   trainer's SGD (lr 0.1, momentum 0.9, wd 1e-4) in bf16 on 256 images
+   of 224x224x3 (uniform(-1, 1), random labels, seed 0): a first step,
+   ten timed ones (step ms, host dispatch ms, images/s, peak memory), one
+   under ``ConvCensus`` (every convolution, forward and backward, must take
+   bf16 inputs; copies that change a tensor's memory format are counted)
+   and one under ``torch.profiler`` (busy share, device time by class, the
+   optimizer's range apart); a second trainer from the same weights
+   repeats step 1 (bitwise or not is printed).
+13. route C: the trained net exported and served through ``ModelServer``
+   (8 requests of one image, buckets 1/2/4/8): the logits of the gluon
+   net's inference forward.
+14. the gates at batch 32, against the same step in float64 on the card:
+   route B (the NCHW net through gluon in float32, TF32 off; a TF32
+   control must miss), the NHWC net against the NCHW net with its weights
+   transposed, and route A's bf16 fused step (loss and output layer; a
+   control with moved labels must miss), then route B's ``gluon.Trainer``
+   step. Below the output layer the freshly initialised net's backward is
+   chaotic (see the tolerances), which the printed errors show.
+15. the zoo: one net of each family (AlexNet, VGG-11 BN, ResNet-18 v2,
+   SqueezeNet 1.0, MobileNet 1.0 and v2, DenseNet-121, Inception v3 at
+   299), its float32 forward against its float64 forward.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step
-and one bf16 fused step. The line before the last is a JSON object with
+and one bf16 fused step (route A's step is profiled in every run). No
+phase from 12 on launches a Hopper kernel: the conv nets reach no TPU
+kernel (the JAX package lowers their convolutions and pools through
+XLA; cuDNN runs the port's). The line before the last is a JSON object with
 one entry per kernel (the flash kernels' bf16 times at the main shape
 under ``"bf16"``); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +134,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import mxnet_tpu_torch as mx
 
@@ -1238,15 +1266,33 @@ def _kernel_class(key: str) -> str:
         return "rtc softmax_ce_bwd"
     if "memcpy" in low:
         return "memcpy"
+    for part, cls in (("dgrad", "conv dgrad (cuDNN)"),
+                      ("wgrad", "conv wgrad (cuDNN)"),
+                      ("fprop", "conv forward (cuDNN)"),
+                      ("implicit_convolve", "conv forward (cuDNN)"),
+                      ("nchwtonhwc", "layout conversion"),
+                      ("nhwctonchw", "layout conversion")):
+        if part in low:
+            return cls
     if "gemm" in low or "cutlass" in low or "nvjet" in low:
-        return "matmul (cuBLAS)"
+        return "matmul (cuBLAS GEMMs; cuDNN's GEMM convolutions)"
+    for part, cls in (("pool", "pooling"),
+                      ("reduce_kernel", "reductions (statistics, sums)"),
+                      ("copy", "copies and casts"),
+                      ("clamp", "ReLU and its backward"),
+                      ("threshold", "ReLU and its backward"),
+                      ("elementwise", "elementwise arithmetic")):
+        if part in low:
+            return cls
     return "other kernels"
 
 
-def profile_breakdown(what: str, run) -> None:
+def profile_breakdown(what: str, run, ranges=()) -> None:
     """Run ``run()`` once under ``torch.profiler``: device time by kernel
     class and by kernel, and the device events' share of the wall window
-    (one stream, so their sum is the busy time)."""
+    (one stream, so their sum is the busy time); and the device time of
+    the kernels launched inside each ``record_function`` range named in
+    ``ranges``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1257,10 +1303,10 @@ def profile_breakdown(what: str, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in ranges]
     if not rows:
         print(f"profile: {what}: torch.profiler recorded no device time")
         return
@@ -1275,6 +1321,10 @@ def profile_breakdown(what: str, run) -> None:
     for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"profile: class {cls}: {us / 1e3:.2f} ms "
               f"({us / busy:.3f} of device time)")
+    for e in events:
+        if e.key in ranges and e.device_type == DeviceType.CPU:
+            print(f"profile: range {e.key}: {e.device_time_total / 1e3:.2f}"
+                  f" ms of device time ({e.device_time_total / busy:.3f})")
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"profile: kernel {us / 1e3:9.2f} ms x{count:<4d} {key[:90]}")
 
@@ -2493,6 +2543,530 @@ def sequential_phase(mx, hk, dev, prefix, module_loss, module_w1):
     return launches
 
 
+# ------------------------------------------------- ResNet-50 and the zoo
+# bench.py's ResNet step (bench.py:157-197): resnet50_v1 at its published
+# depth and widths (50 layers, channels 64-2048), 1000 classes, NHWC
+# 224x224x3 images uniform(-1, 1) with random labels from the seed,
+# Xavier, SoftmaxCrossEntropyLoss and the fused trainer's SGD (lr 0.1,
+# momentum 0.9, wd 1e-4) in bf16, at bench.py's accelerator batch
+RESNET_BATCH = 256
+RESNET_IMAGE = 224
+RESNET_CLASSES = 1000
+RESNET_STEPS = 10            # timed, after the first (capture) step
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# The gates run at the reference's batch, 32, against the same step in
+# float64 on the card. Below its output layer a freshly initialised
+# ResNet-50 v1 is chaotic in its backward: rounding anywhere in the net
+# is amplified on the way down, so two float32 steps (NCHW, NHWC) lie
+# about 2e-2 from the float64 step's gradient (per tensor, median and
+# worst alike) and 3e-2 from each other, and bf16's lies as far from it
+# as a random vector, while the losses and logits agree (an H100 run of
+# this phase: 2.2e-7 and 2.8e-5). Route B, the float32 gluon step (TF32
+# off): the loss relative, the logits against their largest, every
+# tensor's ||g - g64|| / ||g64|| at 0.1 and the output layer's (2.0e-5
+# on the H100) at 1e-3; a TF32 control must miss (it read 0.88 and
+# 1.7e-2). NHWC against NCHW with the weights transposed: the same gates.
+GATE_BATCH = 32
+TOL_RN_LOSS = 1e-5
+TOL_RN_LOGITS = 2e-4     # x max|logit|: 4.0e-5 NHWC against NCHW (H100)
+TOL_RN_GRAD = 0.1
+TOL_RN_GRAD_TOP = 1e-3
+# Route A, the bf16 fused trainer's step 1: what the chaos leaves
+# well-posed, the loss (relative; 2.2e-3 on the H100, most of it the bf16
+# rounding of each image's loss) and the output layer's gradient (0.12).
+# At this state the net's output hardly depends on its input (random
+# weights, random images): the same step on the images' bytes read in
+# the wrong layout moves the output layer's gradient by only 0.21, and
+# rounding every convolution's output to fp8 e4m3 (three mantissa bits to
+# bf16's seven) by 0.19, both printed. The control that must miss is the
+# same step with each label moved to the next class (1.35).
+TOL_RN_BF16_LOSS = 2e-2
+TOL_RN_BF16_TOP = 0.25
+# the served logits against the gluon net's inference forward (float32
+# both, other batch sizes: other cuDNN kernels), x max|logit|
+TOL_RN_SERVE = 1e-4
+RN_SERVE_REQUESTS = 8
+RN_SERVE_BUCKETS = (1, 2, 4, 8)
+# one net of each zoo family at its input size, float32 forward (TF32
+# off) against float64, max|d| / max|f64|
+ZOO_SWEEP = (("alexnet", 224), ("vgg11_bn", 224), ("resnet18_v2", 224),
+             ("squeezenet1.0", 224), ("mobilenet1.0", 224),
+             ("mobilenetv2_1.0", 224), ("densenet121", 224),
+             ("inceptionv3", 299))
+ZOO_BATCH = 2
+TOL_ZOO = 1e-4
+
+
+def resnet_batch(n, layout="NHWC"):
+    """``n`` images uniform(-1, 1) at 224x224x3 and labels, float32 numpy
+    arrays from the seed (``bench.py``'s draws); NCHW on request."""
+    rng = np.random.RandomState(SEED)
+    x = rng.uniform(-1, 1, (n, RESNET_IMAGE, RESNET_IMAGE, 3)).astype(
+        np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (n,)).astype(np.float32)
+    if layout == "NCHW":
+        x = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    return x, y
+
+
+def seeded_resnet(mx, layout="NHWC", prefix=None):
+    """``vision.resnet50_v1`` with Xavier weights from the seed, on the
+    card (its deferred shapes finish at the first forward)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=RESNET_CLASSES, layout=layout,
+                             prefix=prefix)
+    net.initialize(mx.init.Xavier())
+    return net
+
+
+def _mem_format(t) -> str:
+    """A 4-D tensor's memory format, as cuDNN sees the NCHW-ordered view:
+    ``channels_last``, ``contiguous``, ``either`` (a unit axis makes both
+    hold) or ``strided``."""
+    last = t.is_contiguous(memory_format=torch.channels_last)
+    first = t.is_contiguous()
+    return {(True, False): "channels_last", (False, True): "contiguous",
+            (True, True): "either"}.get((last, first), "strided")
+
+
+class ConvCensus(TorchDispatchMode):
+    """Counts what reaches torch under it: the convolutions, forward and
+    backward, by (direction, input dtype, input memory format), and the
+    copies that give a 4-D tensor another memory format (a layout
+    conversion on the path)."""
+
+    def __init__(self):
+        super().__init__()
+        self.convs, self.relayouts = {}, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        aten = torch.ops.aten
+        if func in (aten.convolution.default,
+                    aten.convolution_backward.default):
+            back = func is aten.convolution_backward.default
+            x = args[1] if back else args[0]
+            key = ("backward" if back else "forward",
+                   str(x.dtype).replace("torch.", ""), _mem_format(x))
+            self.convs[key] = self.convs.get(key, 0) + 1
+        elif func in (aten.clone.default, aten._to_copy.default,
+                      aten.copy_.default):
+            src = args[1] if func is aten.copy_.default else args[0]
+            if isinstance(src, torch.Tensor) and src.dim() == 4:
+                pair = (_mem_format(src), _mem_format(out))
+                if "either" not in pair and pair[0] != pair[1]:
+                    key = (str(func), *pair)
+                    self.relayouts[key] = self.relayouts.get(key, 0) + 1
+        return out
+
+
+# A conv's bias ahead of a BatchNorm (BottleneckV1's 1x1 convs) has a
+# gradient of zero: the normalisation takes the mean out. Its float64
+# value is rounding noise, 1e-16 of the others, so its relative error
+# says nothing: a tensor whose float64 gradient's norm is below NULL_GRAD
+# of the largest is left out of the per-tensor gates, and the norm of
+# the step's gradient there is printed against the largest tensor's
+NULL_GRAD = 1e-9
+
+
+class RoundConvOutputs(TorchDispatchMode):
+    """Rounds every convolution's output to ``dtype`` and back (a control
+    of coarser precision than the route's)."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.convolution.default:
+            out = out.to(self.dtype).to(out.dtype)
+        return out
+
+
+def _null_grads(ref):
+    """The tensors whose gradient ``ref`` ({name: float64}) is null."""
+    norms = {n: r.norm().item() for n, r in ref.items()}
+    big = max(norms.values())
+    return {n for n, v in norms.items() if v <= NULL_GRAD * big}
+
+
+def _rn_grads_rel(grads, ref, null):
+    """({name: ||g - ref|| / ||ref||} over the tensors not in ``null``,
+    {name: ||g|| / max ||ref||} over those in it), in float64."""
+    big = max(r.norm().item() for r in ref.values())
+    errs, nulls = {}, {}
+    for n, g in grads.items():
+        g = g.double()
+        if n in null:
+            nulls[n] = g.norm().item() / big
+        else:
+            errs[n] = ((g - ref[n]).norm() / ref[n].norm()).item()
+    return errs, nulls
+
+
+def _to_nchw(name, t):
+    """An NHWC net's tensor in its NCHW twin's layout (conv weights
+    OHWI -> OIHW)."""
+    return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+
+def _gluon_grads(mx, net, x, y, dtype=None):
+    """Loss (a float), {name: gradient} and the logits of one recorded
+    gluon step of ``net`` on the batch ``(x, y)``: the mean
+    SoftmaxCrossEntropyLoss, as the fused trainer takes it."""
+    from mxnet_tpu_torch import autograd, gluon
+    xa = mx.nd.array(x, dtype=dtype)
+    with autograd.record():
+        logits = net(xa)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            logits, mx.nd.array(y)).mean()
+    loss.backward()
+    return float(loss.asscalar()), {
+        n: p.grad._data.detach().clone()
+        for n, p in net.collect_params().items()
+        if p.grad_req != "null"}, logits._data.detach()
+
+
+def resnet_gate_phase(mx):
+    """At batch 32: route B (the float32 NCHW step through gluon, TF32
+    off) and route A's numerics (the NHWC net against the NCHW net with
+    its weights transposed; the bf16 fused trainer's step-1 gradient)
+    against the same step in float64 on the card, each with a control
+    that must miss; then route B's ``gluon.Trainer`` step."""
+    from mxnet_tpu_torch import gluon, interop, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    x, y = resnet_batch(GATE_BATCH, "NCHW")
+    xh = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    net = seeded_resnet(mx, "NCHW", prefix="gate_")
+    net(mx.nd.array(x[:1]))                       # the deferred shapes
+    w0 = {n: p.data()._data.detach().clone()
+          for n, p in net.collect_params().items()}
+    top = [n for n in w0 if "_dense" in n]
+
+    def twin(layout, dtype="float32"):
+        """A fresh resnet50_v1 holding ``w0`` (transposed under NHWC), its
+        parameters cast to ``dtype``."""
+        other = vision.resnet50_v1(classes=RESNET_CLASSES, layout=layout,
+                                   prefix="gate_")
+        other.initialize()
+        interop.load_block_params(other, {
+            n: (t.permute(0, 2, 3, 1) if layout == "NHWC" and t.dim() == 4
+                else t).contiguous().cpu().numpy() for n, t in w0.items()})
+        if dtype != "float32":
+            for p in other.collect_params().values():
+                p.cast(dtype)
+        return other
+
+    ref = twin("NCHW", "float64")
+    loss64, g64, logits64 = _gluon_grads(mx, ref, x.astype(np.float64), y,
+                                         dtype="float64")
+    del ref
+    _free()
+    null = _null_grads(g64)
+
+    def score(what, loss, grads, logits=None, nhwc=False, against=None):
+        """Errors of a step's loss and gradients against the float64
+        step's (or ``against``: a step's (loss, gradients, logits))."""
+        rloss, rgrads, rlogits = against or (loss64, g64, logits64)
+        if nhwc:
+            grads = {n: _to_nchw(n, g) for n, g in grads.items()}
+        errs, null_norms = _rn_grads_rel(
+            grads, {n: g.double() for n, g in rgrads.items()}, null)
+        vals = sorted(errs.values())
+        worst = max(errs, key=errs.get)
+        g = torch.cat([grads[n].double().flatten() for n in errs])
+        r = torch.cat([rgrads[n].double().flatten() for n in errs])
+        s = {"loss_err": abs(loss - rloss) / abs(rloss), "all": errs[worst],
+             "top": max(errs[n] for n in top), "median": vals[len(vals) // 2],
+             "logits": float("nan") if logits is None else (
+                 (logits.double() - rlogits.double()).abs().max()
+                 / rlogits.double().abs().max()).item()}
+        print(f"resnet gate: {what}: loss relative {s['loss_err']:.3e}, "
+              f"logits max|d|/max|ref| {s['logits']:.3e}; "
+              f"||g-ref||/||ref|| over {len(errs)} tensors: worst "
+              f"{s['all']:.3e} ({worst}), median {s['median']:.3e}, the "
+              f"output layer {s['top']:.3e}; all tensors as one vector: "
+              f"cosine {(g @ r / (g.norm() * r.norm())).item():.4f}; "
+              f"{len(null_norms)} tensors with a null gradient (conv "
+              f"biases ahead of a BatchNorm): ||g|| up to "
+              f"{max(null_norms.values(), default=0.0):.3e} of the "
+              f"largest tensor's")
+        return s
+
+    def f32_ok(s):
+        return (s["loss_err"] <= TOL_RN_LOSS and s["logits"] <= TOL_RN_LOGITS
+                and s["all"] <= TOL_RN_GRAD and s["top"] <= TOL_RN_GRAD_TOP)
+
+    def bf16_ok(s):
+        return (s["loss_err"] <= TOL_RN_BF16_LOSS
+                and s["top"] <= TOL_RN_BF16_TOP)
+
+    # route B: float32 through gluon; the TF32 control first (a recorded
+    # step leaves the weights where they are)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tf32_matmuls():
+            ctl = score("float32 NCHW gluon step in TF32 (control)",
+                        *_gluon_grads(mx, net, x, y))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    b_run = _gluon_grads(mx, net, x, y)
+    b = score("route B, the float32 NCHW gluon step", *b_run)
+    print(f"resnet gate: route B against float64: tolerances loss "
+          f"{TOL_RN_LOSS}, logits {TOL_RN_LOGITS}, each tensor "
+          f"{TOL_RN_GRAD}, the output layer {TOL_RN_GRAD_TOP}; card "
+          f"{_card_line()}")
+    if not f32_ok(b):
+        raise AssertionError("resnet gate: route B's float32 step is not "
+                             "within its tolerances of the float64 step")
+    if f32_ok(ctl):
+        raise AssertionError("resnet gate: the TF32 control passes route "
+                             "B's tolerances: they are too loose")
+    # NHWC against NCHW, both float32 through gluon, and each against
+    # float64
+    nhwc = twin("NHWC")
+    h_run = _gluon_grads(mx, nhwc, xh, y)
+    h = score("the NHWC float32 gluon step", *h_run, nhwc=True)
+    hc = score("the NHWC step against the NCHW step", *h_run, nhwc=True,
+               against=b_run)
+    if not (f32_ok(h) and f32_ok(hc)):
+        raise AssertionError("resnet gate: the NHWC net differs from the "
+                             "NCHW net")
+    # route A's numerics: the bf16 fused trainer's first step; optax's SGD
+    # leaves its gradient in (w0 - w1) / lr - wd * w0
+    lr, wd = RESNET_OPT["learning_rate"], RESNET_OPT["wd"]
+    w0h = {n: p.data()._data.double()
+           for n, p in nhwc.collect_params().items()}
+
+    def fused_step(images, labels):
+        trainer = parallel.DataParallelTrainer(
+            nhwc, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT), compute_dtype="bfloat16")
+        loss = float(trainer.step(mx.nd.array(images),
+                                  mx.nd.array(labels)).asscalar())
+        return loss, {n: (w0h[n] - t.double()) / lr - wd * w0h[n]
+                      for n, t in trainer._params.items()}
+
+    a = score("route A, the bf16 fused trainer's step 1",
+              *fused_step(xh, y), nhwc=True)
+    _free()
+    score("the bf16 fused step on the images in the wrong layout",
+          *fused_step(x.reshape(xh.shape), y), nhwc=True)
+    _free()
+    wrong = score("the bf16 fused step with each label moved to the next "
+                  "class (control)",
+                  *fused_step(xh, (y + 1) % RESNET_CLASSES), nhwc=True)
+    del w0h
+    _free()
+    coarse = twin("NHWC", "bfloat16")
+    with RoundConvOutputs(torch.float8_e4m3fn):
+        score("the bf16 gluon step with fp8 e4m3 convolution outputs",
+              *_gluon_grads(mx, coarse, xh, y, dtype="bfloat16"), nhwc=True)
+    del coarse
+    print(f"resnet gate: route A against float64: bounds loss "
+          f"{TOL_RN_BF16_LOSS}, the output layer {TOL_RN_BF16_TOP}")
+    if not bf16_ok(a):
+        raise AssertionError("resnet gate: route A's bf16 step is not "
+                             "within its bounds of the float64 step")
+    if bf16_ok(wrong):
+        raise AssertionError("resnet gate: the moved-label control passes "
+                             "route A's bounds: they are too loose")
+    # route B's update: gluon.Trainer, MXNet's SGD
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_OPT))
+    _gluon_grads(mx, net, x, y)
+    trainer.step(1)
+    moved = max((p.data()._data - w0[n]).abs().max().item()
+                for n, p in net.collect_params().items()
+                if p.grad_req != "null")
+    print(f"resnet gate: route B's gluon.Trainer step moved the weights by "
+          f"up to {moved:.3e}")
+    if not moved > 0:
+        raise AssertionError("resnet gate: gluon.Trainer did not step")
+
+
+def _profile_resnet_step(trainer, xs, ys):
+    """``profile_breakdown`` of one step, with the optimizer's device time
+    apart (its kernels launch inside a ``record_function`` range)."""
+    from torch.profiler import record_function
+    rule = trainer._rule
+    plain_step = rule.step
+
+    def step(*a, **kw):
+        with record_function("fused optimizer"):
+            return plain_step(*a, **kw)
+
+    rule.step = step
+    try:
+        profile_breakdown(
+            f"one bf16 fused step of ResNet-50 at {RESNET_BATCH} images",
+            lambda: trainer.step(xs, ys), ranges=("fused optimizer",))
+    finally:
+        del rule.step
+
+
+def resnet_phase(mx):
+    """Route A, the headline: ``bench.py``'s ResNet-50 step through the
+    fused trainer in bf16 at batch 256 on the card. A first step (the
+    capture), then ``RESNET_STEPS`` timed ones; one more under
+    ``ConvCensus`` (every convolution must take bf16 inputs) and one under
+    ``torch.profiler``. A second trainer from the same weights repeats
+    step 1: bitwise or not is reported. Returns the trained net, its
+    trainer synced into it."""
+    from mxnet_tpu_torch import gluon, parallel
+    B = RESNET_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    net = seeded_resnet(mx, "NHWC")
+    x, y = resnet_batch(B)
+    xs, ys = mx.nd.array(x), mx.nd.array(y)      # on the card: set-up
+    del x
+
+    def trainer_for():
+        return parallel.DataParallelTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT), compute_dtype="bfloat16")
+
+    trainer = trainer_for()
+    t0 = time.perf_counter()
+    losses = [trainer.step(xs, ys)]
+    w1 = {n: t.detach().clone() for n, t in trainer._params.items()}
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    step_ms, host_ms = [], []
+    for _ in range(RESNET_STEPS):
+        out = []
+        t_host, _, t_step = _timed_step(
+            lambda: out.append(trainer.step(xs, ys)))
+        losses.append(out[0])
+        step_ms.append(t_step * 1e3)
+        host_ms.append(t_host * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(trainer.step(xs, ys))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v.asscalar()) for v in losses]
+    census = ConvCensus()
+    with census:
+        trainer.step(xs, ys)
+    print(f"resnet: route A, resnet50_v1 NHWC bf16 fused step at {B} x "
+          f"{RESNET_IMAGE}x{RESNET_IMAGE}x3: first step (capture) "
+          f"{first:.2f} s; {RESNET_STEPS} timed steps {step_ms} ms, host "
+          f"dispatch {host_ms} ms; {RESNET_STEPS} more back to back "
+          f"{run_s * 1e3 / RESNET_STEPS:.2f} ms a step, "
+          f"{B * RESNET_STEPS / run_s:.1f} images/s; peak memory "
+          f"{peak:.2f} GB; card {_card_line()}")
+    print(f"resnet: losses {losses}")
+    print(f"resnet: convolutions of one step by (direction, input dtype, "
+          f"memory format) {census.convs}; copies that change a 4-D "
+          f"tensor's memory format {census.relayouts or 'none'}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet: losses {losses} not finite")
+    if not census.convs or any(dt != "bfloat16" for _, dt, _ in
+                               census.convs):
+        raise AssertionError(f"resnet: a convolution took other than bf16 "
+                             f"inputs: {census.convs}")
+    n_fwd = sum(v for k, v in census.convs.items() if k[0] == "forward")
+    if n_fwd != 53:
+        raise AssertionError(f"resnet: {n_fwd} forward convolutions a "
+                             f"step, ResNet-50 has 53")
+    _profile_resnet_step(trainer, xs, ys)
+    # a second trainer from the same weights (the net's, untouched until
+    # sync_to_net) takes step 1 again
+    again = trainer_for()
+    again.step(xs, ys)
+    same = all(torch.equal(t, w1[n]) for n, t in again._params.items())
+    diff = max((t - w1[n]).abs().max().item()
+               for n, t in again._params.items())
+    print(f"resnet: step 1 repeated by a second trainer from the same "
+          f"weights: bitwise {same} (max |d| {diff:.3e})")
+    del again, w1, xs, ys
+    trainer.sync_to_net()
+    del trainer
+    _free()
+    return net
+
+
+def resnet_serving_phase(mx, net, workdir):
+    """Route C: the trained ResNet-50, exported (hybridized, one inference
+    forward) and served through ``ModelServer`` on the card, 8 requests of
+    one image each at buckets 1/2/4/8; every response against the gluon
+    net's inference forward (moving statistics) of the same images."""
+    from mxnet_tpu_torch.serving import ModelConfig, ModelServer
+    x, _ = resnet_batch(RN_SERVE_REQUESTS)
+    net.hybridize()
+    want = net(mx.nd.array(x))._data.float()
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    sym_file, param_file = net.export(os.path.join(workdir, "resnet50"))
+    with open(sym_file) as f:
+        sym_json = f.read()
+    with open(param_file, "rb") as f:
+        param_bytes = f.read()
+    server = ModelServer([ModelConfig(
+        "resnet50", sym_json, param_bytes,
+        feature_shape=(RESNET_IMAGE, RESNET_IMAGE, 3),
+        buckets=RN_SERVE_BUCKETS, deadline_ms=0)])
+    server.start()
+    setup = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        pending = [server.submit("resnet50", x[i])
+                   for i in range(RN_SERVE_REQUESTS)]
+        got = [p.result(timeout=300) for p in pending]
+        wall = time.perf_counter() - t0
+        stats = server.stats("resnet50")
+    finally:
+        server.close()
+    got = torch.from_numpy(np.stack(got)).to(want.device)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"resnet serving: route C, export + ModelServer set-up "
+          f"{setup:.2f} s; {RN_SERVE_REQUESTS} requests of one image in "
+          f"{wall * 1e3:.1f} ms; buckets {RN_SERVE_BUCKETS}; {stats}; logits "
+          f"max|d|/max|gluon| {err:.3e} (tol {TOL_RN_SERVE})")
+    if not err <= TOL_RN_SERVE:
+        raise AssertionError("resnet serving: the served logits differ from "
+                             "the gluon net's inference forward")
+
+
+def zoo_phase(mx):
+    """One net of each zoo family at its input size, batch 2: the float32
+    forward (TF32 off, inference: moving statistics, drawn at random)
+    against the same net's float64 forward on the card."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.RandomState(SEED)
+    for name, size in ZOO_SWEEP:
+        mx.random.seed(SEED)
+        net = vision.get_model(name)
+        net.initialize(mx.init.Xavier())
+        x = rng.uniform(-1, 1, (ZOO_BATCH, 3, size, size)).astype(np.float32)
+        net(mx.nd.array(x))                          # the deferred shapes
+        for n, p in net.collect_params().items():
+            if n.endswith(("running_mean", "beta")):
+                p.set_data(0.1 * rng.randn(*p.shape).astype(np.float32))
+            elif n.endswith(("running_var", "gamma")):
+                p.set_data(rng.uniform(0.5, 1.5, p.shape).astype(np.float32))
+        t0 = time.perf_counter()
+        got = net(mx.nd.array(x))._data.double()
+        torch.cuda.synchronize()
+        t32 = time.perf_counter() - t0
+        for p in net.collect_params().values():
+            p.cast("float64")
+        want = net(mx.nd.array(x, dtype="float64"))._data
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"zoo: {name} at {size}x{size}, batch {ZOO_BATCH}: output "
+              f"{tuple(want.shape)}, float32 forward {t32 * 1e3:.1f} ms, "
+              f"max|f32 - f64|/max|f64| {err:.3e} (tol {TOL_ZOO})")
+        if not (err <= TOL_ZOO and tuple(want.shape) == (ZOO_BATCH, 1000)):
+            raise AssertionError(f"zoo: {name}'s float32 forward differs "
+                                 f"from its float64 forward")
+        del net, got, want
+        _free()
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2570,6 +3144,23 @@ def main(argv=None) -> int:
         del module_w1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    _free()
+    # the conv nets: no TPU kernel is on their path (XLA lowered the JAX
+    # package's convolutions and pools; cuDNN runs the port's)
+    hk.reset_launch_counts()
+    net = resnet_phase(mx)
+    try:
+        resnet_serving_phase(mx, net, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del net
+    _free()
+    resnet_gate_phase(mx)
+    _free()
+    zoo_phase(mx)
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"the conv nets launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

@@ -43,6 +43,31 @@ def _fc_param_shapes(attrs, ds):
     return shapes
 
 
+def _conv_param_shapes(attrs, ds):
+    """(num_filter, C/g, *kernel), or (num_filter, *kernel, C/g) when the
+    layout puts the channels last."""
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1))
+    kernel = tuple(attrs["kernel"])
+    if str(attrs.get("layout") or "").endswith("C"):
+        shapes = {"weight": (nf,) + kernel + (ds[-1] // g,)}
+    else:
+        shapes = {"weight": (nf, ds[1] // g) + kernel}
+    if not attrs.get("no_bias", False):
+        shapes["bias"] = (nf,)
+    return shapes
+
+
+def _deconv_param_shapes(attrs, ds):
+    """(C, num_filter/g, *kernel); no bias unless ``no_bias`` is false."""
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1))
+    shapes = {"weight": (ds[1], nf // g) + tuple(attrs["kernel"])}
+    if not attrs.get("no_bias", True):
+        shapes["bias"] = (nf,)
+    return shapes
+
+
 def _ln_param_shapes(attrs, ds):
     ax = int(attrs.get("axis", -1)) % len(ds)
     return {"gamma": (ds[ax],), "beta": (ds[ax],)}
@@ -60,6 +85,8 @@ def _emb_param_shapes(attrs, ds):
 
 _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "FullyConnected": _fc_param_shapes,
+    "Convolution": _conv_param_shapes,
+    "Deconvolution": _deconv_param_shapes,
     "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
     "Embedding": _emb_param_shapes,

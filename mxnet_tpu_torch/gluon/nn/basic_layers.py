@@ -1,7 +1,8 @@
 """Basic Gluon layers.
 
 Counterpart of ``Sequential``, ``HybridSequential``, ``Dense``,
-``Dropout``, ``BatchNorm``, ``LayerNorm`` and ``Embedding`` in
+``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
+``Lambda`` and ``HybridLambda`` in
 ``mxnet_tpu/gluon/nn/basic_layers.py`` (reference
 ``python/mxnet/gluon/nn/basic_layers.py``); the rest of that module waits
 for a later slice.
@@ -15,7 +16,7 @@ from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding"]
+           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -193,3 +194,43 @@ class Embedding(HybridBlock):
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, rest)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+
+class Lambda(Block):
+    """A function as a block: a callable, or the name of an ``mx.nd``
+    function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            function = getattr(nd_mod, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function of ``(F, *inputs)`` as a hybrid block, or the name of an
+    op (``F.<name>``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = function if isinstance(function, str) else None
+        self._func = function
+
+    def hybrid_forward(self, F, *args):
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(*args)
+        return self._func(F, *args)

@@ -93,9 +93,18 @@ class Parameter:
         self._finish_init(chosen, ctx)
 
     def _finish_init(self, init, ctx) -> None:
-        t = torch.empty(self.shape, dtype=torch_dtype(self.dtype),
+        """Fill a new value by ``init``. A channel-last conv weight
+        (``_init_perm`` set by its layer) is drawn in the channel-first
+        axis order and permuted, so that the initializer's fan-in and
+        fan-out are its channel-first twin's."""
+        perm = getattr(self, "_init_perm", None)
+        canon = self.shape if perm is None else tuple(
+            self.shape[perm.index(i)] for i in range(len(perm)))
+        t = torch.empty(canon, dtype=torch_dtype(self.dtype),
                         device=ctx.torch_device())
         initializer.create(init)(self.name, t)
+        if perm is not None:
+            t = t.permute(*perm).contiguous()
         self._data = NDArray(t)
         self._attach()
         self._deferred_init = None

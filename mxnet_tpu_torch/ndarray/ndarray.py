@@ -183,7 +183,10 @@ class NDArray:
     def __rmul__(self, o): return self._binop("broadcast_mul", o, "_mul_scalar")
     def __truediv__(self, o): return self._binop("broadcast_div", o, "_div_scalar")
     def __rtruediv__(self, o): return self._binop("broadcast_div", o, "_rdiv_scalar", True)
+    def __pow__(self, o): return self._binop("broadcast_power", o, "_power_scalar")
+    def __rpow__(self, o): return self._binop("broadcast_power", o, "_rpower_scalar", True)
     def __neg__(self): return invoke("negative", [self], {})
+    def __abs__(self): return invoke("abs", [self], {})
 
     # ------------------------------------------------------------- op methods
     def reshape(self, *shape, **kwargs) -> "NDArray":

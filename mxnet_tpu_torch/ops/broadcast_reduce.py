@@ -1,6 +1,6 @@
 """Broadcast binary ops and reductions.
 
-Counterpart of ``broadcast_{add,sub,mul,div}``, ``sum`` and ``mean`` in
+Counterpart of ``broadcast_{add,sub,mul,div,power}``, ``sum`` and ``mean`` in
 ``mxnet_tpu/ops/broadcast_reduce.py`` (reference
 ``src/operator/tensor/elemwise_binary_broadcast_op_basic.cc``,
 ``broadcast_reduce_op_value.cc``); the rest of that module waits for the
@@ -22,6 +22,7 @@ _bcast("broadcast_add", torch.add)
 _bcast("broadcast_sub", torch.sub)
 _bcast("broadcast_mul", torch.mul)
 _bcast("broadcast_div", torch.div)
+_bcast("broadcast_power", torch.pow)
 
 
 def _norm_axis(axis, ndim, exclude=False):

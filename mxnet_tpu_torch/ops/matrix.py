@@ -1,8 +1,9 @@
-"""Shape-manipulation ops of the served graph.
+"""Shape-manipulation ops of the served graph and the vision zoo.
 
-Counterpart of the ``Reshape``/``reshape``, ``transpose``, ``expand_dims``,
-``slice_axis``, ``slice_like``, ``reshape_like`` and ``dot`` ops of
-``mxnet_tpu/ops/matrix.py``
+Counterpart of the ``Reshape``/``reshape``, ``Flatten``, ``transpose``,
+``expand_dims``, ``slice_axis``, ``slice_like``, ``reshape_like``,
+``Concat``, ``Pad``, ``depth_to_space``, ``space_to_depth`` and ``dot``
+ops of ``mxnet_tpu/ops/matrix.py``
 (reference ``src/operator/tensor/matrix_op.cc``). Views are returned where
 PyTorch can give one; consumers that need contiguous memory make it so.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from .registry import register
@@ -76,6 +78,11 @@ def _reshape(x, shape=None, reverse=False, target_shape=None,
                                    reverse=bool(reverse)))
 
 
+@register("Flatten", aliases=["flatten"])
+def _flatten(x):
+    return x.reshape(x.shape[0], -1)
+
+
 @register("transpose")
 def _transpose(x, axes=None):
     if axes is None or tuple(axes) == ():
@@ -119,3 +126,52 @@ def _dot(lhs, rhs, transpose_a=False, transpose_b=False, forward_stype=None):
     if transpose_b:
         rhs = rhs.permute(rhs.ndim - 1, *range(rhs.ndim - 1))
     return torch.tensordot(lhs, rhs, dims=([lhs.ndim - 1], [0]))
+
+
+@register("Concat", aliases=["concat"])
+def _concat(*xs, dim=1, num_args=None):
+    return torch.cat(xs, dim=int(dim))
+
+
+_PAD_MODES = {"edge": "replicate", "reflect": "reflect"}
+
+
+@register("Pad", aliases=["pad"])
+def _pad(x, mode="constant", pad_width=(), constant_value=0.0):
+    """``pad_width`` is (before, after) for every axis, flat. ``edge`` and
+    ``reflect`` pad at most the last three axes, of an input with one or
+    two more (the reference pads only the spatial axes of a 4-D or 5-D
+    input)."""
+    pairs = list(zip(pad_width[::2], pad_width[1::2]))
+    if len(pairs) != x.ndim:
+        raise MXNetError(f"Pad: pad_width {tuple(pad_width)} is not two "
+                         f"values for each of {x.ndim} axes")
+    padded = [i for i, p in enumerate(pairs) if any(p)]
+    widths = [int(v) for lo, hi in reversed(pairs[padded[0]:])
+              for v in (lo, hi)] if padded else []
+    if mode == "constant":
+        return F.pad(x, widths, value=float(constant_value))
+    if mode not in _PAD_MODES:
+        raise MXNetError(f"bad pad mode {mode}")
+    k = len(widths) // 2
+    if k and (k > 3 or x.ndim - k not in (1, 2)):
+        raise MXNetError(f"Pad: {mode} pads at most the last three axes of "
+                         f"an input with one or two more; got pad_width "
+                         f"{tuple(pad_width)} on {x.ndim} axes")
+    return F.pad(x, widths, mode=_PAD_MODES[mode]) if k else x
+
+
+@register("depth_to_space")
+def _depth_to_space(x, block_size=1):
+    b = int(block_size)
+    n, c, h, w = x.shape
+    y = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def _space_to_depth(x, block_size=1):
+    b = int(block_size)
+    n, c, h, w = x.shape
+    y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, c * b * b, h // b, w // b)

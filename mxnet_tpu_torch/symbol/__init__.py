@@ -44,8 +44,8 @@ def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
             elif pos < len(entries):
                 final.append(entries[pos])
                 pos += 1
-            elif op_name == "FullyConnected" and an == "bias" \
-                    and attrs.get("no_bias"):
+            elif an == "bias" and attrs.get(
+                    "no_bias", op_name == "Deconvolution"):
                 continue
             else:
                 final.append((_Node(None, f"{name}_{an}", {}, []), 0))

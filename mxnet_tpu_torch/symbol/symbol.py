@@ -71,6 +71,7 @@ class Symbol:
     def __rmul__(self, o): return self._binop("broadcast_mul", o, "_mul_scalar")
     def __truediv__(self, o): return self._binop("broadcast_div", o, "_div_scalar")
     def __rtruediv__(self, o): return self._binop("broadcast_div", o, "_rdiv_scalar", True)
+    def __pow__(self, o): return self._binop("broadcast_power", o, "_power_scalar")
 
     def __neg__(self):
         from . import _invoke_sym

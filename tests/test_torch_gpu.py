@@ -13,7 +13,10 @@ symbolic route (``mx.mod.Module``) and of the fused one
 with their launch counts, against the CPU run; the fused step in bf16
 under each remat mode (launches, bitwise across modes, no further from
 the CPU's f32 step than 1.5× the CPU's bf16 step), B2's label cases and
-the float16 refusal. Marked ``gpu``; it
+the float16 refusal. The conv nets: a ResNet-18 v1 in NHWC through the
+fused trainer in bf16 (every convolution on bf16 ``channels_last``
+inputs, no layout copy), the NHWC net against the NCHW net, and the
+"full" pooling convention against the CPU. Marked ``gpu``; it
 skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -519,3 +522,119 @@ def test_float16_on_the_card_names_its_roadmap_item(cuda):
     with pytest.raises(NotImplementedError, match="B5"):
         parallel.DataParallelTrainer(net, gluon.loss.L2Loss(), "sgd",
                                      compute_dtype="float16")
+
+
+# ------------------------------------------------- the conv nets (slice 7)
+def _resnet18(layout, prefix="r18_"):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(0)
+    net = vision.resnet18_v1(classes=10, layout=layout, prefix=prefix)
+    net.initialize(mx.init.Xavier())
+    return net
+
+
+def _images(n=8, size=64, layout="NHWC"):
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (n, size, size, 3)).astype(np.float32)
+    if layout == "NCHW":
+        x = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    return x, rng.randint(0, 10, n).astype(np.float32)
+
+
+def test_resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs):
+    """ResNet-18 v1 in NHWC through the fused trainer in bf16 on the card:
+    finite losses, weights moved, and every convolution of a step, forward
+    and backward, on bf16 ``channels_last`` inputs, with no copy that
+    changes a tensor's memory format (``chip_smoke.ConvCensus``)."""
+    from mxnet_tpu_torch import gluon, parallel
+    x, y = _images()
+    with mx.gpu(0):
+        net = _resnet18("NHWC")
+        trainer = parallel.DataParallelTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(cs.RESNET_OPT), compute_dtype="bfloat16")
+        xs, ys = mx.nd.array(x), mx.nd.array(y)
+        losses = [float(trainer.step(xs, ys).asscalar())]
+        w1 = {n: t.detach().clone() for n, t in trainer._params.items()}
+        census = cs.ConvCensus()
+        with census:
+            losses.append(float(trainer.step(xs, ys).asscalar()))
+    assert np.isfinite(losses).all(), losses
+    assert any(not torch.equal(t, w1[n]) for n, t in trainer._params.items())
+    # 20 convolutions: the stem, two a block, three downsamples
+    assert census.convs == {("forward", "bfloat16", "channels_last"): 20,
+                            ("backward", "bfloat16", "channels_last"): 20}
+    assert not census.relayouts, census.relayouts
+
+
+def test_nhwc_net_equals_nchw_net_on_card(cuda, cs):
+    """ResNet-18 v1 in NHWC with the NCHW net's weights transposed: one
+    float32 gluon step on the card, logits, loss and every gradient within
+    ``chip_smoke.py``'s route-B tolerances. cuDNN's TF32 is on by default
+    (unlike matmul's), and TF32 rounding alone moves the loss by 6e-5:
+    the test turns it off while it runs, as ``chip_smoke.py`` does."""
+    x, y = _images(8, size=224, layout="NCHW")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _nhwc_against_nchw(cs, x, y)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _nhwc_against_nchw(cs, x, y):
+    from mxnet_tpu_torch import interop
+    with mx.gpu(0):
+        nchw = _resnet18("NCHW")
+        nchw(mx.nd.array(x[:1]))
+        w = {n: p.data()._data.detach()
+             for n, p in nchw.collect_params().items()}
+        nhwc = _resnet18("NHWC")
+        interop.load_block_params(nhwc, {
+            n: (t.permute(0, 2, 3, 1) if t.dim() == 4 else t)
+            .contiguous().cpu().numpy() for n, t in w.items()})
+        lc, gc, oc = cs._gluon_grads(mx, nchw, x, y)
+        lh, gh, oh = cs._gluon_grads(
+            mx, nhwc, np.ascontiguousarray(x.transpose(0, 2, 3, 1)), y)
+    ref = {n: g.double() for n, g in gc.items()}
+    errs, null = cs._rn_grads_rel(
+        {n: cs._to_nchw(n, g) for n, g in gh.items()}, ref,
+        cs._null_grads(ref))
+    assert not null and len(errs) == len(gc)
+    assert abs(lh - lc) <= cs.TOL_RN_LOSS * abs(lc)
+    assert ((oh - oc).abs().max() / oc.abs().max()).item() \
+        <= cs.TOL_RN_LOGITS
+    for n, e in errs.items():
+        tol = cs.TOL_RN_GRAD_TOP if "_dense" in n else cs.TOL_RN_GRAD
+        assert e <= tol, (n, e)
+
+
+@pytest.mark.parametrize("pool_type,cip", [("max", True), ("avg", True),
+                                           ("avg", False), ("sum", True)])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_full_pooling_on_card_matches_cpu(cuda, pool_type, cip, layout):
+    """The "full" convention with a window wholly in padding (size 5,
+    kernel 2, stride 3, pad 1) on the card: the CPU's values, −inf and
+    0/0 included, and the same input gradient."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 5, 5, generator=gen)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    kw = dict(kernel=(2, 2), stride=(3, 3), pad=(1, 1), pool_type=pool_type,
+              pooling_convention="full", count_include_pad=cip,
+              layout=layout)
+    outs = []
+    for dev in ("cpu", cuda):
+        t = x.to(dev).clone().requires_grad_()
+        out = get_op("Pooling").fn(t, **kw)
+        out.masked_fill(~out.isfinite(), 0.0).sum().backward()
+        outs.append((out.detach().cpu(), t.grad.cpu()))
+    (cpu_out, cpu_grad), (out, grad) = outs
+    assert out.shape == cpu_out.shape
+    assert torch.equal(out.isfinite(), cpu_out.isfinite())
+    assert torch.equal(out[~out.isfinite()].nan_to_num(),
+                       cpu_out[~cpu_out.isfinite()].nan_to_num())
+    ok = cpu_out.isfinite()
+    assert torch.allclose(out[ok], cpu_out[ok], rtol=1e-6, atol=1e-6)
+    assert torch.allclose(grad, cpu_grad, rtol=1e-6, atol=1e-6)

@@ -48,7 +48,17 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/module/executor_group.py",
             "mxnet_tpu_torch/parallel/mesh.py",
             "mxnet_tpu_torch/parallel/data_parallel.py",
-            "mxnet_tpu_torch/parallel/fused_rules.py"} <= rel
+            "mxnet_tpu_torch/parallel/fused_rules.py",
+            "mxnet_tpu_torch/gluon/nn/conv_layers.py",
+            "mxnet_tpu_torch/gluon/model_zoo/__init__.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/__init__.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/vgg.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/alexnet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/squeezenet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/mobilenet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/densenet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/inception.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -65,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.io, mxnet_tpu_torch.metric, "
             "mxnet_tpu_torch.callback, mxnet_tpu_torch.model, "
             "mxnet_tpu_torch.module, mxnet_tpu_torch.parallel, "
-            "mxnet_tpu_torch.parallel.fused_rules; "
+            "mxnet_tpu_torch.parallel.fused_rules, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -217,3 +217,43 @@ def test_fully_connected_promotes_like_jnp_dot():
                                         torch.from_numpy(b), **attrs)
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# The NDArray sugar and the op that the JAX package has and the port
+# lacked: each case runs on both packages' NDArrays; 1e-6 relative.
+SUGAR = {
+    "pow_scalar": lambda a, b: a ** 2.5,
+    "pow_int_scalar": lambda a, b: a ** 3,
+    "rpow_scalar": lambda a, b: 1.7 ** a,
+    "pow_array": lambda a, b: a ** b,
+    "abs": lambda a, b: abs(a - 0.5),
+    "softmax": lambda a, b: a.softmax(axis=1),
+    "softmax_temperature": lambda a, b: a.softmax(axis=0, temperature=2.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUGAR))
+def test_power_abs_and_softmax_match_jax(name):
+    import mxnet_tpu as jmx
+    rng = np.random.RandomState(4)
+    a = rng.uniform(0.2, 2.0, (3, 5)).astype("float32")
+    b = rng.uniform(-1.5, 1.5, (1, 5)).astype("float32")
+    want = SUGAR[name](jmx.nd.array(a), jmx.nd.array(b)).asnumpy()
+    with mxt.cpu():
+        got = SUGAR[name](mxt.nd.array(a), mxt.nd.array(b)).asnumpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def test_softmax_with_lengths_matches_jax():
+    """The ``softmax`` op with ``length`` and ``use_length``: the first
+    ``length[i]`` entries of row ``i`` take part, the rest are 0."""
+    x = _r(3, 6)
+    lens = np.array([2, 6, 1], "int32")
+    want = np.asarray(jax_op("softmax").fn(
+        jnp.asarray(x), length=jnp.asarray(lens), use_length=True, axis=-1))
+    got = torch_op("softmax").fn(torch.from_numpy(x),
+                                 length=torch.from_numpy(lens),
+                                 use_length=True, axis=-1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert (got[0, 2:] == 0).all() and (got[2, 1:] == 0).all()
