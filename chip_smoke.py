@@ -110,11 +110,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. the zoo: one net of each family (AlexNet, VGG-11 BN, ResNet-18 v2,
    SqueezeNet 1.0, MobileNet 1.0 and v2, DenseNet-121, Inception v3 at
    299), its float32 forward against its float64 forward.
+16. route D, the word-level LSTM LM (``example/gluon/word_language_model/
+   train_torch.py``, the recipe twin) at the large PTB widths (vocabulary
+   10,000, 1500 x 1500, 2 layers, bptt 35, batch 32, SGD lr 1.0, the
+   recipe's clip): step 1 against float64 on the card (loss, clipped
+   gradients, update) with a TF32 control that must miss; the clip in the
+   ``.grad`` buffers themselves; the hidden state detached into step 2; a
+   repeat of step 1 (bitwise or not); ten timed steps at dropout 0.65 (step
+   ms, host dispatch ms, tokens/s, peak memory), the packing copies of one
+   step (``RnnCensus``, none allowed), a ``torch.profiler`` breakdown, and
+   cuDNN's ``nn.LSTM`` at the same shape as the library's yardstick.
+17. the other modes at route D's widths: ``gluon.rnn.GRU``, ``RNN`` (relu,
+   tanh) and a bidirectional ``LSTM``, forward and backward against
+   float64; ``LSTMCell.unroll`` against the fused layer.
+18. route E, the symbolic route: the bucketing twin's ``sym_gen`` at
+   ``lstm_bucketing.py``'s defaults (two ``LSTMCell``s of 200, embedding
+   200, batch 32, buckets 10..60) at vocabulary 10,000 through
+   ``BucketSentenceIter`` and ``BucketingModule`` (Adam): the first loss
+   against float64, one storage across the buckets, perplexity falling,
+   the RNN checkpoint round trip.
+Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
+own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step
-and one bf16 fused step (route A's step is profiled in every run). No
-phase from 12 on launches a Hopper kernel: the conv nets reach no TPU
+and one bf16 fused step (route A's and route D's steps are profiled in
+every run). Apart from the ``transformer_lm`` twin, no phase from 12 on
+launches a Hopper kernel: the conv nets reach no TPU
 kernel (the JAX package lowers their convolutions and pools through
 XLA; cuDNN runs the port's). The line before the last is a JSON object with
 one entry per kernel (the flash kernels' bf16 times at the main shape
@@ -3067,6 +3089,668 @@ def zoo_phase(mx):
         _free()
 
 
+# ------------------------------------------------- the recurrent family
+# Route D: the word-level LSTM language model of the reference's
+# example/gluon/word_language_model at the widths of the large PTB LSTM
+# (Zaremba et al. 2014, arXiv:1409.2329, the README's largest
+# configuration): vocabulary 10,000, 1500 embedding and hidden units, 2
+# layers, an untied decoder (the JAX recipe ignores tie_weights), bptt 35
+# and batch 32 (the recipe's defaults), SGD at lr 1.0 with the recipe's
+# clip of 0.2 · bptt · batch; about 66 M parameters, so nothing is cut. The
+# corpus is a seeded synthetic one at the vocabulary (the recipe's own
+# stand-in without --data).
+WLM = dict(vocab=10000, emsize=1500, nhid=1500, nlayers=2, bptt=35,
+           batch=32, lr=1.0, clip=0.2)
+WLM_DROPOUT = 0.65       # the reference's large setting, for the timing
+WLM_STEPS = 10           # timed, after a warm-up step
+# Step 1 of route D in float32 (TF32 off) against the same step in float64
+# on the card: the logits (relative to the largest), the clipped
+# gradients (||dg||/||g|| per tensor) and the weights after the update
+# (relative to each tensor's largest), each of which a TF32 control must
+# miss; and the loss, relative. Freshly initialised, the net's logits are
+# ~1e-2 and its loss is ln(10,000) to within them, so the TF32 step's loss
+# rounds to the float32 step's (the control cannot miss it: printed). The
+# weights start at 0 for the biases, so their error is the gradients'. On
+# an H100 (700 W): loss 8.8e-8; logits 1.9e-6 (TF32 4.7e-4); gradients
+# 1.1e-6 (TF32 4.9e-4); weights 1.3e-6 (TF32 3.0e-4).
+TOL_WLM_LOSS = 1e-6
+TOL_WLM_LOGITS = 5e-5
+TOL_WLM_GRAD = 5e-5
+TOL_WLM_WEIGHTS = 2e-5
+# Phase 17: each mode's float32 forward and backward against float64 at
+# route D's widths (outputs relative to their largest entry, gradients by
+# ||dg||/||g|| per tensor); the unrolled LSTMCell against the fused layer
+# (both float32, another order of the same sums). The relu RNN's
+# backward goes through 35 steps of ReLU masks: a pre-activation within
+# float32 rounding of zero flips its mask, so its gradients are held to
+# TOL_MODES_GRAD_RELU (2.39e-3 on an H100; the saturating modes 1e-6).
+TOL_MODES_OUT = 1e-5
+TOL_MODES_GRAD = 5e-5
+TOL_MODES_GRAD_RELU = 1e-2
+TOL_CELL_FUSED = 1e-5
+# Route E: the reference's lstm_bucketing.py defaults (two LSTMCells of
+# 200, embedding 200, batch 32, buckets 10..60) at vocabulary 10,000 on
+# synthetic Markov sentences; its first batch's loss against float64
+# (4.2e-11 on an H100: freshly initialised, each token's -log p is ln(V)
+# to within float32's rounding, averaged over about a thousand tokens).
+BUCKET_CFG = dict(vocab=10000, hidden=200, embed=200, layers=2, batch=32,
+                  buckets=[10, 20, 30, 40, 50, 60], lr=0.01)
+BUCKET_SENTENCES = 6400
+TOL_BUCKET_LOSS = 1e-7
+
+
+def _ctx(mx, dev):
+    return mx.gpu(dev.index) if dev.type == "cuda" else mx.cpu()
+
+
+def _load_example(rel, name):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class RnnCensus(TorchDispatchMode):
+    """Counts the concatenations that reach torch under it, and the
+    packing copies among them: a ``cat`` whose output holds at least
+    ``packed`` elements (the recurrent layer's whole parameter vector)."""
+
+    def __init__(self, packed):
+        super().__init__()
+        self.packed, self.cats, self.cat_elems, self.packs = packed, 0, 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.cat.default:
+            self.cats += 1
+            self.cat_elems += out.numel()
+            self.packs += out.numel() >= self.packed
+        return out
+
+
+class ClipRecorder:
+    """Stands in for ``gluon.utils.clip_global_norm`` while it is entered:
+    keeps each call's arrays, copies of them before the clip, the norm,
+    and the host's wait for the card before the norm is read."""
+
+    def __init__(self, utils):
+        self.utils, self.orig, self.calls, self.wait_s = \
+            utils, utils.clip_global_norm, [], 0.0
+
+    def __enter__(self):
+        self.utils.clip_global_norm = self
+        return self
+
+    def __exit__(self, *exc):
+        self.utils.clip_global_norm = self.orig
+
+    def __call__(self, arrays, max_norm, check_isfinite=True):
+        t0 = time.perf_counter()
+        if arrays and arrays[0]._data.is_cuda:
+            torch.cuda.synchronize()
+        self.wait_s += time.perf_counter() - t0
+        before = [a._data.clone() for a in arrays]
+        norm = self.orig(arrays, max_norm, check_isfinite)
+        self.calls.append((arrays, before, norm, max_norm))
+        return norm
+
+
+def _wlm_step(wlm, net, trainer, data, target, hidden, clipper=None):
+    """One step of the recipe (``train_step``): returns (mean loss, the
+    hidden state detached for the next step)."""
+    from mxnet_tpu_torch import gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    c = WLM
+    hidden = wlm.detach(hidden)
+    if clipper is None:
+        L, hidden = wlm.train_step(net, trainer, loss_fn, data, target,
+                                   hidden, c["clip"], c["bptt"], c["batch"])
+    else:
+        with clipper:
+            L, hidden = wlm.train_step(net, trainer, loss_fn, data, target,
+                                       hidden, c["clip"], c["bptt"],
+                                       c["batch"])
+    return L.mean(), hidden
+
+
+def _wlm_net(wlm, mx, ctx, weights, dropout=0.0, dtype="float32"):
+    c = WLM
+    net, trainer = wlm.build(c["vocab"], "lstm", c["emsize"], c["nhid"],
+                             c["nlayers"], c["lr"], dropout, ctx)
+    params = net._collect_params_with_prefix()
+    for k, p in params.items():
+        if dtype != "float32":
+            p.cast(dtype)
+        p.set_data(mx.nd.NDArray(weights[k].to(mx.nd.torch_dtype(dtype))))
+    return net, trainer
+
+
+def _grads_and_weights(net):
+    params = net._collect_params_with_prefix()
+    return ({k: p.grad._data.double() for k, p in params.items()},
+            {k: p.data()._data.double() for k, p in params.items()})
+
+
+def _wlm_logits(net, data, dtype="float32"):
+    """The decoder's logits of ``data`` from zero states (no gradient)."""
+    from mxnet_tpu_torch import autograd
+    hidden = net.begin_state(batch_size=WLM["batch"],
+                             ctx=data.context, dtype=dtype)
+    with autograd.pause():
+        return net(data, hidden)[0]._data.detach().double()
+
+
+def _wlm_errors(step, ref, w0):
+    """(loss relative error, logits relative to the largest, worst
+    ||dg||/||g|| of the clipped gradients, worst max|w1 - w1_ref| /
+    max|w1_ref| of the weights after the update, worst max|w1 - w1_ref| /
+    max|w1_ref - w0| of the update) of ``step`` against ``ref``, each
+    (loss, logits, grads, weights). The last is printed: a float32 weight
+    holds its update only to half an ulp of the weight."""
+    loss = abs(step[0] - ref[0]) / abs(ref[0])
+    logits = ((step[1] - ref[1]).abs().max() / ref[1].abs().max()).item()
+    grad = max(_norm_rel(step[2][k], g) for k, g in ref[2].items()
+               if g.norm() > 0)
+    weights = max(((step[3][k] - w).abs().max() / w.abs().max()).item()
+                  for k, w in ref[3].items())
+    upd = max(((step[3][k] - w).abs().max() /
+               (w - w0[k].double()).abs().max()).item()
+              for k, w in ref[3].items() if (w - w0[k].double()).abs().max()
+              > 0)
+    return loss, logits, grad, weights, upd
+
+
+def word_lm_phase(mx, dev):
+    """Route D (phase 16): the recipe twin's ``RNNModel`` at the large PTB
+    widths through gluon. Step 1 (dropout 0) against float64 on the card
+    (loss, clipped gradients, update) with a TF32 control that must miss;
+    the clip in the gradient buffers themselves; the hidden state detached
+    into step 2; a second model repeats step 1 (bitwise or not). Then ten
+    timed steps at dropout 0.65 (step, host dispatch, tokens/s, peak
+    memory), one under ``RnnCensus`` and one under ``torch.profiler``, and
+    cuDNN's ``nn.LSTM`` at the same shape beside the port's layer."""
+    from mxnet_tpu_torch import gluon
+    wlm = _load_example("example/gluon/word_language_model/train_torch.py",
+                        "train_torch")
+    c, ctx = WLM, _ctx(mx, dev)
+    rng = np.random.RandomState(SEED)
+    corpus = rng.randint(0, c["vocab"], c["batch"] * (
+        c["bptt"] * (WLM_STEPS + 4) + 1)).astype("float32")
+    train_data = wlm.batchify(corpus, c["batch"], ctx=ctx)
+    batches = [wlm.get_batch(train_data, i, c["bptt"])
+               for i in range(0, c["bptt"] * (WLM_STEPS + 3), c["bptt"])]
+    mx.random.seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    net, trainer = wlm.build(c["vocab"], "lstm", c["emsize"], c["nhid"],
+                             c["nlayers"], c["lr"], 0.0, ctx)
+    params = net._collect_params_with_prefix()
+    n_params = sum(p.data().size for p in params.values())
+    w0 = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    packed = sum(p.data().size for k, p in params.items()
+                 if k.startswith("rnn."))
+    hidden = net.begin_state(batch_size=c["batch"], ctx=ctx)
+    data, target = batches[0]
+    logits1 = _wlm_logits(net, data)
+    census = RnnCensus(packed)
+    clipper = ClipRecorder(gluon.utils)
+    with census:
+        loss1, hidden = _wlm_step(wlm, net, trainer, data, target,
+                                  hidden, clipper)
+    step1 = (loss1.asscalar().item(), logits1) + _grads_and_weights(net)
+    arrays, before, norm, max_norm = clipper.calls[0]
+    scale = max_norm / (norm + 1e-8)
+    grads = [p.grad for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    in_buffers = all(a is g for a, g in zip(arrays, grads))
+    scaled = all(torch.equal(a._data, b * scale) for a, b in
+                 zip(arrays, before)) if scale < 1.0 else all(
+        torch.equal(a._data, b) for a, b in zip(arrays, before))
+    print(f"wordlm: route D, RNNModel('lstm') vocab {c['vocab']}, "
+          f"{c['emsize']}x{c['nhid']} x {c['nlayers']} layers, bptt "
+          f"{c['bptt']} x batch {c['batch']} ({c['bptt'] * c['batch']} "
+          f"tokens a step), {n_params / 1e6:.2f} M parameters; step 1 "
+          f"loss {step1[0]:.6f}; global norm {norm:.3f} against the clip "
+          f"{max_norm:.1f} (scale {min(scale, 1.0):.6f}); the .grad "
+          f"buffers are the clipped arrays: {in_buffers}, scaled in place "
+          f"by exactly the factor: {scaled}; card {_card_line()}")
+    if not (in_buffers and scaled):
+        raise AssertionError("wordlm: clip_global_norm did not scale the "
+                             "gradient buffers in place")
+    # the same buffers clipped to half their norm: every one scaled in
+    # place by the factor (the recipe's clip may not bind at step 1)
+    before = [g._data.clone() for g in grads]
+    half = gluon.utils.clip_global_norm(grads, norm / 2)
+    factor = (norm / 2) / (half + 1e-8)
+    halved = all(torch.equal(g._data, b * factor)
+                 for g, b in zip(grads, before)) and factor < 1.0
+    print(f"wordlm: the step's gradient buffers clipped to half their "
+          f"norm ({half:.3f} -> {norm / 2:.3f}): each is the factor "
+          f"{factor:.6f} times itself, in place: {halved}")
+    if not halved:
+        raise AssertionError("wordlm: clip_global_norm at half the norm "
+                             "did not scale the buffers in place")
+    del before
+    # the hidden state carried into step 2 leaves step 1's graph
+    carried = wlm.detach(hidden)
+    detached = all(not h._data.requires_grad and h._data.grad_fn is None
+                   for h in carried)
+    loss2, _ = _wlm_step(wlm, net, trainer, batches[1][0],
+                         batches[1][1], hidden)
+    loss2 = loss2.asscalar().item()
+    print(f"wordlm: step 2 on the detached state (detached: {detached}): "
+          f"loss {loss2:.6f}")
+    if not detached or not math.isfinite(loss2):
+        raise AssertionError("wordlm: the carried state is not detached")
+    # the same step in float64 (the reference) and with TF32 (the control)
+    del net, trainer
+    _free()
+    ref_net, ref_trainer = _wlm_net(wlm, mx, ctx, w0, dtype="float64")
+    ref_hidden = ref_net.begin_state(batch_size=c["batch"], ctx=ctx,
+                                     dtype="float64")
+    ref_logits = _wlm_logits(ref_net, data, "float64")
+    ref_loss, _ = _wlm_step(wlm, ref_net, ref_trainer, data, target,
+                            ref_hidden)
+    ref = (ref_loss.asscalar().item(), ref_logits) + \
+        _grads_and_weights(ref_net)
+    del ref_net, ref_trainer
+    _free()
+    errs = _wlm_errors(step1, ref, w0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tnet, ttrainer = _wlm_net(wlm, mx, ctx, w0)
+        tlogits = _wlm_logits(tnet, data)
+        tloss, _ = _wlm_step(wlm, tnet, ttrainer, data, target,
+                             tnet.begin_state(batch_size=c["batch"],
+                                              ctx=ctx))
+        tf32 = (tloss.asscalar().item(), tlogits) + \
+            _grads_and_weights(tnet)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    del tnet, ttrainer
+    _free()
+    ctrl = _wlm_errors(tf32, ref, w0)
+    print(f"wordlm: step 1 against float64 on the card: loss "
+          f"{errs[0]:.3e} (tol {TOL_WLM_LOSS}), logits {errs[1]:.3e} (tol "
+          f"{TOL_WLM_LOGITS}, |logit| up to {ref[1].abs().max().item():.3e})"
+          f", clipped gradients' worst tensor {errs[2]:.3e} (tol "
+          f"{TOL_WLM_GRAD}), weights after the update, worst tensor "
+          f"{errs[3]:.3e} (tol {TOL_WLM_WEIGHTS}; of the update itself "
+          f"{errs[4]:.3e}); TF32 control: loss {ctrl[0]:.3e} (it rounds to "
+          f"the float32 loss: not gated), logits {ctrl[1]:.3e}, gradients "
+          f"{ctrl[2]:.3e}, weights {ctrl[3]:.3e} ({ctrl[4]:.3e}), each of "
+          f"the three must miss")
+    if not errs[0] <= TOL_WLM_LOSS:
+        raise AssertionError(f"wordlm: step 1 loss {errs[0]:.3e}")
+    for what, err, tol, control in zip(
+            ("logits", "gradient", "weights"), errs[1:4],
+            (TOL_WLM_LOGITS, TOL_WLM_GRAD, TOL_WLM_WEIGHTS), ctrl[1:4]):
+        if not err <= tol:
+            raise AssertionError(f"wordlm: step 1 {what} {err:.3e} above "
+                                 f"{tol}")
+        if control <= tol:
+            raise AssertionError(f"wordlm: the TF32 control's {what} "
+                                 f"{control:.3e} meets {tol}")
+    # a second model from the same weights repeats step 1
+    again, again_trainer = _wlm_net(wlm, mx, ctx, w0)
+    aloss, _ = _wlm_step(wlm, again, again_trainer, data, target,
+                         again.begin_state(batch_size=c["batch"], ctx=ctx))
+    rep = (aloss.asscalar().item(), None) + _grads_and_weights(again)
+    same = rep[0] == step1[0] and all(
+        torch.equal(rep[3][k], w) for k, w in step1[3].items())
+    print(f"wordlm: step 1 repeated by a second model from the same "
+          f"weights: bitwise {same} (loss {rep[0]:.9f} vs {step1[0]:.9f})")
+    del again, again_trainer, rep, step1, ref, tf32
+    _free()
+    # timing at the reference's large dropout
+    net, trainer = _wlm_net(wlm, mx, ctx, w0, dropout=WLM_DROPOUT)
+    hidden = net.begin_state(batch_size=c["batch"], ctx=ctx)
+    losses = []
+    loss, hidden = _wlm_step(wlm, net, trainer, *batches[0], hidden)
+    losses.append(loss.asscalar().item())
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, dispatch_ms = [], []
+    for i in range(WLM_STEPS):
+        clip = ClipRecorder(gluon.utils)
+        out = []
+
+        def run():
+            out[:] = _wlm_step(wlm, net, trainer, *batches[1 + i],
+                               hidden, clip)
+            out.append(time.perf_counter())
+            out.append(out[0].asscalar().item())   # the recipe's read
+
+        t0 = time.perf_counter()
+        _, _, t_step = _timed_step(run)
+        hidden = out[1]
+        losses.append(out[3])
+        step_ms.append(t_step * 1e3)
+        dispatch_ms.append((out[2] - t0 - clip.wait_s) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = c["bptt"] * c["batch"]
+    mean_ms = float(np.mean(step_ms))
+    print(f"wordlm: {WLM_STEPS} timed steps at dropout {WLM_DROPOUT}: "
+          f"{[round(t, 3) for t in step_ms]} ms (mean {mean_ms:.3f}), host "
+          f"dispatch {[round(t, 3) for t in dispatch_ms]} ms (mean "
+          f"{np.mean(dispatch_ms):.3f}), {tokens * 1e3 / mean_ms:.1f} "
+          f"tokens/s (the recipe's wps), peak memory {peak:.2f} GB; losses "
+          f"{[round(v, 4) for v in losses]}; card {_card_line()}")
+    print(f"wordlm: one step's concatenations {census.cats} "
+          f"({census.cat_elems / 1e6:.2f} M elements); packing copies (a "
+          f"cat of >= {packed / 1e6:.2f} M elements, the LSTM's packed "
+          f"vector): {census.packs}")
+    if census.packs:
+        raise AssertionError(f"wordlm: {census.packs} packing copies")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"wordlm: losses {losses} not finite")
+    state = {"hidden": hidden, "i": 0}
+
+    def one_step():
+        state["hidden"] = _wlm_step(wlm, net, trainer, *batches[1],
+                                    state["hidden"])[1]
+
+    profile_breakdown("route D step (word LM, dropout 0.65)", one_step)
+    cudnn_yardstick(mx, net, batches[0][0])
+    del net, trainer, w0, batches, train_data
+    _free()
+
+
+def cudnn_yardstick(mx, net, data):
+    """The library's yardstick, not on the path: ``torch.nn.LSTM`` (cuDNN)
+    with route D's LSTM weights copied in, forward and backward at
+    (35, 32, 1500) with dropout 0.65 between its layers, beside the port's
+    ``rnn_forward`` on the same input and weights; their outputs at
+    dropout 0 are compared (printed)."""
+    from mxnet_tpu_torch.ops.rnn import rnn_forward
+    c = WLM
+    rnn = net.rnn
+    p = {k: v.data()._data.detach() for k, v in rnn._reg_params.items()}
+    with torch.no_grad():
+        emb = net.encoder(data)._data.detach()
+    lstm = torch.nn.LSTM(c["emsize"], c["nhid"], c["nlayers"],
+                         dropout=WLM_DROPOUT).to(emb.device)
+    with torch.no_grad():
+        for layer in range(c["nlayers"]):
+            for mine, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(lstm, f"{theirs}_l{layer}").copy_(
+                    p[f"l{layer}_{mine}"])
+    weights = [tuple(p[f"l{layer}_{k}"].requires_grad_() for k in
+                     ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"))
+               for layer in range(c["nlayers"])]
+    zeros = torch.zeros(c["nlayers"], c["batch"], c["nhid"],
+                        device=emb.device)
+    x = emb.clone().requires_grad_()
+    ct = torch.randn(x.shape[0], c["batch"], c["nhid"], device=x.device,
+                     generator=torch.Generator(x.device).manual_seed(SEED))
+    gen = torch.Generator(x.device).manual_seed(SEED)
+
+    def port(p_drop=WLM_DROPOUT, backward=True):
+        out = rnn_forward(x, weights, zeros, zeros, mode="lstm", p=p_drop,
+                          rng=gen, is_train=True)
+        if backward:
+            out.backward(ct)
+        return out
+
+    def library(p_drop=WLM_DROPOUT, backward=True):
+        lstm.dropout = p_drop
+        out, _ = lstm(x, (zeros, zeros))
+        if backward:
+            out.backward(ct)
+        return out
+
+    lstm.train()
+    port_ms = _time_ms(port, 10, warmup=2)
+    library_ms = _time_ms(library, 10, warmup=2)
+    with torch.no_grad():
+        a, b = port(0.0, False), library(0.0, False)
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"wordlm: the LSTM alone, forward and backward at ({x.shape[0]}, "
+          f"{c['batch']}, {c['emsize']}), dropout {WLM_DROPOUT}: the port's "
+          f"rnn_forward {port_ms:.3f} ms, cuDNN's nn.LSTM {library_ms:.3f} "
+          f"ms (not on the path); outputs at dropout 0 differ by {err:.2e} "
+          f"of the largest; card {_card_line()}")
+    for t in [x] + [w for ws in weights for w in ws]:
+        t.requires_grad_(False)
+
+
+def _layer_grads(mx, layer, x, states, ct):
+    from mxnet_tpu_torch import autograd
+    xs = mx.nd.NDArray(x.clone())
+    xs.attach_grad()
+    with autograd.record():
+        out, new = layer(xs, [mx.nd.NDArray(s) for s in states])
+        loss = (out * mx.nd.NDArray(ct)).sum()
+    loss.backward()
+    grads = {k: p.grad._data.double()
+             for k, p in layer._collect_params_with_prefix().items()}
+    grads["data"] = xs.grad._data.double()
+    return out._data.double(), grads
+
+
+def other_modes_phase(mx, dev):
+    """Phase 17: one forward and backward of ``gluon.rnn.GRU``, ``RNN``
+    (relu, tanh) and a bidirectional ``LSTM`` at route D's widths, each in
+    float32 against float64 on the card; then ``LSTMCell.unroll`` against
+    the fused ``LSTM`` on the same weights."""
+    from mxnet_tpu_torch import gluon
+    c, ctx = WLM, _ctx(mx, dev)
+    T, B, H = c["bptt"], c["batch"], c["nhid"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    x = torch.randn(T, B, c["emsize"], device=dev, generator=gen)
+    for name, make, n_states, d in (
+            ("GRU", lambda: gluon.rnn.GRU(H, c["nlayers"]), 1, 1),
+            ("RNN relu", lambda: gluon.rnn.RNN(H, c["nlayers"]), 1, 1),
+            ("RNN tanh", lambda: gluon.rnn.RNN(H, c["nlayers"],
+                                               activation="tanh"), 1, 1),
+            ("LSTM bidirectional",
+             lambda: gluon.rnn.LSTM(H, c["nlayers"], bidirectional=True),
+             2, 2)):
+        mx.random.seed(SEED)
+        states = [torch.randn(c["nlayers"] * d, B, H, device=dev,
+                              generator=gen) * 0.5 for _ in range(n_states)]
+        ct = torch.randn(T, B, d * H, device=dev, generator=gen)
+        runs = []
+        for dtype in ("float32", "float64"):
+            layer = make()
+            layer.initialize(mx.init.Xavier(), ctx=ctx)
+            layer(mx.nd.NDArray(x[:1]))      # the deferred input size
+            params = layer._collect_params_with_prefix()
+            if runs:
+                for k, p in params.items():
+                    p.cast(dtype)
+                    p.set_data(mx.nd.NDArray(runs[0][2][k].double()))
+            w = {k: p.data()._data.detach().clone()
+                 for k, p in params.items()}
+            t = torch.float32 if dtype == "float32" else torch.float64
+            out, grads = _layer_grads(mx, layer, x.to(t),
+                                      [s.to(t) for s in states], ct.to(t))
+            runs.append((out, grads, w))
+            del layer
+        (out, grads, _), (ref, ref_grads, _) = runs
+        out_err = ((out - ref).abs().max() / ref.abs().max()).item()
+        grad_err = max(_norm_rel(grads[k], g) for k, g in ref_grads.items())
+        tol_grad = TOL_MODES_GRAD_RELU if name == "RNN relu" \
+            else TOL_MODES_GRAD
+        print(f"modes: {name} ({c['nlayers']} layers of {H}, ({T}, {B}, "
+              f"{c['emsize']})) against float64: output {out_err:.3e} (tol "
+              f"{TOL_MODES_OUT}), gradients' worst tensor {grad_err:.3e} "
+              f"(tol {tol_grad}); |output| up to "
+              f"{ref.abs().max().item():.3e}")
+        if not (out_err <= TOL_MODES_OUT and grad_err <= tol_grad):
+            raise AssertionError(f"modes: {name} misses its float64 gate")
+        del runs, out, grads, ref, ref_grads
+        _free()
+    mx.random.seed(SEED)
+    fused = gluon.rnn.LSTM(H, 1, input_size=c["emsize"])
+    fused.initialize(mx.init.Xavier(), ctx=ctx)
+    cell = gluon.rnn.LSTMCell(H, input_size=c["emsize"])
+    cell.initialize(ctx=ctx)
+    for k in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        getattr(cell, k).set_data(getattr(fused, f"l0_{k}").data())
+    with torch.no_grad():
+        want = fused(mx.nd.NDArray(x))._data
+        got, _ = cell.unroll(T, mx.nd.NDArray(x), layout="TNC",
+                             merge_outputs=True)
+    err = ((got._data - want).abs().max() / want.abs().max()).item()
+    print(f"modes: LSTMCell.unroll against the fused LSTM on the same "
+          f"weights: {err:.3e} of the largest output (tol {TOL_CELL_FUSED})"
+          f"; card {_card_line()}")
+    if not err <= TOL_CELL_FUSED:
+        raise AssertionError("modes: the unrolled cell is not the layer")
+
+
+def bucket_sentences(n, vocab, rng):
+    """Markov sentences over ids 1..vocab-1 (0 pads): the next word is
+    ``(7·w + 3) % (vocab - 1) + 1`` with probability 0.85, else uniform;
+    lengths uniform over 5..60."""
+    sents = []
+    for _ in range(n):
+        w = int(rng.randint(1, vocab))
+        sent = [w]
+        for _ in range(int(rng.randint(5, 61)) - 1):
+            w = (7 * w + 3) % (vocab - 1) + 1 if rng.rand() < 0.85 \
+                else int(rng.randint(1, vocab))
+            sent.append(w)
+        sents.append(sent)
+    return sents
+
+
+def _bucket_loss(probs, label) -> float:
+    """Mean -log p of the label over the unpadded positions (the
+    Perplexity metric's log)."""
+    p = probs.reshape(-1, probs.shape[-1])
+    lab = label.reshape(-1).long()
+    keep = lab != 0
+    picked = p[torch.arange(p.shape[0], device=p.device), lab]
+    return float(-torch.log(picked[keep]).mean())
+
+
+def bucketing_route_phase(mx, dev, workdir):
+    """Route E (phase 18): the bucketing twin's ``sym_gen`` at
+    ``lstm_bucketing.py``'s defaults through ``BucketSentenceIter`` and
+    ``BucketingModule`` (Adam) on the card: the first batch's loss against
+    the same graph bound in float64; one storage for every parameter
+    across the buckets; perplexity falls over the pass;
+    ``save_rnn_checkpoint``/``load_rnn_checkpoint`` round-trip bitwise."""
+    import random
+    from mxnet_tpu_torch import rnn
+    bk = _load_example("example/rnn/bucketing/lstm_bucketing_torch.py",
+                       "lstm_bucketing_torch")
+    c, ctx = BUCKET_CFG, _ctx(mx, dev)
+    rng = np.random.RandomState(SEED)
+    random.seed(SEED)
+    np.random.seed(SEED)
+    sents = bucket_sentences(BUCKET_SENTENCES, c["vocab"], rng)
+    it = rnn.BucketSentenceIter(sents, c["batch"], buckets=list(c["buckets"]),
+                                invalid_label=0)
+    sym_gen = bk.sym_gen_factory(c["hidden"], c["embed"], c["layers"],
+                                 vocab=c["vocab"])
+    mx.random.seed(SEED)
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(kvstore=None, optimizer="adam",
+                       optimizer_params={"learning_rate": c["lr"]})
+    arg0, _ = mod.get_params()
+    metric = mx.metric.Perplexity(ignore_label=0)
+    ppl, first, step_ms, n_batches = [], None, [], 0
+    t_pass = time.perf_counter()
+    for batch in it:
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        if first is None:
+            probs = mod.get_outputs()[0]._data.detach().clone()
+            first = (batch, probs)
+        one = mx.metric.Perplexity(ignore_label=0)
+        mod.update_metric(one, batch.label)
+        mod.update_metric(metric, batch.label)
+        mod.backward()
+        mod.update()
+        ppl.append(one.get()[1])    # reads the card
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n_batches += 1
+    t_pass = time.perf_counter() - t_pass
+    # the first batch in float64: the same graph bound at its bucket
+    batch, probs = first
+    sym, _, _ = sym_gen(batch.bucket_key)
+    args = {n: mx.nd.NDArray(arg0[n]._data.to(ctx.torch_device()).double())
+            for n in arg0 if n in sym.list_arguments()}
+    args["data"] = mx.nd.NDArray(batch.data[0]._data.to(
+        ctx.torch_device()).double())
+    args["softmax_label"] = mx.nd.NDArray(batch.label[0]._data.to(
+        ctx.torch_device()).double())
+    ref = sym.bind(ctx, args).forward()[0]._data
+    label = batch.label[0]._data.to(ref.device)
+    loss, ref_loss = _bucket_loss(probs.double(), label), \
+        _bucket_loss(ref, label)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    # every bucket's executor on the default bucket's storages
+    base = mod._buckets[it.default_bucket_key]._exec_group.execs[0]
+    names = [n for n in base.arg_dict if n not in ("data", "softmax_label")]
+    one_storage = all(
+        b._exec_group.execs[0].arg_dict[n]._data.data_ptr() ==
+        base.arg_dict[n]._data.data_ptr()
+        for b in mod._buckets.values() for n in names)
+    early, late = float(np.mean(ppl[:20])), float(np.mean(ppl[-20:]))
+    # the checkpoint, unpacked per gate and packed back
+    cells = rnn.SequentialRNNCell()
+    for i in range(c["layers"]):
+        cells.add(rnn.LSTMCell(num_hidden=c["hidden"], prefix=f"lstm_l{i}_"))
+    arg, aux = mod.get_params()
+    prefix = os.path.join(workdir, "bucketing")
+    os.makedirs(workdir, exist_ok=True)
+    rnn.save_rnn_checkpoint(cells, prefix, 1, sym, arg, aux)
+    _, arg_back, _ = rnn.load_rnn_checkpoint(cells, prefix, 1)
+    round_trip = sorted(arg_back) == sorted(arg) and all(
+        np.array_equal(arg_back[n].asnumpy(), arg[n].asnumpy())
+        for n in arg)
+    print(f"bucketing route: lstm_bucketing defaults ({c['layers']} "
+          f"LSTMCells of {c['hidden']}, embedding {c['embed']}, batch "
+          f"{c['batch']}, buckets {c['buckets']}, vocab {c['vocab']}, Adam "
+          f"lr {c['lr']}): {n_batches} batches over {len(mod._buckets)} "
+          f"buckets in {t_pass:.1f} s (median batch "
+          f"{np.median(step_ms):.1f} ms); first batch (bucket "
+          f"{first[0].bucket_key}) loss {loss:.6f} against float64 "
+          f"{ref_loss:.6f}: {loss_err:.3e} (tol {TOL_BUCKET_LOSS}); "
+          f"perplexity of the first 20 batches {early:.1f}, of the last 20 "
+          f"{late:.1f} (epoch {metric.get()[1]:.1f}); {len(names)} "
+          f"parameters on one storage in every bucket: {one_storage}; "
+          f"checkpoint round trip bitwise: {round_trip}; card "
+          f"{_card_line()}")
+    if not loss_err <= TOL_BUCKET_LOSS:
+        raise AssertionError("bucketing route: first loss misses float64")
+    if not (one_storage and round_trip and late < early):
+        raise AssertionError("bucketing route: storage, checkpoint or "
+                             "learning failed")
+
+
+def transformer_recipe_phase(mx, dev):
+    """The ``transformer_lm`` recipe twin at its own size, three epochs:
+    the losses fall and the next-token accuracy passes the JAX recipe's
+    own test threshold (``tests/test_transformer.py``: ``acc > 0.5``)."""
+    tl = _load_example("example/gluon/transformer_lm_torch.py",
+                       "transformer_lm_torch")
+    losses = []
+    t0 = time.perf_counter()
+    first, last, acc = tl.train(epochs=3, verbose=False,
+                                ctx=_ctx(mx, dev), losses=losses)
+    print(f"transformer_lm: the recipe twin, 3 epochs of 30 steps in "
+          f"{time.perf_counter() - t0:.1f} s: epoch mean losses {first:.4f}"
+          f" -> {last:.4f}; step losses {[round(v, 4) for v in losses[:3]]}"
+          f" ... {[round(v, 4) for v in losses[-3:]]}; next-token accuracy "
+          f"{acc:.3f} (must exceed 0.5)")
+    if not (acc > 0.5 and last < first):
+        raise AssertionError(f"transformer_lm: accuracy {acc}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3161,11 +3845,31 @@ def main(argv=None) -> int:
     if any(hk.launch_counts.values()):
         raise AssertionError(f"the conv nets launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
+    _free()
+    # the transformer_lm recipe twin: B1 and B3 on its path
+    hk.reset_launch_counts()
+    transformer_recipe_phase(mx, dev)
+    recipe = dict(hk.launch_counts)
+    _free()
+    # the recurrent family: no TPU kernel on its path (XLA lowered the JAX
+    # package's recurrence; cuBLAS runs the port's)
+    hk.reset_launch_counts()
+    word_lm_phase(mx, dev)
+    _free()
+    other_modes_phase(mx, dev)
+    _free()
+    try:
+        bucketing_route_phase(mx, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"the recurrent family launched a Hopper "
+                             f"kernel: {dict(hk.launch_counts)}")
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in
                               (served, trained, extended, moduled, fused,
-                               mixed, bucketed, sequenced))
+                               mixed, bucketed, sequenced, recipe))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
     print(f"chip_smoke: every phase passed in "

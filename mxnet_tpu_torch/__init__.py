@@ -6,7 +6,8 @@ executor, the predictor, the serving stack, and ``mx.autograd``,
 ``mx.gluon``, ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler`` for
 training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
 ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model`` and
-``mx.parallel`` for symbolic and fused training) over plain
+``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
+symbolic recurrent cells) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
 TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
@@ -48,9 +49,10 @@ from . import model
 from . import module
 from . import module as mod
 from . import parallel
+from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model",
-           "module", "mod", "parallel"]
+           "module", "mod", "parallel", "rnn"]

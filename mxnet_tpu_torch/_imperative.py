@@ -21,24 +21,31 @@ __all__ = ["invoke", "invoke_raw"]
 
 
 def _op_signature_flags(opdef: OpDef):
-    """(accepts ``is_train``, accepts ``rng``) of an op's function."""
+    """(accepts ``is_train``, accepts ``rng``, accepts ``device``) of an
+    op's function; ``device`` is where an op without array inputs
+    creates its output."""
     if not hasattr(opdef, "_sig_flags"):
         params = inspect.signature(opdef.fn).parameters
-        opdef._sig_flags = ("is_train" in params, "rng" in params)
+        opdef._sig_flags = ("is_train" in params, "rng" in params,
+                            "device" in params)
     return opdef._sig_flags
 
 
 def invoke_raw(op_name: str, inputs: Sequence[Any], attrs: Dict[str, Any],
                is_train: bool = False):
     """Run an op on raw tensors, returning raw tensor(s). A random op draws
-    from the generator of its first input's device."""
+    from the generator of its first input's device; an op without inputs
+    creates its output on the current context."""
+    from .context import current_context
     opdef = get_op(op_name)
-    accepts_train, accepts_rng = _op_signature_flags(opdef)
+    accepts_train, accepts_rng, accepts_device = _op_signature_flags(opdef)
     attrs = dict(attrs)
     if accepts_train and "is_train" not in attrs:
         attrs["is_train"] = is_train
     if accepts_rng and attrs.get("rng") is None and inputs:
         attrs["rng"] = _random.generator(inputs[0].device)
+    if accepts_device and not inputs and attrs.get("device") is None:
+        attrs["device"] = current_context().torch_device()
     return opdef.fn(*inputs, **attrs)
 
 

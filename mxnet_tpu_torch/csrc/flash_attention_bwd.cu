@@ -378,6 +378,7 @@ template <typename T>
 cudaError_t dispatch(bool dkdv, const Params& p, int head_dim,
                      cudaStream_t s) {
   switch (head_dim) {
+    case 16: return launch_d<T, 16>(dkdv, p, s);
     case 32: return launch_d<T, 32>(dkdv, p, s);
     case 64: return launch_d<T, 64>(dkdv, p, s);
     case 128: return launch_d<T, 128>(dkdv, p, s);

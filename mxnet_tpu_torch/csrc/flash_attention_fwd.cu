@@ -229,6 +229,7 @@ cudaError_t launch_d(Params p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(const Params& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
+    case 16: return launch_d<T, 16>(p, stream);
     case 32: return launch_d<T, 32>(p, stream);
     case 64: return launch_d<T, 64>(p, stream);
     case 128: return launch_d<T, 128>(p, stream);

@@ -286,7 +286,7 @@ __device__ __forceinline__ void gemm_rn(float (&c)[NT][4],
                                         const float (&p)[KT][4],
                                         const float* sB, int g, int t) {
   constexpr int KC = KT < 4 ? KT : 4;   // k-steps split at a time
-  constexpr int JG = 4;                 // n-tiles summed at a time
+  constexpr int JG = NT < 4 ? NT : 4;   // n-tiles summed at a time
   static_assert(KT % KC == 0 && NT % JG == 0, "tile shapes");
 #pragma unroll
   for (int kc = 0; kc < KT; kc += KC) {

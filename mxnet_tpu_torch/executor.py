@@ -83,6 +83,18 @@ def _emb_param_shapes(attrs, ds):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
 
+def _rnn_param_shapes(attrs, ds):
+    """The packed vector for data (T, B, I); states (layers·dirs, B, H)."""
+    from .ops.rnn import rnn_packed_param_size
+    H = int(attrs["state_size"])
+    L = int(attrs.get("num_layers", 1))
+    bi = str(attrs.get("bidirectional", False)) in ("True", "true", "1")
+    n = rnn_packed_param_size(attrs.get("mode", "lstm"), L, bi, int(ds[2]),
+                              H)
+    state = (L * (2 if bi else 1), int(ds[1]), H)
+    return {"parameters": (n,), "state": state, "state_cell": state}
+
+
 _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
@@ -90,6 +102,7 @@ _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
     "Embedding": _emb_param_shapes,
+    "RNN": _rnn_param_shapes,
 }
 
 
@@ -116,6 +129,7 @@ class _GraphLowering:
     def __init__(self, symbol):
         self.symbol = symbol
         self.nodes = symbol.topo_nodes()
+        self._device = None
         pinned = {id(node) for (node, _) in symbol._outputs}
         # last consumer of every node's outputs (graph outputs never die)
         self.last_use: Dict[int, int] = {}
@@ -131,11 +145,14 @@ class _GraphLowering:
         opdef = get_op(node.op)
         in_arrays = [vals[id(src)][idx] for (src, idx) in node.inputs]
         attrs = dict(node.attrs)
-        accepts_train, accepts_rng = _op_signature_flags(opdef)
+        accepts_train, accepts_rng, accepts_device = \
+            _op_signature_flags(opdef)
         if accepts_train:
             attrs.setdefault("is_train", is_train)
         if accepts_rng and is_train and in_arrays:
             attrs["rng"] = _random.generator(in_arrays[0].device)
+        if accepts_device and not in_arrays:
+            attrs["device"] = self._device
         out = opdef.fn(*in_arrays, **attrs)
         out = out if isinstance(out, tuple) else (out,)
         vals[id(node)] = out
@@ -194,6 +211,9 @@ class _GraphLowering:
                     vals.pop(nid, None)
 
         def fn(inputs: Dict[str, Any]):
+            # an op without inputs creates its output beside the inputs
+            self._device = next((t.device for t in inputs.values()
+                                 if isinstance(t, torch.Tensor)), None)
             vals: Dict[int, Any] = {id(node): (inputs[node.name],)
                                     for node in nodes if node.is_var}
             aux_updates: Dict[str, Any] = {}
@@ -266,8 +286,11 @@ class _GraphLowering:
                     in_shapes.append(s)
                 else:
                     attrs = dict(node.attrs)
-                    if _op_signature_flags(opdef)[0]:
+                    flags = _op_signature_flags(opdef)
+                    if flags[0]:
                         attrs.setdefault("is_train", False)
+                    if flags[2] and not in_shapes:
+                        attrs["device"] = meta
                     try:
                         out = opdef.fn(*[torch.empty(s, device=meta)
                                          for s in in_shapes], **attrs)

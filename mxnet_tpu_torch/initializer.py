@@ -12,15 +12,18 @@ is not reproduced, so tests compare statistics.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .random import generator
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "register", "create"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "Mixed", "register", "create"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 _ALIASES = {"zeros": "zero", "ones": "one", "gaussian": "normal"}
@@ -151,3 +154,83 @@ class Xavier(Initializer):
             arr.uniform_(-scale, scale, generator=gen)
         else:
             arr.normal_(0.0, scale, generator=gen)
+
+
+@register
+class Orthogonal(Initializer):
+    """The orthonormal factor of a uniform or normal draw's SVD, times
+    ``scale`` (reference ``initializer.py:Orthogonal``)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        tmp = torch.empty((nout, nin), dtype=torch.float32,
+                          device=arr.device)
+        gen = generator(arr.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr.copy_((self.scale * q).reshape(arr.shape))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s normal draw for a PReLU of ``slope``: Xavier with
+    magnitude 2 / (1 + slope²)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel over the last two axes."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        n = math.prod(shape)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(n)
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c)))
+        arr.copy_(torch.from_numpy(weight.astype("float32"))
+                  .reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (``[i, f, g, o]``) at
+    ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        arr.fill_(0.0)
+        n = arr.shape[0] // 4
+        arr[n:2 * n] = self.forget_bias
+
+    _init_bias = _init_weight
+
+
+class Mixed(Initializer):
+    """The initializer of the first pattern that matches the name."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(name):
+                init(name, arr)
+                return
+        raise MXNetError(f"no initializer pattern matches {name!r}")

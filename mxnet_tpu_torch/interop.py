@@ -3,11 +3,13 @@
 Counterpart of the weight-carrying part of ``mxnet_tpu/interop.py``:
 :func:`params_from_numpy` for the predictor and the server,
 :func:`module_params_from_numpy` for ``Module.init_params`` /
-``set_params``, and :func:`load_block_params` /
+``set_params`` (a ``FusedRNNCell``'s packed vector among them, under its
+name), and :func:`load_block_params` /
 :func:`block_params_to_numpy` to carry a gluon net's weights across, both
 ways, between the JAX package's net and the port's (the two
 ``collect_params()`` name the same parameters alike; a ``SymbolBlock``'s
-names are its graph's). The
+names are its graph's; a ``gluon.rnn`` layer's or cell's per-layer names
+are the JAX package's). The
 reference's ``.params`` and graph-JSON readers and writers wait for the
 interop slice.
 """

@@ -7,20 +7,39 @@ NDArray positional arguments are op inputs; keyword arguments are attrs;
 """
 from __future__ import annotations
 
+import numpy as np
+
 from .ndarray import NDArray, array, torch_dtype
-from .utils import zeros, ones, save, load, load_frombuffer
+from .utils import (zeros, ones, save, load, load_frombuffer, concat, stack,
+                    split)
 from .._imperative import invoke
 from ..ops.registry import _REGISTRY, get_op, list_ops
 
 __all__ = ["NDArray", "array", "zeros", "ones", "save", "load",
-           "load_frombuffer", "torch_dtype"]
+           "load_frombuffer", "torch_dtype", "concat", "stack", "split"]
 
 
 def _make_op_func(name: str):
+    """Positional NDArrays (and numpy arrays) are the op's inputs, in
+    order; an array passed by keyword under one of the op's input names
+    (``SequenceMask(x, sequence_length=lens)``) takes that input's place;
+    other keywords are attributes."""
     opdef = get_op(name)
+    arg_names = tuple(opdef.arg_names() or ())
 
     def fn(*args, out=None, **kwargs):
-        inputs = [a for a in args if isinstance(a, NDArray)]
+        inputs = [a if isinstance(a, NDArray) else array(a) for a in args
+                  if isinstance(a, (NDArray, np.ndarray))]
+        named = {k: kwargs.pop(k) for k in list(kwargs)
+                 if k in arg_names and isinstance(kwargs[k], NDArray)}
+        if named:
+            queue = list(inputs)
+            slots = [named.get(n) if n in named
+                     else (queue.pop(0) if queue else None)
+                     for n in arg_names]
+            while slots and slots[-1] is None:
+                slots.pop()
+            inputs = slots + queue
         kwargs.pop("name", None)
         kwargs.pop("ctx", None)
         return invoke(name, inputs, kwargs, out=out)

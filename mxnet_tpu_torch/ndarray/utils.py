@@ -1,7 +1,7 @@
 """Array creation and the ``MXTPU001`` container.
 
 Counterpart of ``mxnet_tpu/ndarray/utils.py`` (``zeros``, ``ones``,
-``save``, ``load``). The on-disk format is the JAX package's own: the 8-byte magic
+``concat``, ``stack``, ``split``, ``save``, ``load``). The on-disk format is the JAX package's own: the 8-byte magic
 ``MXTPU001``, a little-endian u64 header length, a JSON header
 ``{"keys": [...] | null, "metas": [{"shape", "dtype"}, ...]}``, then per
 array a u64 byte length and the raw little-endian buffer. The port keeps
@@ -22,7 +22,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from .ndarray import NDArray, array, torch_dtype
 
-__all__ = ["zeros", "ones", "save", "load", "load_frombuffer"]
+__all__ = ["zeros", "ones", "concat", "stack", "split", "save", "load",
+           "load_frombuffer"]
 
 _MAGIC = b"MXTPU001"
 
@@ -43,6 +44,33 @@ def zeros(shape, ctx: Optional[Context] = None, dtype=None,
 def ones(shape, ctx: Optional[Context] = None, dtype=None,
          **kwargs) -> NDArray:
     return _full(shape, 1, ctx, dtype)
+
+
+def concat(*arrays, dim=1) -> NDArray:
+    """``Concat`` of the arrays (or of one list of them)."""
+    from .._imperative import invoke
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = tuple(arrays[0])
+    return invoke("Concat", list(arrays), {"dim": dim})
+
+
+def stack(*arrays, axis=0) -> NDArray:
+    """``stack`` of the arrays (or of one list of them)."""
+    from .._imperative import invoke
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = tuple(arrays[0])
+    return invoke("stack", list(arrays), {"axis": axis})
+
+
+def split(ary, indices_or_sections, axis=0):
+    """``SliceChannel`` into equal sections (an int), else ``split_v2``
+    at the indices."""
+    from .._imperative import invoke
+    if isinstance(indices_or_sections, int):
+        return invoke("SliceChannel", [ary],
+                      {"num_outputs": indices_or_sections, "axis": axis})
+    return invoke("split_v2", [ary],
+                  {"indices": tuple(indices_or_sections), "axis": axis})
 
 
 def _raw(a) -> tuple:

@@ -80,7 +80,7 @@ launch_dtypes: Dict[Tuple[str, str], int] = {}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

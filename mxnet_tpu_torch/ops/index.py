@@ -1,7 +1,12 @@
 """Indexing ops.
 
-Counterpart of ``Embedding`` and ``pick`` in ``mxnet_tpu/ops/index.py``
-(reference ``src/operator/tensor/indexing_op.cc``, ``broadcast_reduce_op_index.cc``).
+Counterpart of ``Embedding``, ``pick``, ``where`` and ``SequenceMask``,
+``SequenceLast`` and ``SequenceReverse`` in ``mxnet_tpu/ops/index.py``
+(reference ``src/operator/tensor/indexing_op.cc``,
+``broadcast_reduce_op_index.cc``, ``sequence_{mask,last,reverse}.cc``).
+A sequence op reads ``(seq, batch, ...)`` (``axis=0``) or ``(batch, seq,
+...)`` (``axis=1``, ``SequenceMask`` and ``SequenceLast``); lengths
+arrive as floats and truncate to integers.
 """
 from __future__ import annotations
 
@@ -51,3 +56,51 @@ def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
         raise MXNetError(f"pick: keepdims=False needs one index per row on "
                          f"axis {ax}, got {out.shape[ax]}")
     return out.squeeze(ax)
+
+
+@register("where")
+def _where(condition, x, y):
+    return torch.where(condition != 0, x, y)
+
+
+@register("SequenceMask", aliases=["sequence_mask"],
+          arg_names=("data", "sequence_length"))
+def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                   value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    ax = int(axis)
+    pos = torch.arange(data.shape[ax], device=data.device)
+    mask = pos[:, None] < sequence_length.to(torch.int64)[None, :]
+    if ax == 1:
+        mask = mask.t()
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
+                                                device=data.device))
+
+
+@register("SequenceLast", aliases=["sequence_last"],
+          arg_names=("data", "sequence_length"))
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0):
+    """Each sequence's last valid step (the last step without lengths)."""
+    ax = int(axis)
+    if not use_sequence_length or sequence_length is None:
+        return data.select(ax, -1)
+    moved = data.movedim(ax, 0)
+    last = sequence_length.to(torch.int64) - 1
+    return moved[last, torch.arange(moved.shape[1], device=data.device)]
+
+
+@register("SequenceReverse", aliases=["sequence_reverse"],
+          arg_names=("data", "sequence_length"))
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0):
+    """Each sequence's valid steps reversed in place, the padding kept."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, [0])
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = sequence_length.to(torch.int64)[None, :]
+    src = torch.where(pos < lens, lens - 1 - pos, pos)
+    return data[src, torch.arange(data.shape[1], device=data.device)[None, :]]

@@ -1,9 +1,11 @@
 """Shape-manipulation ops of the served graph and the vision zoo.
 
 Counterpart of the ``Reshape``/``reshape``, ``Flatten``, ``transpose``,
-``expand_dims``, ``slice_axis``, ``slice_like``, ``reshape_like``,
-``Concat``, ``Pad``, ``depth_to_space``, ``space_to_depth`` and ``dot``
-ops of ``mxnet_tpu/ops/matrix.py``
+``SwapAxis``/``swapaxes``, ``expand_dims``, ``squeeze``, ``slice_axis``,
+``slice_like``, ``reshape_like``, ``Concat``, ``stack``,
+``SliceChannel``/``split``, ``split_v2``, ``flip``/``reverse``, ``Pad``,
+``depth_to_space``, ``space_to_depth`` and ``dot`` ops of
+``mxnet_tpu/ops/matrix.py``
 (reference ``src/operator/tensor/matrix_op.cc``). Views are returned where
 PyTorch can give one; consumers that need contiguous memory make it so.
 """
@@ -90,9 +92,22 @@ def _transpose(x, axes=None):
     return x.permute(*[int(a) for a in axes])
 
 
+@register("SwapAxis", aliases=["swapaxes"])
+def _swapaxes(x, dim1=0, dim2=0):
+    return x.transpose(int(dim1), int(dim2))
+
+
 @register("expand_dims")
 def _expand_dims(x, axis=0):
     return x.unsqueeze(int(axis))
+
+
+@register("squeeze")
+def _squeeze(x, axis=None):
+    if axis is None:
+        return x.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return x.squeeze(tuple(int(a) for a in axes))
 
 
 @register("slice_axis")
@@ -131,6 +146,51 @@ def _dot(lhs, rhs, transpose_a=False, transpose_b=False, forward_stype=None):
 @register("Concat", aliases=["concat"])
 def _concat(*xs, dim=1, num_args=None):
     return torch.cat(xs, dim=int(dim))
+
+
+@register("stack")
+def _stack(*xs, axis=0, num_args=None):
+    return torch.stack(xs, dim=int(axis))
+
+
+def _parts(parts, axis, squeeze_axis):
+    """A split's pieces (views), the split axis dropped with
+    ``squeeze_axis``; one piece is returned alone."""
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts) if len(parts) > 1 else parts[0]
+
+
+@register("SliceChannel", aliases=["split"],
+          num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)))
+def _split(x, num_outputs=1, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal pieces along ``axis`` (it must divide)."""
+    axis, n = int(axis), int(num_outputs)
+    if x.shape[axis] % n:
+        raise MXNetError(f"SliceChannel: axis {axis} of size "
+                         f"{x.shape[axis]} does not split into {n} equal "
+                         f"pieces")
+    return _parts(torch.chunk(x, n, dim=axis), axis, squeeze_axis)
+
+
+@register("split_v2", num_outputs=lambda a: (
+    int(a["sections"]) if a.get("sections") else
+    len(a.get("indices", ())) + 1))
+def _split_v2(x, indices=(), axis=0, squeeze_axis=False, sections=0):
+    """At the ``indices`` along ``axis``, or into ``sections`` equal
+    pieces."""
+    axis = int(axis)
+    if sections:
+        return _split(x, sections, axis, squeeze_axis)
+    bounds = [0] + [int(i) for i in indices] + [x.shape[axis]]
+    return _parts([x.narrow(axis, a, b - a) for a, b in
+                   zip(bounds, bounds[1:])], axis, squeeze_axis)
+
+
+@register("flip", aliases=["reverse"])
+def _flip(x, axis=()):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(x, [int(a) for a in axes])
 
 
 _PAD_MODES = {"edge": "replicate", "reflect": "reflect"}

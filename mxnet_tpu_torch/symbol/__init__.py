@@ -16,7 +16,8 @@ from ..name import NameManager
 from ..ops.registry import _REGISTRY, get_op, list_ops
 from .symbol import Group, Symbol, Variable, _Node, load, load_json, var
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "zeros", "ones"]
 
 
 def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
@@ -52,6 +53,21 @@ def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
         entries = final
     node = _Node(op_name, name, attrs, entries)
     return Symbol([(node, i) for i in range(node.num_outputs)])
+
+
+def _shape_attr(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def zeros(shape, dtype="float32", **kwargs) -> Symbol:
+    """A ``_zeros`` node (created beside the graph's inputs)."""
+    return _invoke_sym("_zeros", [], {"shape": _shape_attr(shape),
+                                      "dtype": dtype})
+
+
+def ones(shape, dtype="float32", **kwargs) -> Symbol:
+    return _invoke_sym("_ones", [], {"shape": _shape_attr(shape),
+                                     "dtype": dtype})
 
 
 def _make_sym_func(op_name: str):

@@ -52,6 +52,9 @@ class Symbol:
             idx = self.list_outputs().index(idx)
         return Symbol([self._outputs[idx]])
 
+    def __len__(self):
+        return len(self._outputs)
+
     def __repr__(self):
         return f"<Symbol {self.name}>"
 

@@ -35,6 +35,7 @@ from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import parallel as jparallel
 from mxnet_tpu_torch import autograd, gluon, parallel
 from test_torch_threads import one_torch_thread  # noqa: F401
+from torch_shared import once
 
 TOL = 1e-5
 V, UNITS, HEADS, FFN, B, T = 50, 32, 4, 64, 2, 16
@@ -154,7 +155,13 @@ def _lm(g):
 @pytest.fixture(scope="module")
 def lm_files(tmp_path_factory):
     """The JAX LM with seeded weights, and its graph and weights written
-    with the port's ``model.save_checkpoint`` under the graph's names."""
+    with the port's ``model.save_checkpoint`` under the graph's names;
+    once for the session (``test_torch_mixed.py`` uses it too)."""
+    return once(tmp_path_factory, "lm-files",
+                lambda: _lm_files(tmp_path_factory))
+
+
+def _lm_files(tmp_path_factory):
     cs = _chip_smoke()
     net = _lm(jgluon)
     net.initialize(jmx.init.Normal(0.02))

@@ -16,7 +16,10 @@ the CPU's f32 step than 1.5× the CPU's bf16 step), B2's label cases and
 the float16 refusal. The conv nets: a ResNet-18 v1 in NHWC through the
 fused trainer in bf16 (every convolution on bf16 ``channels_last``
 inputs, no layout copy), the NHWC net against the NCHW net, and the
-"full" pooling convention against the CPU. Marked ``gpu``; it
+"full" pooling convention against the CPU. The recurrent family: the
+``RNN`` op (each mode, bidirectional, its gradients) and one step of a
+small word LM through gluon (the recipe twin's ``train_step``) on the
+card against the CPU, no Hopper kernel launched. Marked ``gpu``; it
 skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -638,3 +641,67 @@ def test_full_pooling_on_card_matches_cpu(cuda, pool_type, cip, layout):
     ok = cpu_out.isfinite()
     assert torch.allclose(out[ok], cpu_out[ok], rtol=1e-6, atol=1e-6)
     assert torch.allclose(grad, cpu_grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_op_on_card_matches_cpu(cuda, mode):
+    """The ``RNN`` op, 2 bidirectional layers, its outputs and gradients
+    on the card against the CPU (float32, TF32 off): the same code on
+    both devices, cuBLAS against the CPU's products."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.ops.rnn import rnn_packed_param_size
+    gen = torch.Generator().manual_seed(0)
+    T, B, I, H, L = 7, 3, 5, 16, 2
+    n = rnn_packed_param_size(mode, L, True, I, H)
+    ins = [torch.randn(T, B, I, generator=gen),
+           torch.randn(n, generator=gen) * 0.2,
+           torch.randn(2 * L, B, H, generator=gen)]
+    if mode == "lstm":
+        ins.append(torch.randn(2 * L, B, H, generator=gen))
+    attrs = dict(state_size=H, num_layers=L, mode=mode, bidirectional=True,
+                 state_outputs=True, is_train=False)
+    runs = []
+    hk.reset_launch_counts()
+    for dev in (torch.device("cpu"), cuda):
+        ts = [t.to(dev).requires_grad_() for t in ins]
+        outs = get_op("RNN").fn(*ts, **attrs)
+        grads = torch.autograd.grad([o.sum() for o in outs], ts)
+        runs.append([t.detach().cpu() for t in list(outs) + list(grads)])
+    assert not any(hk.launch_counts.values())
+    for a, b in zip(*runs):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-5 * float(a.abs().max()))
+
+
+def test_word_lm_step_on_card_matches_cpu(cuda):
+    """One step of the recipe twin's ``RNNModel`` (vocab 200, 32 x 32, 2
+    layers, bptt 10, batch 4, dropout 0) through ``train_step`` on the
+    card and on the CPU from the same weights: the loss and the weights
+    after the clipped SGD update."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "example",
+                        "gluon", "word_language_model", "train_torch.py")
+    spec = importlib.util.spec_from_file_location("train_torch_gpu", path)
+    wlm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wlm)
+    corpus = wlm.synthetic_corpus(200, 4 * 21, seed=3)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs, weights = [], None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net, trainer = wlm.build(200, "lstm", 32, 32, 2, 1.0, 0.0, ctx,
+                                 weights)
+        if weights is None:
+            weights = {k: p.data().asnumpy() for k, p in
+                       net._collect_params_with_prefix().items()}
+        data, target = wlm.get_batch(wlm.batchify(corpus, 4, ctx), 0, 10)
+        L, _ = wlm.train_step(net, trainer, loss_fn, data, target,
+                              net.begin_state(batch_size=4, ctx=ctx), 0.05,
+                              10, 4)
+        runs.append((float(L.mean().asscalar()),
+                     {k: p.data().asnumpy() for k, p in
+                      net._collect_params_with_prefix().items()}))
+    (cpu_loss, cpu_w), (loss, w) = runs
+    assert abs(loss - cpu_loss) <= 1e-6 * abs(cpu_loss)
+    for k in cpu_w:
+        assert not np.array_equal(cpu_w[k], weights[k]), k
+        np.testing.assert_allclose(w[k], cpu_w[k], rtol=0,
+                                   atol=1e-6 * np.abs(cpu_w[k]).max())

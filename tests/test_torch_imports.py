@@ -1,6 +1,6 @@
-"""PyTorch port, import hygiene: ``mxnet_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package — not even a module of it that does
-not import JAX."""
+"""PyTorch port, import hygiene: ``mxnet_tpu_torch``, ``chip_smoke.py`` and
+the recipe twins (``example/**/*_torch.py``) import neither JAX nor the JAX
+package — not even a module of it that does not import JAX."""
 import ast
 import os
 import subprocess
@@ -13,6 +13,10 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
+    for twin in ("example/gluon/word_language_model/train_torch.py",
+                 "example/rnn/bucketing/lstm_bucketing_torch.py",
+                 "example/gluon/transformer_lm_torch.py"):
+        yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
             if n.endswith(".py"):
@@ -58,7 +62,18 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/gluon/model_zoo/vision/squeezenet.py",
             "mxnet_tpu_torch/gluon/model_zoo/vision/mobilenet.py",
             "mxnet_tpu_torch/gluon/model_zoo/vision/densenet.py",
-            "mxnet_tpu_torch/gluon/model_zoo/vision/inception.py"} <= rel
+            "mxnet_tpu_torch/gluon/model_zoo/vision/inception.py",
+            "mxnet_tpu_torch/ops/rnn.py", "mxnet_tpu_torch/ops/init_ops.py",
+            "mxnet_tpu_torch/gluon/rnn/__init__.py",
+            "mxnet_tpu_torch/gluon/rnn/rnn_layer.py",
+            "mxnet_tpu_torch/gluon/rnn/rnn_cell.py",
+            "mxnet_tpu_torch/gluon/utils.py",
+            "mxnet_tpu_torch/rnn/__init__.py",
+            "mxnet_tpu_torch/rnn/rnn_cell.py", "mxnet_tpu_torch/rnn/io.py",
+            "mxnet_tpu_torch/rnn/rnn.py",
+            "example/gluon/word_language_model/train_torch.py",
+            "example/rnn/bucketing/lstm_bucketing_torch.py",
+            "example/gluon/transformer_lm_torch.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -77,7 +92,9 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.module, mxnet_tpu_torch.parallel, "
             "mxnet_tpu_torch.parallel.fused_rules, "
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
-            "mxnet_tpu_torch.gluon.model_zoo.vision; "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.utils, "
+            "mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.init_ops; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

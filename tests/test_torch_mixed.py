@@ -79,6 +79,7 @@ from mxnet_tpu_torch.parallel import data_parallel as pdp
 from mxnet_tpu_torch.resilience import recovery as precovery
 from test_torch_data_parallel import _lm, lm_files  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401
+from torch_shared import once
 
 TOL = 1e-5
 TOL_LOWP = 2e-4
@@ -256,16 +257,13 @@ def _port_lm_run(f, table_dtype, **knobs):
 
 
 @pytest.fixture(scope="module")
-def jax_lm(lm_files):
+def jax_lm(lm_files, tmp_path_factory):
     """The JAX LM's runs by (compute dtype, table dtype), each computed
-    once in a process."""
-    runs = {}
-
+    once in the session."""
     def run(compute, table):
-        if (compute, table) not in runs:
-            runs[compute, table] = _jax_lm_run(lm_files, table,
-                                               compute_dtype=compute)
-        return runs[compute, table]
+        return once(tmp_path_factory, f"jax-lm-{compute}-{table}",
+                    lambda: _jax_lm_run(lm_files, table,
+                                        compute_dtype=compute))
     return run
 
 

@@ -36,6 +36,7 @@ from mxnet_tpu_torch.serving import (DeadlineExceeded, Draining, ModelConfig,
                                      ModelServer, Overloaded)
 from mxnet_tpu_torch.serving.load import model_config_from_files
 from test_torch_threads import one_torch_thread  # noqa: F401
+from torch_shared import once
 
 VOCAB, UNITS, LAYERS, HEADS, FFN, T = 64, 256, 2, 2, 512, 16
 TOL = 1e-4
@@ -62,7 +63,12 @@ def interp():
 @pytest.fixture(scope="module")
 def exported(interp, tmp_path_factory):
     """The JAX gluon LM, hybridized and exported: (symbol json, param
-    bytes, {param name: numpy}, op sequence)."""
+    bytes, {param name: numpy}, op sequence); once for the session."""
+    return once(tmp_path_factory, "serving-exported",
+                lambda: _export(tmp_path_factory))
+
+
+def _export(tmp_path_factory):
     net = jnn.HybridSequential(prefix="lm_")
     with net.name_scope():
         net.add(jnn.Embedding(VOCAB, UNITS, prefix="embed_"))
@@ -100,14 +106,19 @@ def requests():
 
 
 @pytest.fixture(scope="module")
-def jax_served(exported, requests):
+def jax_served(exported, requests, tmp_path_factory):
+    return once(tmp_path_factory, "serving-jax-served",
+                lambda: _jax_serve(exported, requests))
+
+
+def _jax_serve(exported, requests):
     cfg = JaxModelConfig("lm", exported["sym_json"], exported["pbytes"],
                          feature_shape=(T,), buckets=BUCKETS,
                          deadline_ms=60000.0, max_wait_ms=50.0)
     srv = JaxModelServer([cfg], drain_on_preemption=False).start()
     try:
         futs = [srv.submit("lm", r) for r in requests]
-        return [f.result(120.0) for f in futs]
+        return [np.asarray(f.result(120.0)) for f in futs]
     finally:
         srv.close(timeout=10.0)
 
