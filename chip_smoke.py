@@ -129,18 +129,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``BucketSentenceIter`` and ``BucketingModule`` (Adam): the first loss
    against float64, one storage across the buckets, perplexity falling,
    the RNN checkpoint round trip.
+19. route F, the detection family: SSD300 with the VGG16-reduced body
+   (``build_ssd300``: Liu et al. 2016's widths as the reference
+   ``example/ssd`` builds them, 8,732 anchors, VOC's 20 classes and the
+   background; nothing cut) trained on the card through ``mx.mod.Module``
+   at batch 32 in float32 (SGD lr 1e-3, momentum 0.9, wd 5e-4), its
+   batches read by ``ImageDetRecordIter`` from 128 synthetic VOC-style
+   300x300 JPEG records that ``example/ssd/dataset_torch.py`` writes. Step
+   1 against the same step in float64 on the card (loss, heads, the
+   gradients: the heads' tightly, the body's loosely); ``Module.fit`` for
+   three epochs (the loss must fall); ten steps timed with their batches on
+   the card (step ms, host dispatch, images/s, peak memory; a
+   ``torch.profiler`` breakdown with ``--profile``) and the iterator's
+   batch timed apart; ``MultiBoxTarget`` and ``MultiBoxDetection`` at
+   8,732 anchors and batch 32 on the card against the CPU (discrete
+   outputs equal) and timed; then the trained weights served through the
+   detection graph (``MultiBoxDetection``, nms_topk 400).
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
-one training step, one custom-head step, one Module step, one fused step
-and one bf16 fused step (route A's and route D's steps are profiled in
-every run). Apart from the ``transformer_lm`` twin, no phase from 12 on
-launches a Hopper kernel: the conv nets reach no TPU
-kernel (the JAX package lowers their convolutions and pools through
-XLA; cuDNN runs the port's). The line before the last is a JSON object with
-one entry per kernel (the flash kernels' bf16 times at the main shape
-under ``"bf16"``); the last line is ``{"ok": true, "device": {...}}``.
+one training step, one custom-head step, one Module step, one fused step,
+one bf16 fused step and one route F step (route A's and route D's steps
+are profiled in every run). Apart from the ``transformer_lm`` twin, no
+phase from 12 on launches a Hopper kernel: the conv nets, the recurrent
+family and the detection family reach no TPU kernel (the JAX package
+lowers their convolutions, pools, recurrence and multibox ops through
+XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
+the last is a JSON object with one entry per kernel (the flash kernels'
+bf16 times at the main shape under ``"bf16"``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3751,14 +3769,431 @@ def transformer_recipe_phase(mx, dev):
         raise AssertionError(f"transformer_lm: accuracy {acc}")
 
 
+# --------------------------------------------------------------- route F
+# SSD300 with the VGG16-reduced body (Liu et al. 2016, arXiv:1512.02325;
+# the reference example/ssd's symbol_factory.get_config("vgg16_reduced",
+# 300)): six sources, 8,732 anchors, VOC's 20 classes plus background,
+# batch 32 in float32, SGD lr 1e-3, momentum 0.9, wd 5e-4 (the paper's VOC
+# fine-tuning). Nothing is cut; the images are synthetic.
+SSD = dict(classes=20, image=300, batch=32, lr=1e-3, momentum=0.9, wd=5e-4,
+           max_objs=8)
+SSD_SOURCES = ("relu4_3", "relu7", "multi_feat_2", "multi_feat_3",
+               "multi_feat_4", "multi_feat_5")
+SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79), (0.88, 0.961))
+SSD_RATIOS = ((1.0, 2.0, 0.5),) + ((1.0, 2.0, 0.5, 3.0, 1.0 / 3),) * 3 \
+    + ((1.0, 2.0, 0.5),) * 2
+SSD_STEPS = tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300))
+SSD_ANCHORS = 8732
+SSD_IMAGES = 128            # four batches an epoch
+SSD_EPOCHS = 3              # Module.fit after the gated step 1
+SSD_TIMED = 10              # steps timed with the batches on the card
+SSD_MEAN = (123.68, 116.779, 103.939)   # the reference's mean_r/g/b
+SSD_STD = (58.395, 57.12, 57.375)       # ImageNet's: random weights
+# Step 1 in float32 (TF32 off) against the same step in float64 on the
+# card from the same weights and batch, the float64 graph given the
+# float32 step's targets (MultiBoxTarget's choices are discrete; it is held
+# apart, card against CPU, below). On an H100 (700 W): loss 2.1e-9
+# relative; cls_prob 7.2e-6 and loc_loss 1.8e-6 of their largest; the
+# heads' and the scale's gradients at most 2.4e-6 (||dg||/||g||); the
+# body's up to 6.7e-4 (conv5_1: ReLUs whose input sits within float32
+# rounding of zero flip between the two runs), which the body's gate
+# leaves room for, as ResNet-50's does.
+TOL_SSD_LOSS = 1e-6         # relative
+TOL_SSD_HEADS = 5e-5        # cls_prob and loc_loss, of their largest entry
+TOL_SSD_GRAD_HEAD = 5e-5    # ||dg|| / ||g||: the heads and the scale
+TOL_SSD_GRAD = 1e-2         # ||dg|| / ||g||: the body (ReLU flips)
+TOL_SSD_LOC_TARGET = 1e-6   # MultiBoxTarget, card against CPU
+TOL_SSD_DET = 1e-6          # MultiBoxDetection boxes and scores, card/CPU
+
+
+def ssd_conv(sym, data, name, num_filter, kernel=(3, 3), pad=(1, 1),
+             stride=(1, 1), dilate=(1, 1)):
+    conv = sym.Convolution(data, kernel=kernel, pad=pad, stride=stride,
+                           dilate=dilate, num_filter=num_filter,
+                           name=f"conv{name}" if name[0].isdigit() else name)
+    return sym.Activation(conv, act_type="relu",
+                          name=f"relu{name}" if name[0].isdigit()
+                          else f"{name}_relu")
+
+
+def build_ssd300(sym, num_classes, mode="train", given_targets=False):
+    """The SSD300 graph from the port's ``mx.sym``: VGG16-reduced (conv1_1
+    … conv5_3 at 64/128/256/512/512, ``pool3`` with the "full" convention,
+    75 → 38, ``pool5`` 3×3 stride 1, ``fc6`` a 3×3 conv of 1,024 dilated
+    6, ``fc7`` 1×1 of 1,024), extra layers of 512, 256, 256 and 256 (a 1×1
+    of half their width, at least 128, before each 3×3; strides 2, 2, 1,
+    1), and per source a 3×3 class and box head and its anchors.
+    ``relu4_3`` is ``L2Normalization(mode="channel")`` times a learned
+    per-channel scale (``relu4_3_scale``, 20 at the start). The training
+    graph is ``example/ssd/symbol_ssd.py``'s with the reference's
+    arguments (with ``given_targets`` its targets are the inputs
+    ``loc_target``, ``loc_mask`` and ``cls_target`` instead of
+    ``MultiBoxTarget``'s); the detection graph decodes with
+    ``MultiBoxDetection``. Returns (the graph, {"cls_pred", "loc_pred",
+    "anchor"})."""
+    data = sym.Variable("data")
+    net = data
+    for i, (width, convs) in enumerate(((64, 2), (128, 2), (256, 3),
+                                        (512, 3), (512, 3)), start=1):
+        for j in range(1, convs + 1):
+            net = ssd_conv(sym, net, f"{i}_{j}", width)
+            if (i, j) == (4, 3):
+                relu4_3 = net
+        if i < 5:
+            net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2),
+                              pool_type="max", name=f"pool{i}",
+                              pooling_convention="full" if i == 3
+                              else "valid")
+    net = sym.Pooling(net, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                      pool_type="max", name="pool5")
+    net = ssd_conv(sym, net, "fc6", 1024, pad=(6, 6), dilate=(6, 6))
+    relu7 = ssd_conv(sym, net, "fc7", 1024, kernel=(1, 1), pad=(0, 0))
+    sources = [relu4_3, relu7]
+    net = relu7
+    for k, (width, stride, pad) in enumerate(((512, 2, 1), (256, 2, 1),
+                                              (256, 1, 0), (256, 1, 0)),
+                                             start=2):
+        net = ssd_conv(sym, net, f"multi_feat_{k}_conv_1x1",
+                       max(128, width // 2), kernel=(1, 1), pad=(0, 0))
+        net = ssd_conv(sym, net, f"multi_feat_{k}_conv_3x3", width,
+                       stride=(stride, stride), pad=(pad, pad))
+        sources.append(net)
+    scale = sym.Variable("relu4_3_scale", shape=(1, 512, 1, 1),
+                         init=mx.init.Constant(20.0),
+                         attr={"__wd_mult__": "0.1"})
+    sources[0] = sym.broadcast_mul(scale, sym.L2Normalization(
+        relu4_3, mode="channel", name="relu4_3_norm"))
+    classes = num_classes + 1
+    cls_preds, loc_preds, anchors = [], [], []
+    for name, src, sizes, ratios, step in zip(
+            SSD_SOURCES, sources, SSD_SIZES, SSD_RATIOS, SSD_STEPS):
+        na = len(sizes) + len(ratios) - 1
+        loc = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * 4,
+                              name=f"{name}_loc_pred_conv")
+        cls = sym.Convolution(src, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * classes,
+                              name=f"{name}_cls_pred_conv")
+        loc_preds.append(sym.Flatten(sym.transpose(loc, axes=(0, 2, 3, 1))))
+        cls_preds.append(sym.Flatten(sym.transpose(cls, axes=(0, 2, 3, 1))))
+        anchors.append(sym.Reshape(sym._contrib_MultiBoxPrior(
+            src, sizes=sizes, ratios=ratios, clip=False, steps=(step, step),
+            name=f"{name}_anchors"), shape=(1, -1, 4)))
+    loc_pred = sym.Concat(*loc_preds, dim=1, name="multibox_loc_pred")
+    anchor = sym.Concat(*anchors, dim=1, name="multibox_anchors")
+    cls_pred = sym.transpose(sym.Reshape(
+        sym.Concat(*cls_preds, dim=1), shape=(0, -1, classes)),
+        axes=(0, 2, 1), name="multibox_cls_pred")
+    heads = {"cls_pred": cls_pred, "loc_pred": loc_pred, "anchor": anchor}
+    if mode == "det":
+        return sym._contrib_MultiBoxDetection(
+            sym.softmax(cls_pred, axis=1, name="cls_prob"), loc_pred, anchor,
+            name="detection", nms_threshold=0.45, nms_topk=400,
+            threshold=0.01), heads
+    if given_targets:
+        loc_target, loc_mask, cls_target = (sym.Variable(n) for n in (
+            "loc_target", "loc_mask", "cls_target"))
+    else:
+        loc_target, loc_mask, cls_target = sym._contrib_MultiBoxTarget(
+            anchor, sym.Variable("label"), cls_pred, overlap_threshold=0.5,
+            ignore_label=-1, negative_mining_ratio=3,
+            minimum_negative_samples=0, negative_mining_thresh=0.5,
+            variances=(0.1, 0.1, 0.2, 0.2), name="multibox_target")
+    cls_prob = sym.SoftmaxOutput(cls_pred, cls_target, ignore_label=-1,
+                                 use_ignore=True, multi_output=True,
+                                 normalization="valid", name="cls_prob")
+    loc_loss = sym.MakeLoss(sym.smooth_l1(loc_pred * loc_mask - loc_target,
+                                          scalar=1.0),
+                            grad_scale=1.0, normalization="valid",
+                            name="loc_loss")
+    return sym.Group([cls_prob, loc_loss, sym.BlockGrad(cls_target),
+                      sym.BlockGrad(loc_target)]), heads
+
+
+def ssd_initializer(mx):
+    """Xavier (gaussian, fan-out, magnitude 2, as the reference's
+    train_net) for the weights, and the conv4_3 scale at 20 through
+    ``Mixed``: the JAX package's ``Variable`` drops ``init=``, so a user of
+    it has to set the scale so (ROADMAP C)."""
+    return mx.init.Mixed([".*_scale", ".*"], [
+        mx.init.Constant(20.0),
+        mx.init.Xavier(rnd_type="gaussian", factor_type="out", magnitude=2)])
+
+
+def ssd_loss(outputs):
+    """The recipe's metric on one batch: cross-entropy over the anchors
+    whose target is not ignored plus the smooth-L1 sum, each per valid
+    anchor (``example/ssd/train_torch.py``'s ``MultiBoxMetric``)."""
+    cls_prob, loc_loss, cls_target = (o._data if hasattr(o, "_data") else o
+                                      for o in outputs[:3])
+    valid = cls_target >= 0
+    picked = torch.gather(cls_prob, 1, cls_target.clamp_min(0).long()
+                          .unsqueeze(1))[:, 0]
+    ce = -torch.log(picked.clamp_min(1e-12))[valid].sum()
+    n = max(int(valid.sum()), 1)
+    return float((ce + loc_loss.abs().sum()) / n)
+
+
+class SsdStepLosses(mx.metric.EvalMetric):
+    """Keeps each batch's :func:`ssd_loss`."""
+
+    def __init__(self):
+        super().__init__("ssd_loss")
+        self.losses = []
+
+    def update(self, labels, preds):
+        self.losses.append(ssd_loss(preds))
+
+    def get(self):
+        return self.name, self.losses[-1] if self.losses else float("nan")
+
+
+def _ssd_bind64(mx, ctx, w0, aux0, batch, targets):
+    """The training graph in float64 from the float32 weights, with
+    gradient buffers, on ``batch``, its targets given: the float32 step's
+    (``MultiBoxTarget``'s choices are discrete, and a float64 run of it
+    would choose again wherever float32 rounding ties: saturated
+    background probabilities give many equal hardnesses at the start)."""
+    sym, _ = build_ssd300(mx.sym, SSD["classes"], given_targets=True)
+    f64 = {k: mx.nd.NDArray(v._data.double()) for k, v in w0.items()}
+    cls_target, loc_target = targets
+    n = cls_target.shape[1]
+    loc_mask = (cls_target > 0).unsqueeze(-1).expand(-1, n, 4).reshape(
+        cls_target.shape[0], -1)
+    args = dict(f64, data=batch.data[0]._data, cls_target=cls_target,
+                loc_target=loc_target, loc_mask=loc_mask)
+    args = {k: mx.nd.NDArray(v._data if hasattr(v, "_data") else
+                             v.double()) for k, v in args.items()}
+    grads = {k: mx.nd.NDArray(torch.zeros_like(v._data))
+             for k, v in f64.items()}
+    reqs = {k: ("write" if k in grads else "null") for k in args}
+    aux = {k: mx.nd.NDArray(v._data.double()) for k, v in aux0.items()}
+    return sym.bind(ctx, args, grads, reqs, aux)
+
+
+def ssd_records(mx, workdir):
+    """Write SSD_IMAGES synthetic VOC-style 300x300 images (1-3 rectangles
+    of VOC's 20 classes) with ``example/ssd/dataset_torch.py``."""
+    ds = _load_example("example/ssd/dataset_torch.py", "dataset_torch")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    rec = ds.write_records(os.path.join(workdir, "voc_synth"),
+                           num_images=SSD_IMAGES, size=SSD["image"],
+                           seed=SEED, num_classes=SSD["classes"])
+    print(f"route F: {SSD_IMAGES} synthetic {SSD['image']}x{SSD['image']} "
+          f"JPEG records of {SSD['classes']} classes written in "
+          f"{time.perf_counter() - t0:.2f} s (set-up)")
+    return rec
+
+
+def ssd_phase(mx, dev, workdir, profile=False):
+    """Route F (phase 19): SSD300-VGG16-reduced trained on the card through
+    ``mx.mod.Module``, batches from ``ImageDetRecordIter``. Step 1 against
+    the same step in float64 on the card; then ``Module.fit`` for
+    SSD_EPOCHS epochs (the loss must fall), SSD_TIMED steps timed with
+    their batches already on the card, the iterator's batch timed apart;
+    ``MultiBoxTarget`` and ``MultiBoxDetection`` on the card against the
+    CPU and timed at 8,732 anchors and batch 32; then the trained weights
+    served through the detection graph."""
+    c, ctx = SSD, _ctx(mx, dev)
+    rec = ssd_records(mx, workdir)
+    it = mx.io.ImageDetRecordIter(
+        rec, data_shape=(3, c["image"], c["image"]), batch_size=c["batch"],
+        max_objs=c["max_objs"], shuffle=True, seed=SEED,
+        mean_r=SSD_MEAN[0], mean_g=SSD_MEAN[1], mean_b=SSD_MEAN[2],
+        std_r=SSD_STD[0], std_g=SSD_STD[1], std_b=SSD_STD[2], ctx=ctx)
+    feed = []
+    for _ in range(2):
+        it.reset()
+        for _ in range(SSD_IMAGES // c["batch"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = it.next()
+            torch.cuda.synchronize()
+            feed.append(time.perf_counter() - t0)
+    it.reset()
+    batches = list(it)
+    it.reset()
+    print(f"route F: ImageDetRecordIter: {len(feed)} batches of "
+          f"{c['batch']} decoded (Pillow, 4 threads) and copied to the card:"
+          f" {1e3 * float(np.median(feed)):.1f} ms a batch (median; "
+          f"{c['batch'] / float(np.median(feed)):.0f} images/s), "
+          f"label {tuple(batch.label[0].shape)}")
+    if batch.data[0].context != ctx or batch.label[0].shape != (
+            c["batch"], c["max_objs"], 5):
+        raise AssertionError("route F: the iterator's batch is not what "
+                             "the graph takes")
+
+    net, heads = build_ssd300(mx.sym, c["classes"], "train")
+    torch.cuda.reset_peak_memory_stats()
+    mod = mx.mod.Module(net, context=ctx, data_names=["data"],
+                        label_names=["label"])
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(SEED)
+    mod.init_params(ssd_initializer(mx))
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": c["lr"], "momentum": c["momentum"], "wd": c["wd"]})
+    w0, aux0 = mod.get_params()
+    n_params = sum(v.size for v in w0.values())
+    scale = w0["relu4_3_scale"].asnumpy()
+    if not np.all(scale == 20.0):
+        raise AssertionError("route F: the conv4_3 scale did not start at 20")
+
+    # step 1, its outputs and gradients kept before the update
+    exe = mod._exec_group.execs[0]
+    gate_batch = batches[0]
+    mod.forward_backward(gate_batch)
+    outs32 = [o._data.clone() for o in mod.get_outputs()]
+    grads32 = {k: exe.grad_dict[k]._data.double().clone() for k in w0}
+    mod.update()
+    if outs32[0].shape != (c["batch"], c["classes"] + 1, SSD_ANCHORS):
+        raise AssertionError(f"route F: cls_prob {tuple(outs32[0].shape)}, "
+                             f"expected {SSD_ANCHORS} anchors")
+    loss1 = ssd_loss(outs32)
+    n_pos = int((outs32[2] > 0).sum())
+    n_valid = int((outs32[2] >= 0).sum())
+
+    ex64 = _ssd_bind64(mx, ctx, w0, aux0, gate_batch, outs32[2:4])
+    outs64 = [o._data for o in ex64.forward(is_train=True)]
+    ex64.backward()
+    loss64 = ssd_loss(outs64)
+    errs = {"loss": abs(loss1 - loss64) / abs(loss64),
+            "cls_prob": _max_rel(outs32[0], outs64[0]),
+            "loc_loss": _max_rel(outs32[1], outs64[1])}
+    grad_errs = {k: _norm_rel(grads32[k], ex64.grad_dict[k]._data)
+                 for k in w0}
+    worst = max(grad_errs, key=grad_errs.get)
+    head = [k for k in w0 if "_pred_conv" in k or k.endswith("_scale")]
+    worst_head = max(head, key=grad_errs.get)
+    print(f"route F: step 1 against float64 on the card: loss {loss1:.6f} "
+          f"(float64 {loss64:.6f}, rel {errs['loss']:.3e}); cls_prob "
+          f"{errs['cls_prob']:.3e}, loc_loss {errs['loc_loss']:.3e} of their "
+          f"largest (the float32 step's targets: {n_pos} positives, "
+          f"{n_valid} anchors not ignored); gradients ||dg||/||g|| worst "
+          f"{grad_errs[worst]:.3e} ({worst}), of the heads and the scale "
+          f"{grad_errs[worst_head]:.3e} ({worst_head}), median "
+          f"{float(np.median(list(grad_errs.values()))):.3e}; by layer "
+          f"{ {k: float('%.2e' % v) for k, v in grad_errs.items()} }")
+    del ex64, outs64
+    _free()
+    if not (errs["loss"] <= TOL_SSD_LOSS and errs["cls_prob"] <= TOL_SSD_HEADS
+            and errs["loc_loss"] <= TOL_SSD_HEADS
+            and grad_errs[worst] <= TOL_SSD_GRAD
+            and grad_errs[worst_head] <= TOL_SSD_GRAD_HEAD):
+        raise AssertionError(f"route F: step 1 misses float64: {errs}, "
+                             f"{worst} {grad_errs[worst]}")
+
+    # Module.fit for SSD_EPOCHS epochs over the iterator
+    metric = SsdStepLosses()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=SSD_EPOCHS, eval_metric=metric, kvstore=None,
+            optimizer="sgd")
+    fit_s = time.perf_counter() - t0
+    losses = [loss1] + metric.losses
+    per = SSD_IMAGES // c["batch"]
+    first = float(np.mean(losses[1:1 + per]))
+    last = float(np.mean(losses[-per:]))
+    print(f"route F: Module.fit, {SSD_EPOCHS} epochs of {per} steps after "
+          f"step 1, in {fit_s:.1f} s (decoding included): step losses "
+          f"{[round(v, 4) for v in losses]}; epoch means {first:.4f} -> "
+          f"{last:.4f}")
+    if not (last < first and losses[-1] < losses[0]):
+        raise AssertionError(f"route F: the loss did not fall: {losses}")
+
+    # timed steps, the batches already on the card
+    times = [_timed_step(lambda b=batches[i % len(batches)]: (
+        mod.forward_backward(b), mod.update()))
+        for i in range(SSD_TIMED)]
+    host = float(np.median([t[0] for t in times])) * 1e3
+    step = float(np.median([t[1] for t in times]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"route F: SSD300-VGG16 step (Module forward_backward + update, "
+          f"batch {c['batch']}, {n_params:,} parameters, float32, TF32 off):"
+          f" {step:.1f} ms (median of {SSD_TIMED}; "
+          f"{[round(t[1], 1) for t in times]}), host dispatch {host:.1f} ms, "
+          f"{1e3 * c['batch'] / step:.1f} images/s, peak memory "
+          f"{peak:.2f} GB; card {_card_line()}")
+    if profile:
+        profile_breakdown("route F SSD300 Module step", lambda: (
+            mod.forward_backward(batches[0]), mod.update()))
+
+    # the multibox ops at 8,732 anchors and batch 32, card against CPU
+    arg, aux = mod.get_params()
+    probe = mx.sym.Group([heads["cls_pred"], heads["loc_pred"],
+                          heads["anchor"]])
+    args = {k: v for k, v in arg.items() if k in probe.list_arguments()}
+    args["data"] = batches[1].data[0]
+    pex = probe.bind(ctx, args, aux_states={
+        k: v for k, v in aux.items() if k in probe.list_auxiliary_states()})
+    cls_pred, loc_pred, anchor = (o._data for o in pex.forward())
+    label = batches[1].label[0]._data
+    from mxnet_tpu_torch.ops.registry import get_op
+    target = get_op("_contrib_MultiBoxTarget").fn
+    detect = get_op("_contrib_MultiBoxDetection").fn
+    tkw = dict(overlap_threshold=0.5, negative_mining_ratio=3,
+               negative_mining_thresh=0.5)
+    dkw = dict(nms_threshold=0.45, nms_topk=400, threshold=0.01)
+    on = target(anchor, label, cls_pred, **tkw)
+    off = target(anchor.cpu(), label.cpu(), cls_pred.cpu(), **tkw)
+    t_target = _time_ms(lambda: target(anchor, label, cls_pred, **tkw), 10)
+    prob = torch.softmax(cls_pred, dim=1)
+    det_on = detect(prob, loc_pred, anchor, **dkw)
+    det_off = detect(prob.cpu(), loc_pred.cpu(), anchor.cpu(), **dkw)
+    t_detect = _time_ms(lambda: detect(prob, loc_pred, anchor, **dkw), 10)
+    kept = int((det_on[..., 0] >= 0).sum())
+    tgt_err = _max_rel(on[0].cpu(), off[0])
+    det_err = float((det_on[..., 1:].cpu() - det_off[..., 1:]).abs().max())
+    print(f"route F: MultiBoxTarget at {SSD_ANCHORS} anchors, batch "
+          f"{c['batch']}: {t_target:.2f} ms on the card; against the CPU: "
+          f"cls_target equal {torch.equal(on[2].cpu(), off[2])}, loc_mask "
+          f"equal {torch.equal(on[1].cpu(), off[1])}, loc_target "
+          f"{tgt_err:.3e}. MultiBoxDetection (nms_topk 400): "
+          f"{t_detect:.2f} ms on the card, {kept} rows kept; against the "
+          f"CPU: classes and order equal "
+          f"{torch.equal(det_on[..., 0].cpu(), det_off[..., 0])}, boxes and"
+          f" scores {det_err:.3e}")
+    if not (torch.equal(on[2].cpu(), off[2]) and torch.equal(on[1].cpu(),
+                                                             off[1])
+            and tgt_err <= TOL_SSD_LOC_TARGET
+            and torch.equal(det_on[..., 0].cpu(), det_off[..., 0])
+            and det_err <= TOL_SSD_DET and kept > 0):
+        raise AssertionError("route F: the multibox ops on the card differ "
+                             "from the CPU")
+
+    # serve the trained weights through the detection graph
+    det_sym, _ = build_ssd300(mx.sym, c["classes"], "det")
+    det = mx.mod.Module(det_sym, context=ctx, data_names=["data"],
+                        label_names=None)
+    det.bind(data_shapes=it.provide_data, for_training=False)
+    det.set_params(arg, aux)
+    t_host, t_dev, _ = _timed_step(lambda: det.forward(batches[1],
+                                                       is_train=False))
+    out = det.get_outputs()[0]._data
+    scores = out[..., 1]
+    ok = (out.shape == (c["batch"], SSD_ANCHORS, 6)
+          and bool(torch.isfinite(out).all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all()))
+    print(f"route F: detection graph served on one batch in {t_dev:.1f} ms "
+          f"(host {1e3 * t_host:.1f} ms): {tuple(out.shape)}, "
+          f"{int((out[..., 0] >= 0).sum())} detections kept, best score "
+          f"{float(scores.max()):.3f}; equal to the op on the probe's "
+          f"outputs {torch.equal(out, det_on)}")
+    if not ok:
+        raise AssertionError("route F: the detection graph's output is not "
+                             "sorted or not finite")
+    return {"step_ms": step, "images_s": 1e3 * c["batch"] / step,
+            "peak_gb": peak, "target_ms": t_target, "detect_ms": t_detect}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served dispatch, one training "
                          "step, one custom-head step, one Module step, one "
-                         "fused step and one bf16 fused step "
-                         "(torch.profiler)")
+                         "fused step, one bf16 fused step and one route F "
+                         "step (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3865,6 +4300,18 @@ def main(argv=None) -> int:
     if any(hk.launch_counts.values()):
         raise AssertionError(f"the recurrent family launched a Hopper "
                              f"kernel: {dict(hk.launch_counts)}")
+    _free()
+    # route F, the detection family: no TPU kernel on its path (XLA
+    # lowered the JAX package's multibox ops and convolutions; torch and
+    # cuDNN run the port's)
+    hk.reset_launch_counts()
+    try:
+        ssd_phase(mx, dev, workdir, args.profile)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route F launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

@@ -7,7 +7,8 @@ executor, the predictor, the serving stack, and ``mx.autograd``,
 training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
 ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model`` and
 ``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
-symbolic recurrent cells) over plain
+symbolic recurrent cells, ``mx.recordio`` and ``mx.image`` for the image
+data pipeline, ``mx.AttrScope`` for symbol attributes) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
 TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
@@ -50,9 +51,14 @@ from . import module
 from . import module as mod
 from . import parallel
 from . import rnn
+from . import attribute
+from .attribute import AttrScope
+from . import recordio
+from . import image
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model",
-           "module", "mod", "parallel", "rnn"]
+           "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
+           "recordio", "image"]

@@ -1,6 +1,9 @@
 """``mx.io`` — data iterators (counterpart of ``mxnet_tpu/io``): what the
-Module API needs; the record, image and CSV iterators and the device feed
-wait for a later slice (ROADMAP A7)."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+Module API needs and the record iterators; the CSV, MNIST and LibSVM
+iterators, ``ResizeIter``, ``PrefetchingIter`` and the device feed wait
+for a later slice (ROADMAP A7)."""
+from .io import (DataBatch, DataDesc, DataIter, ImageDetRecordIter,
+                 ImageRecordIter, NDArrayIter)
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+           "ImageRecordIter", "ImageDetRecordIter"]

@@ -2,7 +2,8 @@
 
 Counterpart of ``broadcast_{add,sub,mul,div,mod,power}``, the
 ``broadcast_{equal,not_equal,greater,greater_equal,lesser,lesser_equal}``
-comparisons, ``broadcast_to``, ``sum`` and ``mean`` in
+comparisons, ``broadcast_to``, ``sum``, ``mean`` and
+``L2Normalization`` in
 ``mxnet_tpu/ops/broadcast_reduce.py`` (reference
 ``src/operator/tensor/elemwise_binary_broadcast_op_basic.cc``,
 ``broadcast_reduce_op_value.cc``); the rest of that module waits for the
@@ -72,3 +73,20 @@ def _reduce(name, fn):
 
 _reduce("sum", torch.sum)
 _reduce("mean", torch.mean)
+
+
+@register("L2Normalization")
+def _l2_normalization(x, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum(x²) + eps)`` over every axis but the batch
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``); reference ``src/operator/l2_normalization.cc``."""
+    if mode == "instance":
+        ax = tuple(range(1, x.ndim))
+    elif mode == "channel":
+        ax = (1,)
+    elif mode == "spatial":
+        ax = tuple(range(2, x.ndim))
+    else:
+        raise ValueError(f"bad L2Normalization mode {mode}")
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=True)
+                          + float(eps))

@@ -1,15 +1,16 @@
 """Elementwise unary and scalar ops.
 
 Counterpart of ``abs``, ``negative``, ``square``, ``sigmoid``, ``tanh``,
-``clip``, ``BlockGrad`` and the ``_*_scalar`` family
+``clip``, ``BlockGrad``, ``smooth_l1`` and the ``_*_scalar`` family
 (``_power_scalar``, ``_rpower_scalar``, ``_mod_scalar`` and the
 comparisons among them) in
 ``mxnet_tpu/ops/elemwise.py`` (reference
 ``src/operator/tensor/elemwise_unary_op_basic.cc``,
 ``elemwise_binary_scalar_op_basic.cc``): what NDArray and Symbol
 arithmetic, gluon's losses and the vision zoo reach (``clip`` is
-MobileNet v2's relu6) and the recurrent cells reach (``tanh``); the rest
-waits for the op-library slice.
+MobileNet v2's relu6), the recurrent cells reach (``tanh``) and SSD's
+box-regression loss reaches (``smooth_l1``); the rest waits for the
+op-library slice.
 """
 from __future__ import annotations
 
@@ -62,3 +63,11 @@ def _clip(x, a_min=None, a_max=None):
 
 
 register("BlockGrad", aliases=["stop_gradient"])(lambda x: x.detach())
+
+
+@register("smooth_l1")
+def _smooth_l1(x, scalar=1.0):
+    """``0.5·σ²·x²`` where ``|x| < 1/σ²``, else ``|x| − 0.5/σ²``."""
+    s2 = float(scalar) * float(scalar)
+    return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * x * x,
+                       torch.abs(x) - 0.5 / s2)

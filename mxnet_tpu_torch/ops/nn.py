@@ -375,12 +375,17 @@ class _SoftmaxOutput(torch.autograd.Function):
         out, label = ctx.saved_tensors
         a = ctx.attrs
         lab = label.to(torch.int64)
+        # jax.nn.one_hot: a label outside [0, C) (the ignore label −1)
+        # gives a row of zeros
         if a["multi_output"]:            # data (N, C, ...), label (N, ...)
-            oh = F.one_hot(lab, out.shape[1]).movedim(-1, 1).to(out.dtype)
+            classes = torch.arange(out.shape[1], device=lab.device)
+            oh = (lab.unsqueeze(1) == classes.reshape(
+                (1, -1) + (1,) * (lab.ndim - 1))).to(out.dtype)
         else:
             flat = out.reshape(out.shape[0], -1)
-            oh = F.one_hot(lab.reshape(-1), flat.shape[-1]).to(
-                out.dtype).reshape(out.shape)
+            classes = torch.arange(flat.shape[-1], device=lab.device)
+            oh = (lab.reshape(-1, 1) == classes).to(out.dtype).reshape(
+                out.shape)
         alpha = a["smooth_alpha"]
         if alpha:
             k = oh.shape[1] if a["multi_output"] else \

@@ -22,9 +22,11 @@ __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
 
 def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
                 kwargs: Dict[str, Any]) -> Symbol:
+    from ..attribute import AttrScope
     opdef = get_op(op_name)
     name = NameManager.current().get(kwargs.pop("name", None),
                                      op_name.lower().lstrip("_"))
+    scope_attr = AttrScope.current().get(kwargs.pop("attr", None))
     kwargs.pop("ctx", None)
     entries = []
     for s in sym_inputs:
@@ -52,6 +54,7 @@ def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
                 final.append((_Node(None, f"{name}_{an}", {}, []), 0))
         entries = final
     node = _Node(op_name, name, attrs, entries)
+    node._attr_dict.update(scope_attr)
     return Symbol([(node, i) for i in range(node.num_outputs)])
 
 

@@ -21,7 +21,8 @@ __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 class _Node:
     """One graph node: an op application or a variable (``op=None``)."""
 
-    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs")
+    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs",
+                 "_attr_dict")
 
     def __init__(self, op: Optional[str], name: str, attrs: Dict[str, Any],
                  inputs: List[Tuple["_Node", int]]):
@@ -30,6 +31,10 @@ class _Node:
         self.attrs = attrs
         self.inputs = inputs
         self.num_outputs = 1 if op is None else get_op(op).out_count(attrs)
+        # string metadata (``Variable``'s hints, ``AttrScope``, ``attr=``):
+        # read by ``Symbol.attr``, never by an op, and not written to the
+        # graph JSON (the JAX package writes only ``attrs``)
+        self._attr_dict: Dict[str, str] = {}
 
     @property
     def is_var(self) -> bool:
@@ -79,6 +84,28 @@ class Symbol:
     def __neg__(self):
         from . import _invoke_sym
         return _invoke_sym("negative", [self], {})
+
+    # ---------------------------------------------------------------- attrs
+    def attr(self, key: str) -> Optional[str]:
+        return self._outputs[0][0]._attr_dict.get(key)
+
+    def _set_attr(self, **kwargs):
+        self._outputs[0][0]._attr_dict.update(kwargs)
+
+    def list_attr(self) -> Dict[str, str]:
+        return dict(self._outputs[0][0]._attr_dict)
+
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """Every node's attribute dict by name, an op's own attributes
+        included as strings (the JAX package's ``attr_dict``)."""
+        out = {}
+        for n in self.topo_nodes():
+            d = dict(n._attr_dict)
+            if n.op is not None:
+                d.update({k: str(v) for k, v in n.attrs.items()})
+            if d:
+                out[n.name] = d
+        return out
 
     def topo_nodes(self) -> List[_Node]:
         """Post-order DFS over the DAG, inputs in order (the JAX package's
@@ -158,6 +185,7 @@ class Symbol:
                 node.op, node.name, node.num_outputs = (n.op, n.name,
                                                         n.num_outputs)
                 node.attrs = dict(n.attrs)
+                node._attr_dict = dict(n._attr_dict)
                 node.inputs = [entry(src, idx) for (src, idx) in n.inputs]
                 new[id(n)] = node
         return Symbol([entry(node, idx) for (node, idx) in self._outputs])
@@ -233,15 +261,33 @@ class Symbol:
             f.write(self.tojson())
 
 
-def Variable(name: str, shape=None, dtype=None, **kwargs) -> Symbol:
-    """A named graph input. A ``shape`` hint is kept as the node's
-    ``__shape__`` attribute (written to the graph JSON, as the reference
-    writes it) and ``infer_shape`` takes it where no shape is given for the
-    name; a dtype hint, attribute scopes and ``lr_mult``-style metadata
-    wait for a later slice."""
+def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs) -> Symbol:
+    """A named graph input, with the JAX package's signature. The current
+    :class:`~mxnet_tpu_torch.attribute.AttrScope`, ``attr`` and the hints
+    go to the node's attribute dict as strings (``__shape__``,
+    ``__dtype__``, ``__lr_mult__``, ``__wd_mult__`` and each other keyword),
+    explicit keywords last. As in the JAX package, ``init`` and ``stype``
+    are accepted and dropped, and no optimizer reads the multipliers
+    (standing faults of the JAX package, ROADMAP C). A ``shape`` hint is
+    also kept as the node's ``__shape__`` op attribute, written to the
+    graph JSON, which ``infer_shape`` takes where no shape is given."""
+    from ..attribute import AttrScope
     attrs = {} if shape is None else {"__shape__": tuple(int(d)
                                                          for d in shape)}
-    return Symbol([(_Node(None, name, attrs, []), 0)])
+    node = _Node(None, name, attrs, [])
+    meta = dict(AttrScope.current().get(attr))
+    if shape is not None:
+        meta["__shape__"] = str(tuple(shape))
+    if dtype is not None:
+        meta["__dtype__"] = str(dtype)
+    if lr_mult is not None:
+        meta["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        meta["__wd_mult__"] = str(wd_mult)
+    meta.update({k: str(v) for k, v in kwargs.items()})
+    node._attr_dict.update(meta)
+    return Symbol([(node, 0)])
 
 
 var = Variable

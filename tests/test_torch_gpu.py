@@ -19,8 +19,11 @@ inputs, no layout copy), the NHWC net against the NCHW net, and the
 "full" pooling convention against the CPU. The recurrent family: the
 ``RNN`` op (each mode, bidirectional, its gradients) and one step of a
 small word LM through gluon (the recipe twin's ``train_step``) on the
-card against the CPU, no Hopper kernel launched. Marked ``gpu``; it
-skips without CUDA. This file imports no JAX, so it runs on a machine that
+card against the CPU, no Hopper kernel launched. The detection family:
+the multibox ops and ``box_nms`` on the card against the CPU (discrete
+outputs equal), a ``Module`` step of the small SSD twin on records read
+by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
+page-locked batches. Marked ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -203,7 +206,8 @@ def test_flash_kernels_run_on_tensor_cores(cuda, name):
     sass = subprocess.run([tool, "-sass", str(hk.build()[name])],
                           capture_output=True, text=True, check=True).stdout
     functions = sass.split("Function : ")[1:]
-    assert len(functions) == (6 if name.endswith("fwd") else 12)
+    per_dim = 2 if name.endswith("fwd") else 4     # (kernels) x 2 dtypes
+    assert len(functions) == per_dim * len(hk.SUPPORTED_HEAD_DIMS)
     for fn in functions:
         kind = "TF32" if "kernelIfLi" in fn.split("\n", 1)[0] else "BF16"
         assert f"F32.{kind}" in fn and "HMMA" in fn
@@ -705,3 +709,139 @@ def test_word_lm_step_on_card_matches_cpu(cuda):
         assert not np.array_equal(cpu_w[k], weights[k]), k
         np.testing.assert_allclose(w[k], cpu_w[k], rtol=0,
                                    atol=1e-6 * np.abs(cpu_w[k]).max())
+
+
+# ------------------------------------------------------------ detection
+def _det_case(dev, seed=0, n_side=8, batch=4):
+    from mxnet_tpu_torch.ops.registry import get_op
+    g = torch.Generator().manual_seed(seed)
+    anchors = get_op("_contrib_MultiBoxPrior").fn(
+        torch.zeros(1, 1, n_side, n_side), sizes=(0.2, 0.3),
+        ratios=(1.0, 2.0, 0.5), clip=True)
+    n = anchors.shape[1]
+    label = torch.full((batch, 5, 5), -1.0)
+    for b in range(batch):
+        for k in range(1 + b % 4):
+            xy = torch.rand(2, generator=g) * 0.6
+            wh = torch.rand(2, generator=g) * 0.3 + 0.05
+            label[b, k] = torch.cat([torch.tensor([float(k % 3)]), xy,
+                                     xy + wh])
+    cls_pred = torch.randn(batch, 4, n, generator=g)
+    loc = torch.randn(batch, 4 * n, generator=g) * 0.3
+    return get_op, anchors, label, cls_pred, loc
+
+
+def test_detection_family_on_card_matches_cpu(cuda, tmp_path):
+    """The detection slice on the card: the multibox ops, a step of the
+    SSD twin through ``Module``, and page-locked ``DataLoader`` batches."""
+    _check_multibox_ops_on_card(cuda)
+    _check_ssd_twin_module_step_on_card(tmp_path)
+    _check_dataloader_pins_host_batches()
+
+
+def _check_multibox_ops_on_card(cuda):
+    """Anchors, targets (with hard-negative mining), detections (nms_topk
+    below the candidate count) and ``box_nms`` on the card against the
+    same inputs on the CPU: discrete outputs equal, the rest within 1e-6
+    of the largest entry."""
+    get_op, anchors, label, cls_pred, loc = _det_case(cuda)
+    on = [t.to(cuda) for t in (anchors, label, cls_pred, loc)]
+    prior = get_op("_contrib_MultiBoxPrior").fn(
+        torch.zeros(1, 1, 8, 8, device=cuda), sizes=(0.2, 0.3),
+        ratios=(1.0, 2.0, 0.5), clip=True)
+    assert (prior.cpu() - anchors).abs().max() <= 1e-6
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=3.0,
+              negative_mining_thresh=0.5)
+    want = get_op("_contrib_MultiBoxTarget").fn(anchors, label, cls_pred,
+                                                **kw)
+    got = get_op("_contrib_MultiBoxTarget").fn(on[0], on[1], on[2], **kw)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert (got[0].cpu() - want[0]).abs().max() <= 1e-6 * want[0].abs().max()
+    prob = torch.softmax(cls_pred, dim=1)
+    kw = dict(nms_threshold=0.45, nms_topk=40, threshold=0.01)
+    want = get_op("_contrib_MultiBoxDetection").fn(prob, loc, anchors, **kw)
+    got = get_op("_contrib_MultiBoxDetection").fn(prob.to(cuda), on[3],
+                                                  on[0], **kw).cpu()
+    assert torch.equal(got[..., :2], want[..., :2])
+    assert (got[..., 2:] - want[..., 2:]).abs().max() <= 1e-6
+    assert (want[:, 40:, 0] == -1).all() and (want[:, :40, 0] >= 0).any()
+    data = torch.cat([want[..., :2], want[..., 2:]], dim=-1)
+    data[..., 0] = data[..., 0].abs()
+    want = get_op("_contrib_box_nms").fn(data, overlap_thresh=0.3, topk=60)
+    got = get_op("_contrib_box_nms").fn(data.to(cuda), overlap_thresh=0.3,
+                                        topk=60).cpu()
+    assert torch.equal(got, want)
+
+
+def _check_ssd_twin_module_step_on_card(tmp_path):
+    """One ``Module`` step of ``symbol_ssd_torch``'s graph on a batch that
+    ``ImageDetRecordIter`` reads straight onto the card, against the same
+    step on the CPU from the same weights: the targets equal, the losses
+    and the updated weights within 1e-4 of their largest entry (cuDNN's
+    convolutions sum in another order; cuDNN's TF32, on by default, is
+    turned off for the step), or 1e-7: a conv bias ahead of a BatchNorm
+    has no gradient in exact arithmetic, so its update is rounding noise
+    (~1e-9) in both runs. No Hopper kernel is launched."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir,
+                                    "example", "ssd"))
+    import dataset_torch
+    rec = dataset_torch.write_records(str(tmp_path / "t"), num_images=8,
+                                      size=32)
+    hk.reset_launch_counts()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = _ssd_steps(rec)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cpu_out, cpu_w), (gpu_out, gpu_w) = results["cpu(0)"], results["gpu(0)"]
+    np.testing.assert_array_equal(gpu_out[2], cpu_out[2])
+    for a, b in zip(gpu_out[:2], cpu_out[:2]):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    for k in cpu_w:     # a conv bias ahead of a BatchNorm has no gradient
+        assert np.abs(gpu_w[k] - cpu_w[k]).max() <= \
+            max(1e-4 * np.abs(cpu_w[k]).max(), 1e-7), k
+    assert not any(hk.launch_counts.values())
+
+
+def _ssd_steps(rec):
+    import symbol_ssd_torch
+    results = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        it = mx.io.ImageDetRecordIter(rec, data_shape=(3, 32, 32),
+                                      batch_size=8, max_objs=4,
+                                      scale=1.0 / 255, ctx=ctx)
+        batch = it.next()
+        assert batch.data[0].context == ctx
+        mod = mx.mod.Module(symbol_ssd_torch.build_ssd(3), context=ctx,
+                            data_names=["data"], label_names=["label"])
+        mod.bind(data_shapes=it.provide_data,
+                 label_shapes=it.provide_label)
+        mx.random.seed(0)
+        mod.init_params(mx.init.Xavier() if ctx == mx.cpu() else None,
+                        arg_params=results.get("w0"),
+                        aux_params=results.get("aux0"))
+        if ctx == mx.cpu():
+            results["w0"], results["aux0"] = (
+                {k: v.copy() for k, v in p.items()}
+                for p in mod.get_params())
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.05, "momentum": 0.9})
+        mod.forward_backward(batch)
+        mod.update()
+        results[str(ctx)] = ([o.asnumpy() for o in mod.get_outputs()],
+                             {k: v.asnumpy()
+                              for k, v in mod.get_params()[0].items()})
+    return results
+
+
+def _check_dataloader_pins_host_batches():
+    gd = mx.gluon.data
+    loader = gd.DataLoader(gd.ArrayDataset(np.ones((6, 3), "float32"),
+                                           np.arange(6)), batch_size=4,
+                           pin_memory=True, num_workers=2)
+    for data, label in loader:
+        assert data._data.is_pinned() and label._data.is_pinned()
+        assert data.context == mx.cpu()

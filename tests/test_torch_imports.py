@@ -15,7 +15,10 @@ def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
     for twin in ("example/gluon/word_language_model/train_torch.py",
                  "example/rnn/bucketing/lstm_bucketing_torch.py",
-                 "example/gluon/transformer_lm_torch.py"):
+                 "example/gluon/transformer_lm_torch.py",
+                 "example/ssd/dataset_torch.py",
+                 "example/ssd/symbol_ssd_torch.py",
+                 "example/ssd/train_torch.py"):
         yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
@@ -73,7 +76,18 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/rnn/rnn.py",
             "example/gluon/word_language_model/train_torch.py",
             "example/rnn/bucketing/lstm_bucketing_torch.py",
-            "example/gluon/transformer_lm_torch.py"} <= rel
+            "example/gluon/transformer_lm_torch.py",
+            "mxnet_tpu_torch/attribute.py", "mxnet_tpu_torch/recordio.py",
+            "mxnet_tpu_torch/image.py", "mxnet_tpu_torch/image_detection.py",
+            "mxnet_tpu_torch/ops/multibox.py",
+            "mxnet_tpu_torch/gluon/data/__init__.py",
+            "mxnet_tpu_torch/gluon/data/dataset.py",
+            "mxnet_tpu_torch/gluon/data/sampler.py",
+            "mxnet_tpu_torch/gluon/data/dataloader.py",
+            "mxnet_tpu_torch/gluon/data/vision/datasets.py",
+            "mxnet_tpu_torch/gluon/data/vision/transforms.py",
+            "example/ssd/dataset_torch.py", "example/ssd/symbol_ssd_torch.py",
+            "example/ssd/train_torch.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -94,7 +108,13 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.rnn, "
             "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.utils, "
-            "mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.init_ops; "
+            "mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.init_ops, "
+            "mxnet_tpu_torch.attribute, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.image_detection, "
+            "mxnet_tpu_torch.ops.multibox, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "sys.path[:0] = ['example/ssd']; "
+            "import dataset_torch, symbol_ssd_torch, train_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -61,9 +61,9 @@ def test_flash_attention_plain_matches_jax(interp, D, Tq, Tk, causal,
     rng = np.random.RandomState(D + Tq + Tk + q_offset + k_offset)
     q, k, v = (rng.randn(1, 2, t, D).astype("float32") for t in (Tq, Tk, Tk))
     assert pk.use_pallas()
-    jout, jlse = pk.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        q_offset=q_offset, k_offset=k_offset)
+    jout, jlse = jax.jit(lambda *a: pk.flash_attention_with_lse(
+        *a, causal=causal, q_offset=q_offset, k_offset=k_offset))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     out, lse = hk.flash_attention_with_lse(tq, tk, tv, causal=causal,
                                            q_offset=q_offset,

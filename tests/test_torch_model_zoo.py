@@ -101,6 +101,9 @@ def _jax_forward(make, x):
     """The JAX net's weights (Xavier; random BatchNorm statistics) and its
     inference output, hybridized (one XLA program)."""
     net = make(jvision)
+    # forward only: no gradient buffers (the JAX package compiles a
+    # zeros_like for each parameter shape it attaches one to)
+    net.collect_params().setattr("grad_req", "null")
     net.initialize(jmx.init.Xavier())
     net.hybridize()
     net(jmx.nd.array(x))                     # finishes deferred shapes

@@ -3,6 +3,7 @@ against its JAX registry op, on the same numpy inputs at tiny shapes
 (every Reshape code, an out-of-range Embedding id). Tolerance 1e-5 in
 float32: the same arithmetic, in another summation order where there is a
 reduction."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,7 +128,10 @@ CASES = [
 @pytest.mark.parametrize("name,inputs,attrs", [c[1:] for c in CASES],
                          ids=[c[0] for c in CASES])
 def test_op_matches_jax(name, inputs, attrs):
-    want = jax_op(name).fn(*[jnp.asarray(a) for a in inputs], **attrs)
+    # the JAX op as one jitted program: one compile, where its primitives
+    # would each compile eagerly
+    want = jax.jit(lambda *a: jax_op(name).fn(*a, **attrs))(
+        *[jnp.asarray(a) for a in inputs])
     got = torch_op(name).fn(*[torch.from_numpy(a) for a in inputs], **attrs)
     want = want if isinstance(want, tuple) else (want,)
     got = got if isinstance(got, tuple) else (got,)

@@ -1,8 +1,9 @@
 """PyTorch port, the recipe twins against the JAX recipes they copy:
 ``example/gluon/word_language_model/train_torch.py`` (the LSTM word
 language model through gluon), ``example/rnn/bucketing/
-lstm_bucketing_torch.py`` (``mx.rnn`` cells under ``BucketingModule``)
-and ``example/gluon/transformer_lm_torch.py``.
+lstm_bucketing_torch.py`` (``mx.rnn`` cells under ``BucketingModule``),
+``example/gluon/transformer_lm_torch.py`` and ``example/ssd/
+train_torch.py`` (SSD through ``Module.fit`` over ``ImageDetRecordIter``).
 
 Both sides start from the same weights: the word LM's are carried by
 structural name, and the two other recipes draw theirs from an
@@ -17,6 +18,7 @@ import importlib.util
 import os
 import random
 import re
+import sys
 import zlib
 
 import numpy as np
@@ -26,6 +28,7 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from test_torch_threads import one_torch_thread  # noqa: F401
+from torch_shared import jax_host_seed
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 TOL = 1e-5
@@ -87,14 +90,19 @@ def test_word_lm_twin_steps_match_the_jax_recipe():
     ``RNNModel``, ``batchify``, ``get_batch`` and ``detach`` in its loop,
     on the same weights: the three losses and every weight after step 3
     (the hidden state carried and detached between the steps, the
-    gradients clipped in place)."""
+    gradients clipped in place). The weights are the JAX ``Xavier``'s
+    draws from its host stream seeded with the corpus's seed (2): with
+    the stream as earlier tests left it, some draws (seeds 0 and 24 among
+    the first 30) give a loss that does not fall over the three steps, in
+    the JAX recipe itself."""
     jr = _load("example/gluon/word_language_model/train.py", "jax_word_lm")
     pr = _load("example/gluon/word_language_model/train_torch.py",
                "port_word_lm")
     corpus = pr.synthetic_corpus(V, BATCH * (STEPS * BPTT + 1), seed=2)
 
     model = jr.RNNModel("lstm", V, EMB, EMB, 2, dropout=0.0)
-    model.initialize(jmx.init.Xavier())
+    with jax_host_seed(2):
+        model.initialize(jmx.init.Xavier())
     for block in (model.drop, model.encoder, model.rnn, model.decoder):
         block.hybridize()   # the LSTM in TNC: a program forward, one back
     weights = {k: p.data().asnumpy()
@@ -243,3 +251,101 @@ def test_transformer_lm_twin_matches_the_jax_recipe(monkeypatch):
     np.testing.assert_allclose(losses, [got[0], got[1]], rtol=0)
     np.testing.assert_allclose(got[:2], want[:2], rtol=TOL)
     assert got[2] == pytest.approx(want[2], abs=1.0 / (64 * 28))
+
+
+# ------------------------------------------------------------ SSD
+SSD = dict(num_images=32, image_size=32, batch_size=16, lr=0.05)
+TOL_SSD = 2e-3      # relative, per epoch loss: see the test
+
+
+def _ssd_weights(pkg, net, cfg):
+    """Name-seeded weights for every argument of the SSD training graph
+    (BatchNorm's gamma 1 and beta 0) and its auxiliary states (0 and 1)."""
+    s = cfg["image_size"]
+    arg_shapes, _, aux_shapes = net.infer_shape(
+        data=(cfg["batch_size"], 3, s, s), label=(cfg["batch_size"], 4, 5))
+    args, aux = {}, {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "label"):
+            continue
+        value = _seeded(name, shape) * (0.5 if name.endswith("weight")
+                                        else 0.1)
+        if name.endswith("gamma"):
+            value = np.ones(shape, "float32")
+        args[name] = value
+    for name, shape in zip(net.list_auxiliary_states(), aux_shapes):
+        aux[name] = np.ones(shape, "float32") if name.endswith("var") \
+            else np.zeros(shape, "float32")
+    return args, aux
+
+
+def test_ssd_twin_fit_matches_the_jax_recipe(tmp_path):
+    """The twin's ``train()`` (``Module.fit`` of ``symbol_ssd_torch``'s
+    graph over ``ImageDetRecordIter`` batches of ``dataset_torch``'s
+    records, SGD with momentum) against the JAX recipe's own
+    ``write_records``, ``build_ssd`` and ``make_metric`` in the same
+    ``Module.fit``, two epochs of two batches from the same weights: the
+    record files are byte for byte the same, and so is the shuffled order
+    (both iterators' shuffle seeds come from their package's host stream,
+    seeded alike); the epoch losses (cross-entropy plus smooth-L1 per
+    valid anchor) agree within TOL_SSD and fall. Not 1e-5: an object
+    centred between two anchors of one size overlaps both exactly alike,
+    and which of them its force match claims is decided by float32
+    rounding (the JAX op alone and the port both take the first; inside
+    the JAX graph XLA's fused arithmetic takes the second in this data),
+    so one positive moves to the next anchor (2.7e-4 of the first epoch's
+    loss here), and the hard-negative ranking may swap nearly equal
+    anchors at its cut."""
+    ssd_dir = os.path.join(ROOT, "example", "ssd")
+    sys.path.insert(0, ssd_dir)
+    try:
+        jd = _load("example/ssd/dataset.py", "dataset")
+        js = _load("example/ssd/symbol_ssd.py", "jax_symbol_ssd")
+        jt = _load("example/ssd/train.py", "jax_ssd_train")
+        pt = _load("example/ssd/train_torch.py", "port_ssd_train")
+    finally:
+        sys.path.remove(ssd_dir)
+    cfg = SSD
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jdir.mkdir()
+    pdir.mkdir()
+    rec = jd.write_records(str(jdir / "train"), num_images=cfg["num_images"],
+                           size=cfg["image_size"])
+    net = js.build_ssd(jd.NUM_CLASSES, mode="train")
+    args, aux = _ssd_weights(jmx, net, cfg)
+
+    s = cfg["image_size"]
+    with jax_host_seed(0):
+        it = jmx.io.ImageDetRecordIter(rec, data_shape=(3, s, s),
+                                       batch_size=cfg["batch_size"],
+                                       max_objs=4, shuffle=True,
+                                       scale=1.0 / 255)
+    mod = jmx.mod.Module(net, context=jmx.cpu(), data_names=["data"],
+                         label_names=["label"])
+    metric, want = jt.make_metric(jmx), []
+
+    def on_epoch(*_a):
+        want.append(sum(metric.get()[1]))
+        metric.reset()
+
+    mod.fit(it, num_epoch=2, optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"], "momentum": 0.9,
+                              "wd": 1e-4}, eval_metric=metric, kvstore=None,
+            arg_params={k: jmx.nd.array(v) for k, v in args.items()},
+            aux_params={k: jmx.nd.array(v) for k, v in aux.items()},
+            epoch_end_callback=on_epoch)
+
+    mx.random.seed(0)
+    argv = ["--epochs", "2", "--num-images", str(cfg["num_images"]),
+            "--image-size", str(s), "--batch-size", str(cfg["batch_size"]),
+            "--lr", str(cfg["lr"]), "--data-dir", str(pdir)]
+    got, _, _ = pt.train(
+        pt.parse_args(argv), mx.cpu(),
+        arg_params={k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()},
+        aux_params={k: mx.nd.array(v, ctx=mx.cpu()) for k, v in aux.items()},
+        verbose=False)
+    for ext in (".rec", ".idx"):
+        assert (pdir / f"train{ext}").read_bytes() == \
+            (jdir / f"train{ext}").read_bytes()
+    np.testing.assert_allclose(got, want, rtol=TOL_SSD)
+    assert got[1] < got[0]

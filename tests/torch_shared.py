@@ -1,5 +1,6 @@
 """Fixture results computed once per test session, across the suite's
-worker processes (a helper for the port's test files; no tests of its own).
+worker processes, and the JAX package's host stream seeded for a block
+(helpers for the port's test files; no tests of its own).
 
 The suite runs under pytest-xdist with ``--dist load``, which hands a
 file's tests to several workers, and each worker computes the file's
@@ -13,6 +14,7 @@ just calls the function.
     def exported(tmp_path_factory):
         return once(tmp_path_factory, "serving-exported", _export)
 """
+import contextlib
 import os
 import pickle
 
@@ -34,3 +36,24 @@ def once(tmp_path_factory, key, compute):
         with open(path, "wb") as f:
             pickle.dump(value, f)
         return value
+
+
+@contextlib.contextmanager
+def jax_host_seed(seed):
+    """The JAX package's host stream (``mxnet_tpu.random.host_rng()``, which
+    its initializers and iterators draw from) seeded with ``seed`` for the
+    block and restored after it. Otherwise the stream is seeded once a
+    worker (from ``MXNET_SEED``) and advanced by every earlier test there,
+    so what a test draws from it differs from worker to worker."""
+    from mxnet_tpu import random as jrandom
+    saved = dict(jrandom._global)
+    host = saved.get("host")
+    state = host.get_state() if host is not None else None
+    jrandom.seed(seed)
+    try:
+        yield
+    finally:
+        if host is not None:
+            host.set_state(state)
+        jrandom._global.clear()
+        jrandom._global.update(saved)
