@@ -145,15 +145,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8,732 anchors and batch 32 on the card against the CPU (discrete
    outputs equal) and timed; then the trained weights served through the
    detection graph (``MultiBoxDetection``, nms_topk 400).
+20. route G1, the image-classification recipe's north-star command
+   (``example/image-classification/train_imagenet_torch.py --network
+   resnet-v1 --num-layers 50 --gpus 0 --kv-store device --benchmark 1
+   --batch-size 32``, 640 synthetic images: 20 updates): ResNet-50 v1 as
+   ``symbols/resnet.py`` builds it, uncut, 224², 1,000 classes, float32,
+   through ``fit()``, ``Module``, the ``device`` store and the device
+   feed. Step 1 against float64 on the card (route B's gates); update 1
+   through the store bitwise a direct update of the same gradients; the
+   losses finite and the rate not yet cut (the schedule's first cut falls
+   at update 30: the synthetic iterator has no ``.idx``); step ms, images/s,
+   peak memory, host dispatch, the pull's copies a step and a
+   ``torch.profiler`` breakdown of one more step.
+21. route G2: the same command on 512 synthetic 256x256 JPEG records
+   through ``ImageRecordIter`` (random crop and mirror) and the device
+   feed: images/s end to end beside G1's, the iterator's time a batch,
+   the time ``next()`` waited; one batch through the feed on the card
+   against the CPU's.
+22. route G3, ``BASELINE.json`` config #1: ``train_mnist_torch.py
+   --network lenet --gpus 0`` over ``MNISTIter`` on 60,000 + 10,000
+   synthetic idx images, the recipe's two epochs; validation accuracy
+   above 0.95; step 1 against float64 (loss, logits).
+23. route G4: every registered optimizer, three LeNet updates through
+   ``Module`` and the ``device`` store on the card against the CPU (1e-5
+   of each tensor's largest entry; the sign and threshold rules, and those
+   that divide by ``√v + ε``, by their count of flipped entries, against
+   a control that must miss); SGD and
+   NAG with ``multi_precision`` on float16 weights through the store;
+   each rule's update time on ResNet-50's 161 parameter tensors.
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step,
 one bf16 fused step and one route F step (route A's and route D's steps
-are profiled in every run). Apart from the ``transformer_lm`` twin, no
-phase from 12 on launches a Hopper kernel: the conv nets, the recurrent
-family and the detection family reach no TPU kernel (the JAX package
+are profiled in every run, and one route G1 step). Apart from the
+``transformer_lm`` twin, no phase from 12 on launches a Hopper kernel: the
+conv nets, the recurrent family, the detection family and the
+image-classification recipe reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -4186,6 +4215,630 @@ def ssd_phase(mx, dev, workdir, profile=False):
             "peak_gb": peak, "target_ms": t_target, "detect_ms": t_detect}
 
 
+
+# ---- route G: the image-classification recipe (phases 20-23) ----------
+IC_DIR = os.path.join("example", "image-classification")
+# the north star's command on one card; 640 synthetic images are 20
+# updates of the batch (the recipe's default reads 1,281,167)
+G1_ARGV = ("--network", "resnet-v1", "--num-layers", "50", "--gpus", "0",
+           "--kv-store", "device", "--benchmark", "1", "--batch-size", "32",
+           "--num-examples", "640")
+G1_UPDATES = 20
+G1_CUT_AT = 30          # lr_step_epochs 30 of a one-batch epoch
+G2_IMAGES = 512         # 16 batches of 32
+G2_SIZE = 256
+G2_CHECK_TOL = 1.0      # one level of a uint8 pixel (mean only, std 1)
+G3_TRAIN, G3_VAL = 60000, 10000
+G3_BAR = 0.95           # validation accuracy after the recipe's 2 epochs
+G4_BATCH = 64
+G4_STEPS = 3
+TOL_G4 = 1e-5           # of each tensor's largest entry, card against CPU
+G4_FLIPS = 1e-2         # flipped entries allowed a sign or threshold rule
+G4_CONTROL_LR = 1.01    # the control's learning rate factor: must miss
+G4_RULES = (
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 1e-3}),
+    ("adagrad", {"learning_rate": 1e-3}),
+    ("adadelta", {}),
+    ("rmsprop", {"learning_rate": 1e-3}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                 "clip_weights": 1.0}),
+    ("ftrl", {"learning_rate": 0.1}),
+    ("signum", {"learning_rate": 1e-3}),
+    ("ftml", {"learning_rate": 2.5e-3}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adamax", {"learning_rate": 2e-3}),
+    ("nadam", {"learning_rate": 1e-3}),
+    ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("test", {"learning_rate": 0.1}),
+)
+# held by their flipped entries: the sign and threshold rules, and the
+# rules that divide by a root of the squared gradients plus a small ε: an
+# entry whose gradient is near ε answers to its rounding with a slope up
+# to lr/ε, a soft threshold (as in the port's Adam parity test)
+G4_THRESHOLD = ("ftrl", "signum", "lbsgd", "adam", "nadam", "adamax",
+                "adagrad", "rmsprop", "ftml")
+
+
+def _g1_value(flag, default=None):
+    """A flag's value in G1_ARGV."""
+    return G1_ARGV[G1_ARGV.index(flag) + 1] if flag in G1_ARGV else default
+
+
+def run_recipe(script, argv):
+    """Run a recipe twin of ``example/image-classification`` as its
+    command line would (``__main__``, ``sys.argv``); its module globals."""
+    import runpy
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), IC_DIR,
+                        script)
+    saved = sys.argv
+    sys.argv = [path] + list(argv)
+    try:
+        return runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+
+
+class FitRecorder:
+    """While a recipe runs, wraps ``Module.forward_backward`` and
+    ``update`` and the device feed: the first training module's parameters
+    before step 1, its batch, gradients and outputs, the weights after
+    update 1, each step's start (host clock and a CUDA event), host
+    dispatch and loss (a 0-d tensor on the card), and the feeds made."""
+
+    def __init__(self, mx, cuda: bool):
+        self.mx, self.cuda = mx, cuda
+        self.module = self.batch = self.w0 = self.aux0 = None
+        self.grads1 = self.probs1 = self.w1 = None
+        self.starts, self.host, self.losses, self.feeds = [], [], [], []
+
+    def __enter__(self):
+        mx, rec = self.mx, self
+        M = mx.mod.Module
+        self._saved = (M.forward_backward, M.update, mx.io.DeviceFeedIter)
+        fb, up, feed_cls = self._saved
+
+        def forward_backward(mod, batch):
+            if rec.module is None:
+                rec.module, rec.batch = mod, batch
+                arg, aux = mod.get_params()
+                rec.w0 = {k: v._data for k, v in arg.items()}
+                rec.aux0 = {k: v._data for k, v in aux.items()}
+            if mod is rec.module:
+                event = None
+                if rec.cuda:
+                    event = torch.cuda.Event(enable_timing=True)
+                    event.record()
+                rec.starts.append((time.perf_counter(), event))
+                rec._batch = batch
+            return fb(mod, batch)
+
+        def update(mod):
+            if mod is rec.module:
+                probs = mod.get_outputs()[0]._data
+                label = rec._batch.label[0]._data.long()
+                rec.losses.append(-torch.log(probs.gather(
+                    1, label[:, None]).clamp_min(1e-30)).mean())
+                if rec.grads1 is None:
+                    exe = mod._exec_group.execs[0]
+                    rec.grads1 = {k: exe.grad_dict[k]._data.clone()
+                                  for k in rec.w0}
+                    rec.probs1 = probs.clone()
+            out = up(mod)
+            if mod is rec.module:
+                if rec.w1 is None:
+                    rec.w1 = {k: v._data for k, v in
+                              mod.get_params()[0].items()}
+                rec.host.append(time.perf_counter() - rec.starts[-1][0])
+            return out
+
+        class RecordedFeed(feed_cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.feeds.append(self)
+
+        M.forward_backward, M.update = forward_backward, update
+        mx.io.DeviceFeedIter = RecordedFeed
+        return self
+
+    def __exit__(self, *exc):
+        M = self.mx.mod.Module
+        M.forward_backward, M.update, self.mx.io.DeviceFeedIter = self._saved
+        return False
+
+    def step_ms(self):
+        """Device ms between consecutive step starts, step 1 left out."""
+        torch.cuda.synchronize()
+        ev = [e for _, e in self.starts]
+        return [a.elapsed_time(b) for a, b in zip(ev[1:-1], ev[2:])]
+
+    def wall_s(self):
+        """Host seconds between consecutive step starts, step 1 left
+        out."""
+        t = [h for h, _ in self.starts]
+        return [b - a for a, b in zip(t[1:-1], t[2:])]
+
+
+def classifier_step(mx, sym, logits_name, w0, aux0, batch, ctx, dtype):
+    """One training forward and backward of a ``SoftmaxOutput`` net in
+    ``dtype`` from the weights ``w0``: (probabilities, logits, {name:
+    gradient}); the logits come out beside it through ``BlockGrad``."""
+    logits = sym.get_internals()[logits_name + "_output"]
+    group = mx.sym.Group([sym, mx.sym.BlockGrad(logits)])
+    nd = mx.nd.NDArray
+    args = {k: nd(v.to(dtype).clone()) for k, v in w0.items()}
+    args["data"] = nd(batch.data[0]._data.to(dtype))
+    args["softmax_label"] = nd(batch.label[0]._data.to(dtype))
+    grads = {k: nd(torch.zeros_like(args[k]._data)) for k in w0}
+    reqs = {k: ("write" if k in grads else "null") for k in args}
+    aux = {k: nd(v.to(dtype).clone()) for k, v in aux0.items()}
+    ex = group.bind(ctx, args, grads, reqs, aux)
+    probs, lg = (o._data for o in ex.forward(is_train=True))
+    ex.backward()
+    return probs, lg, {k: g._data for k, g in grads.items()}
+
+
+def _ce(probs, label) -> float:
+    return float(-torch.log(probs.double().gather(
+        1, label.long()[:, None]).clamp_min(1e-300)).mean())
+
+
+def classifier_gate(mx, what, sym, rec, ctx, top, tol_grad=None,
+                    tol_top=None):
+    """Step 1 of a recorded recipe run against the same step in float64
+    on the card: the loss, the logits (the float32 step's, from the same
+    weights, beside the recorded probabilities) and, if asked, the
+    gradients (the output layer ``top`` and the rest apart)."""
+    probs32, logits32, g32 = classifier_step(mx, sym, top, rec.w0, rec.aux0,
+                                             rec.batch, ctx, torch.float32)
+    probs64, logits64, g64 = classifier_step(mx, sym, top, rec.w0, rec.aux0,
+                                             rec.batch, ctx, torch.float64)
+    label = rec.batch.label[0]._data
+    loss32, loss64 = _ce(rec.probs1, label), _ce(probs64, label)
+    s = {"loss": abs(loss32 - loss64) / abs(loss64),
+         "logits": _rel_err(logits32, logits64),
+         "probs_rerun": float((probs32 - rec.probs1).abs().max())}
+    if tol_grad is not None:
+        null = _null_grads(g64)
+        errs, nulls = _rn_grads_rel(rec.grads1, g64, null)
+        s["top"] = max(v for k, v in errs.items() if k.startswith(top))
+        s["all"] = max(errs.values())
+        s["null"] = sorted(null)
+    print(f"{what}: step 1 against float64 on the card: loss {loss32:.6f} "
+          f"(relative {s['loss']:.3e}), logits {s['logits']:.3e} of the "
+          f"largest, the recorded probabilities against a rerun "
+          f"{s['probs_rerun']:.3e}" + (
+              f", gradients ||dg||/||g||: output layer {s['top']:.3e}, "
+              f"largest {s['all']:.3e} (null: {s['null']})"
+              if tol_grad is not None else ""))
+    bad = s["loss"] > TOL_RN_LOSS or s["logits"] > TOL_RN_LOGITS
+    if tol_grad is not None:
+        bad = bad or s["top"] > tol_top or s["all"] > tol_grad
+    if bad:
+        raise AssertionError(f"{what}: step 1 misses its float64 gates: {s}")
+    return s
+
+
+def _timings(what, rec, batch, n_updates):
+    """Print the recorded steps' times: device ms between step starts,
+    host dispatch, images/s and peak memory."""
+    dev_ms = float(np.median(rec.step_ms()))
+    host_ms = 1e3 * float(np.median(rec.host[1:]))
+    wall_ms = 1e3 * float(np.median(rec.wall_s()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{what}: {n_updates} updates; step {dev_ms:.2f} ms on the card "
+          f"(median of steps 2-{n_updates}), {wall_ms:.2f} ms on the host "
+          f"clock, {1e3 * batch / wall_ms:.1f} images/s end to end "
+          f"({1e3 * batch / dev_ms:.1f} by the card's step); host dispatch "
+          f"{host_ms:.2f} ms a step; peak memory {peak:.2f} GB; card "
+          f"{_card_line()}")
+    return dev_ms, wall_ms
+
+
+def recipe_resnet_phase(mx, dev, profile=False):
+    """G1 (phase 20): the north star's command, ``train_imagenet_torch.py
+    --network resnet-v1 --num-layers 50 --gpus 0 --kv-store device
+    --benchmark 1 --batch-size 32``: ResNet-50 v1 uncut at 224² and 1,000
+    classes in float32, SGD (momentum 0.9, wd 1e-4, lr 0.1) and Xavier
+    through ``fit()``, ``Module``, the store and the device feed for
+    G1_UPDATES updates. Step 1 against float64 on the card; the store's
+    update 1 bitwise a direct update of the same gradients; the loss finite
+    and the rate still 0.1 (the cut falls at update 30)."""
+    ctx = _ctx(mx, dev)
+    torch.cuda.reset_peak_memory_stats()
+    argv = list(G1_ARGV)
+    if dev.type != "cuda":
+        argv[argv.index("--gpus") + 1] = ""
+    with FitRecorder(mx, dev.type == "cuda") as rec:
+        g = run_recipe("train_imagenet_torch.py", argv)
+    mod, args = rec.module, g["args"]
+    if len(rec.starts) != G1_UPDATES:
+        raise AssertionError(f"route G1: {len(rec.starts)} updates, "
+                             f"expected {G1_UPDATES}")
+    dev_ms, wall_ms = _timings("route G1", rec, args.batch_size, G1_UPDATES)
+    losses = torch.stack(rec.losses).tolist()
+    opt = mod._optimizer
+    lr_now = opt.learning_rate
+    print(f"route G1: losses {losses[0]:.4f} -> {losses[-1]:.4f}; lr after "
+          f"{opt.num_update} updates {lr_now} (schedule steps "
+          f"{opt.lr_scheduler.step}: one batch an epoch, the train "
+          f"iterator has no .idx)")
+    if not all(math.isfinite(v) for v in losses) or lr_now != args.lr \
+            or opt.lr_scheduler.step[0] != G1_CUT_AT:
+        raise AssertionError("route G1: a loss is not finite, or the rate "
+                             "was cut before update 30")
+    kv = mod._kvstore
+    stats = kv.comm_stats
+    print(f"route G1: the store ({kv.type}): {stats['pushes']} pushes, "
+          f"{stats['bucket_reduces']} buckets, {stats['pull_copies']} pull "
+          f"copies ({stats['pull_copies'] / G1_UPDATES:.0f} a step, "
+          f"{stats['pull_bytes'] / G1_UPDATES / 1e6:.1f} MB a step)")
+    feed = rec.feeds[0]
+    print(f"route G1: the device feed: {feed.feed_stats['batches']} "
+          f"batches, next() waited {1e3 * feed.feed_stats['wait_s']:.2f} ms"
+          f" in all, {feed.feed_stats['copied_bytes']} bytes copied (the "
+          f"synthetic batch is made on the card)")
+
+    # the store's update 1 against a direct update of the same gradients
+    direct = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", learning_rate=args.lr, wd=args.wd, momentum=args.mom,
+        rescale_grad=1.0 / args.batch_size))
+    same = True
+    for i, name in enumerate(mod._param_names):
+        w = mx.nd.NDArray(rec.w0[name].clone())
+        direct(i, mx.nd.NDArray(rec.grads1[name]), w)
+        same = same and torch.equal(w._data, rec.w1[name])
+    print(f"route G1: update 1 through the store against the direct "
+          f"updater on the same gradients: bitwise {same}")
+    if not same:
+        raise AssertionError("route G1: the store's update 1 differs from "
+                             "the direct update")
+
+    sym = g["sym"]
+    classifier_gate(mx, "route G1", sym, rec, ctx, "fc1",
+                    tol_grad=TOL_RN_GRAD, tol_top=TOL_RN_GRAD_TOP)
+    batch = rec.batch
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    profile_breakdown("route G1 step (ResNet-50 v1, batch 32, float32, "
+                      "Module over the store)", step)
+    if profile:
+        t_host, t_dev, _ = _timed_step(step)
+        print(f"route G1: one more step: host dispatch "
+              f"{1e3 * t_host:.2f} ms, device {t_dev:.2f} ms")
+    return dev_ms, wall_ms
+
+
+def g2_records(mx, workdir):
+    """G2_IMAGES synthetic G2_SIZE² JPEGs (smooth colour fields with a
+    rectangle, labels in [0, 1000)) in an indexed ``.rec``."""
+    from PIL import Image  # noqa: F401  (pack_img encodes with Pillow)
+    os.makedirs(workdir, exist_ok=True)
+    rec, idx = (os.path.join(workdir, "g2" + e) for e in (".rec", ".idx"))
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[0:G2_SIZE, 0:G2_SIZE].astype(np.float32) / G2_SIZE
+    t0 = time.perf_counter()
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(G2_IMAGES):
+        a, b, c = rng.uniform(0, 255, (3, 3))
+        img = np.stack([a[0] + (a[1] - a[0]) * yy + (a[2] - a[0]) * xx * 0.5,
+                        b[0] + (b[1] - b[0]) * xx,
+                        c[0] + (c[1] - c[0]) * yy * xx], -1)
+        y0, x0 = rng.randint(0, G2_SIZE // 2, 2)
+        h, wd = rng.randint(16, G2_SIZE // 2, 2)
+        img[y0:y0 + h, x0:x0 + wd] = rng.uniform(0, 255, 3)
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+        header = mx.recordio.IRHeader(0, float(rng.randint(0, 1000)), i, 0)
+        w.write_idx(i, mx.recordio.pack_img(header, img.astype(np.uint8),
+                                            quality=90))
+    w.close()
+    print(f"route G2: {G2_IMAGES} synthetic {G2_SIZE}x{G2_SIZE} JPEG records"
+          f" written in {time.perf_counter() - t0:.2f} s (set-up)")
+    return rec
+
+
+def recipe_records_phase(mx, dev, workdir, g1_ms):
+    """G2 (phase 21): the same command on a ``.rec`` of G2_IMAGES JPEGs
+    through ``ImageRecordIter`` (``rand_crop``, ``rand_mirror``, the
+    recipe's mean), the device feed and ``Module``: images/s end to end
+    beside G1's, the iterator's time a batch, what ``next()`` waited, and
+    one batch through the feed on the card against the same batch on the
+    CPU."""
+    rec_path = g2_records(mx, workdir)
+    shape = tuple(int(v) for v in _g1_value("--image-shape",
+                                             "3,224,224").split(","))
+    batch = int(_g1_value("--batch-size"))
+    mean = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
+
+    def iterator(seed=None, threads=4):
+        return mx.io.ImageRecordIter(
+            path_imgrec=rec_path, data_shape=shape, batch_size=batch,
+            shuffle=True, rand_crop=True, rand_mirror=True, ctx=mx.cpu(),
+            seed=seed, preprocess_threads=threads, **mean)
+
+    it = iterator()
+    times = []
+    for _ in range(min(6, G2_IMAGES // batch)):
+        t0 = time.perf_counter()
+        it.next()
+        times.append(time.perf_counter() - t0)
+    it_ms = 1e3 * float(np.median(times))
+    print(f"route G2: ImageRecordIter: {it_ms:.1f} ms a batch of {batch} "
+          f"(median of {len(times)}; decode, crop, mirror, normalise on 4 "
+          f"threads)")
+
+    # one batch through the feed on the card against the CPU's
+    pair = []
+    for ctx in (_ctx(mx, dev), mx.cpu()):
+        np.random.seed(SEED)
+        base = iterator(seed=SEED, threads=1)
+        feed = mx.io.DeviceFeedIter(base, ctx=ctx)
+        b = feed.next()
+        pair.append((b.data[0]._data.cpu(), b.label[0]._data.cpu(),
+                     b.data[0]._data.device))
+        feed.close()
+    d_err = float((pair[0][0] - pair[1][0]).abs().max())
+    same_labels = torch.equal(pair[0][1], pair[1][1])
+    print(f"route G2: one batch on {pair[0][2]} against the CPU: labels "
+          f"equal {same_labels}, data max |diff| {d_err:.3e} (bound "
+          f"{G2_CHECK_TOL}: one uint8 level)")
+    if not same_labels or d_err > G2_CHECK_TOL or \
+            pair[0][2].type != dev.type:
+        raise AssertionError("route G2: the fed batch differs from the "
+                             "CPU's")
+
+    torch.cuda.reset_peak_memory_stats()
+    argv = [a for a in G1_ARGV]
+    k = argv.index("--benchmark")
+    argv[k + 1] = "0"
+    argv[argv.index("--num-examples") + 1] = str(G2_IMAGES)
+    argv += ["--data-train", rec_path]
+    if dev.type != "cuda":
+        argv[argv.index("--gpus") + 1] = ""
+    n_updates = G2_IMAGES // batch
+    with FitRecorder(mx, dev.type == "cuda") as rec:
+        run_recipe("train_imagenet_torch.py", argv)
+    if len(rec.starts) != n_updates:
+        raise AssertionError(f"route G2: {len(rec.starts)} updates, "
+                             f"expected {n_updates}")
+    dev_ms, wall_ms = _timings("route G2", rec, batch, n_updates)
+    feed = rec.feeds[0]
+    fs = feed.feed_stats
+    copy_ms = fs["copied_bytes"] / fs["batches"] / 25e9 * 1e3
+    print(f"route G2: end to end {batch * 1e3 / wall_ms:.1f} images/s "
+          f"against G1's {batch * 1e3 / g1_ms:.1f} on synthetic batches; "
+          f"next() waited "
+          f"{1e3 * fs['wait_s'] / fs['batches']:.2f} ms a batch (the "
+          f"iterator alone {it_ms:.1f} ms, the step {dev_ms:.2f} ms on the "
+          f"card, {fs['copied_bytes'] / fs['batches'] / 1e6:.1f} MB copied a"
+          f" batch, ~{copy_ms:.2f} ms at 25 GB/s)")
+    losses = torch.stack(rec.losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("route G2: a loss is not finite")
+
+
+def mnist_files(root, n_train, n_val):
+    """MNIST idx files of a learnable synthetic task: digit c is a bright
+    bar at one of ten places (five rows, five columns), on noise, shifted
+    by up to a pixel, so that no two digits' bars meet (MNIST itself is
+    not in the repo)."""
+    import struct
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(SEED)
+    for prefix, n in (("train", n_train), ("t10k", n_val)):
+        y = rng.randint(0, 10, n).astype(np.uint8)
+        x = rng.randint(0, 90, (n, 28, 28)).astype(np.uint8)
+        dy, dx = rng.randint(-1, 2, (2, n))
+        for i, c in enumerate(y):
+            pos = 3 + 5 * (c % 5) + dy[i]
+            if c < 5:
+                x[i, pos:pos + 2, 4 + dx[i]:24 + dx[i]] = 255
+            else:
+                x[i, 4 + dx[i]:24 + dx[i], pos:pos + 2] = 255
+        for kind, magic, arr in (("images-idx3-ubyte", 2051, x),
+                                 ("labels-idx1-ubyte", 2049, y)):
+            with open(os.path.join(root, f"{prefix}-{kind}"), "wb") as f:
+                dims = arr.shape if arr.ndim == 3 else (n,)
+                f.write(struct.pack(">I" + "I" * len(dims), magic, *dims))
+                f.write(arr.tobytes())
+
+
+def recipe_mnist_phase(mx, dev, workdir):
+    """G3 (phase 22): ``BASELINE.json`` config #1, ``train_mnist_torch.py
+    --network lenet --gpus 0`` over ``MNISTIter`` on idx files of
+    G3_TRAIN and G3_VAL synthetic images: the recipe's two epochs (SGD lr
+    0.05, momentum 0.9, batch 64; the rate cut after update 10, the
+    ``.idx`` quirk), validation accuracy above G3_BAR; step 1 against
+    float64 (loss and logits)."""
+    root = os.path.join(workdir, "mnist")
+    t0 = time.perf_counter()
+    mnist_files(root, G3_TRAIN, G3_VAL)
+    print(f"route G3: {G3_TRAIN} + {G3_VAL} synthetic 28x28 idx images "
+          f"written in {time.perf_counter() - t0:.2f} s (set-up)")
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--network", "lenet", "--gpus",
+            "0" if dev.type == "cuda" else "", "--data-dir", root]
+    t0 = time.perf_counter()
+    with FitRecorder(mx, dev.type == "cuda") as rec:
+        g = run_recipe("train_mnist_torch.py", argv)
+    fit_s = time.perf_counter() - t0
+    args, mod = g["args"], rec.module
+    n_updates = len(rec.starts)
+    _timings("route G3", rec, args.batch_size, n_updates)
+    val = mx.io.MNISTIter(image=os.path.join(root, "t10k-images-idx3-ubyte"),
+                          label=os.path.join(root, "t10k-labels-idx1-ubyte"),
+                          batch_size=args.batch_size, shuffle=False)
+    acc = dict(mod.score(val, "acc"))["accuracy"]
+    print(f"route G3: LeNet, {args.num_epochs} epochs of {n_updates // args.num_epochs} "
+          f"updates in {fit_s:.1f} s (validation included); validation "
+          f"accuracy {acc:.4f} (bar {G3_BAR}); lr after the run "
+          f"{mod._optimizer.learning_rate:g}")
+    if acc <= G3_BAR:
+        raise AssertionError(f"route G3: validation accuracy {acc:.4f} is "
+                             f"not above {G3_BAR}")
+    classifier_gate(mx, "route G3", g["sym"], rec, _ctx(mx, dev), "fc2")
+
+
+def _lenet_run(mx, sym, ctx, name, params, values, batches):
+    """G4_STEPS updates of LeNet through Module and the ``device`` store on
+    ``ctx``: the weights after."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (G4_BATCH, 1, 28, 28))],
+             label_shapes=[("softmax_label", (G4_BATCH,))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in values.items()})
+    mod.init_optimizer(kvstore="device", optimizer=name,
+                       optimizer_params=dict(params))
+    for x, y in batches:
+        mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                             [mx.nd.array(y, ctx=ctx)]))
+        mod.update()
+    return {k: v._data.double().cpu() for k, v in mod.get_params()[0].items()}
+
+
+def _flips(got, want):
+    """(entries beyond TOL_G4 of their tensor's largest, all entries,
+    the largest error relative to its tensor's largest)."""
+    n = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        d = (got[k] - w).abs() / scale
+        n += int((d > TOL_G4).sum())
+        total += w.numel()
+        worst = max(worst, float(d.max()))
+    return n, total, worst
+
+
+def optimizer_card_phase(mx, dev):
+    """G4 (phase 23): every registered rule takes G4_STEPS LeNet updates
+    through ``Module`` and the ``device`` store on the card and on the CPU
+    from the same weights and batches; each is held at TOL_G4 of each
+    tensor's largest entry, the sign and threshold rules and the rules
+    normalised by ``√v + ε`` (G4_THRESHOLD) by their count of flipped
+    entries (at most G4_FLIPS of them, against a control of the CPU run at
+    G4_CONTROL_LR times the rate, which must miss). SGD and NAG
+    also with ``multi_precision`` on float16 weights through the store.
+    Then each rule's update time on ResNet-50's parameters."""
+    ctx = _ctx(mx, dev)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), IC_DIR))
+    try:
+        import importlib
+        lenet = importlib.import_module("symbols.lenet_torch")
+        resnet = importlib.import_module("symbols.resnet_torch")
+    finally:
+        sys.path.pop(0)
+    sym = lenet.get_symbol(num_classes=10)
+    rng = np.random.RandomState(SEED)
+    arg_shapes, _, _ = sym.infer_shape(data=(G4_BATCH, 1, 28, 28),
+                                       softmax_label=(G4_BATCH,))
+    values = {n: (rng.randn(*s) * (0.1 if n.endswith("weight") else 0.01))
+              .astype(np.float32)
+              for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    batches = [(rng.rand(G4_BATCH, 1, 28, 28).astype(np.float32),
+                rng.randint(0, 10, G4_BATCH).astype(np.float32))
+               for _ in range(G4_STEPS)]
+    registered = sorted(mx.optimizer._OPT_REGISTRY)
+    if sorted({n for n, _ in G4_RULES}) != registered:
+        raise AssertionError(f"route G4: the rules run are not the "
+                             f"registry: {registered}")
+    for name, params in G4_RULES:
+        card = _lenet_run(mx, sym, ctx, name, params, values, batches)
+        host = _lenet_run(mx, sym, mx.cpu(), name, params, values, batches)
+        n, total, worst = _flips(card, host)
+        line = (f"route G4: {name} {params}: card against CPU: largest "
+                f"error {worst:.3e} of its tensor's largest, {n} of {total} "
+                f"entries beyond {TOL_G4}")
+        if name in G4_THRESHOLD:
+            ctrl_params = dict(params)
+            ctrl_params["learning_rate"] = params.get(
+                "learning_rate", 0.01) * G4_CONTROL_LR
+            ctrl = _lenet_run(mx, sym, mx.cpu(), name, ctrl_params, values,
+                              batches)
+            cn, _, _ = _flips(ctrl, host)
+            print(f"{line}; control (rate x{G4_CONTROL_LR}) {cn} entries "
+                  f"(allowed {G4_FLIPS * total:.0f})")
+            if n > G4_FLIPS * total or cn <= G4_FLIPS * total:
+                raise AssertionError(f"route G4: {name}: {n} flipped, "
+                                     f"control {cn}")
+        else:
+            print(line)
+            if n:
+                raise AssertionError(f"route G4: {name} misses {TOL_G4}")
+
+    # multi_precision: float16 weights, float32 masters, through the store
+    grads = None
+    for name in ("sgd", "nag"):
+        outs = []
+        for c in (ctx, mx.cpu()):
+            opt = mx.optimizer.create(name, learning_rate=0.1, momentum=0.9,
+                                      multi_precision=True,
+                                      rescale_grad=1.0 / G4_BATCH)
+            kv = mx.kvstore.create("device")
+            kv.set_optimizer(opt)
+            ws = {k: mx.nd.array(v, ctx=c, dtype="float16")
+                  for k, v in values.items()}
+            if grads is None:
+                rs = np.random.RandomState(SEED + 1)
+                grads = {k: rs.randn(*v.shape).astype(np.float16)
+                         for k, v in values.items()}
+            for i, k in enumerate(sorted(ws)):
+                kv.init(i, ws[k])
+            for _ in range(G4_STEPS):
+                for i, k in enumerate(sorted(ws)):
+                    kv.push(i, mx.nd.array(grads[k], ctx=c, dtype="float16"))
+                for i, k in enumerate(sorted(ws)):
+                    kv.pull(i, ws[k])
+            masters = {k: kv._raw_updater.states[i][0].double().cpu()
+                       for i, k in enumerate(sorted(ws))}
+            outs.append(({k: w._data.double().cpu() for k, w in ws.items()},
+                         masters, ws[sorted(ws)[0]]._data.dtype))
+        n16, total, w16 = _flips(outs[0][0], outs[1][0])
+        n32, _, w32 = _flips(outs[0][1], outs[1][1])
+        print(f"route G4: {name} multi_precision on float16 weights: the "
+              f"float32 masters, card against CPU, largest error {w32:.3e} "
+              f"({n32} of {total} beyond {TOL_G4}); float16 weights equal "
+              f"but {n16} (largest {w16:.3e}); weights {outs[0][2]}")
+        if n32 or outs[0][2] != torch.float16:
+            raise AssertionError(f"route G4: {name} multi_precision misses")
+
+    # each rule's update time on ResNet-50's parameters (on the card)
+    rn = resnet.get_symbol(num_classes=1000, num_layers=50,
+                           image_shape="3,224,224", version=1)
+    shapes, _, _ = rn.infer_shape(data=(32, 3, 224, 224),
+                                  softmax_label=(32,))
+    shapes = [s for n, s in zip(rn.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")]
+    gen = torch.Generator(device=ctx.torch_device()).manual_seed(SEED)
+    times = []
+    for name, params in G4_RULES:
+        updater = mx.optimizer.get_updater(mx.optimizer.create(
+            name, rescale_grad=1.0 / 32, **params))
+        ws = [mx.nd.NDArray(torch.randn(s, generator=gen,
+                                        device=ctx.torch_device()) * 0.05)
+              for s in shapes]
+        gs = [mx.nd.NDArray(torch.randn(s, generator=gen,
+                                        device=ctx.torch_device()))
+              for s in shapes]
+
+        def one_pass():
+            for i, (w, g_) in enumerate(zip(ws, gs)):
+                updater(i, g_, w)
+        one_pass()                   # the states
+        ms = _time_ms(one_pass, 3) if dev.type == "cuda" else float("nan")
+        times.append(f"{name}{'-centered' if params.get('centered') else ''}"
+                     f" {ms:.2f}")
+        del ws, gs
+    print(f"route G4: one update of ResNet-50 v1's {len(shapes)} parameter "
+          f"tensors ({sum(int(np.prod(s)) for s in shapes)} floats), ms: "
+          f"{', '.join(times)}; card {_card_line()}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4311,6 +4964,24 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(hk.launch_counts.values()):
         raise AssertionError(f"route F launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+    _free()
+    # route G, the image-classification recipe: no TPU kernel on its path
+    # (XLA lowered the JAX package's convolutions, BatchNorm and update
+    # rules; cuDNN and plain torch run the port's)
+    hk.reset_launch_counts()
+    try:
+        _, g1_wall_ms = recipe_resnet_phase(mx, dev, args.profile)
+        _free()
+        recipe_records_phase(mx, dev, workdir, g1_wall_ms)
+        _free()
+        recipe_mnist_phase(mx, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    _free()
+    optimizer_card_phase(mx, dev)
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route G launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
     for rec in records:
         name = rec["name"]

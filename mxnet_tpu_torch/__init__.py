@@ -5,8 +5,8 @@ module paths and public names (``mx.nd``, ``mx.sym``, the op registry, the
 executor, the predictor, the serving stack, and ``mx.autograd``,
 ``mx.gluon``, ``mx.init``, ``mx.optimizer`` and ``mx.lr_scheduler`` for
 training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
-``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model`` and
-``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
+``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model``,
+``mx.kvstore`` and ``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
 symbolic recurrent cells, ``mx.recordio`` and ``mx.image`` for the image
 data pipeline, ``mx.AttrScope`` for symbol attributes) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
@@ -47,6 +47,7 @@ from . import io
 from . import metric
 from . import callback
 from . import model
+from . import kvstore
 from . import module
 from . import module as mod
 from . import parallel
@@ -59,6 +60,6 @@ from . import image
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
-           "gluon", "operator", "rtc", "io", "metric", "callback", "model",
+           "gluon", "operator", "rtc", "io", "metric", "callback", "model", "kvstore",
            "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
            "recordio", "image"]

@@ -1,12 +1,14 @@
-"""Training callbacks (counterpart of ``Speedometer``, ``do_checkpoint`` and
-``log_train_metric`` in ``mxnet_tpu/callback.py``; reference
-``python/mxnet/callback.py``)."""
+"""Training callbacks (counterpart of ``Speedometer``, ``do_checkpoint``,
+``log_train_metric``, ``ProgressBar`` and ``LogValidationMetricsCallback``
+in ``mxnet_tpu/callback.py``; reference ``python/mxnet/callback.py``)."""
 from __future__ import annotations
 
 import logging
+import math
 import time
 
-__all__ = ["Speedometer", "do_checkpoint", "log_train_metric"]
+__all__ = ["Speedometer", "do_checkpoint", "log_train_metric", "ProgressBar",
+           "LogValidationMetricsCallback"]
 
 
 def do_checkpoint(prefix, period=1):
@@ -73,3 +75,29 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, count, speed)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """Logs a bar of ``length`` characters filled to ``nbatch/total``."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+class LogValidationMetricsCallback:
+    """Logs each validation metric at the end of ``score``."""
+
+    def __call__(self, param):
+        if param.eval_metric is None:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -1,9 +1,15 @@
-"""``mx.io`` — data iterators (counterpart of ``mxnet_tpu/io``): what the
-Module API needs and the record iterators; the CSV, MNIST and LibSVM
-iterators, ``ResizeIter``, ``PrefetchingIter`` and the device feed wait
-for a later slice (ROADMAP A7)."""
-from .io import (DataBatch, DataDesc, DataIter, ImageDetRecordIter,
-                 ImageRecordIter, NDArrayIter)
+"""``mx.io`` — data iterators (counterpart of ``mxnet_tpu/io``): the
+in-memory, CSV, MNIST and record iterators, ``ResizeIter`` and
+``PrefetchingIter`` with the state protocol, and the device feed
+(``DeviceFeedIter``, ``prefetch_to_device``). ``LibSVMIter`` waits for
+the sparse arrays (ROADMAP A3), ``ResilientDataIter`` for the operational
+layers (A9)."""
+from .io import (CSVIter, DataBatch, DataDesc, DataIter, ImageDetRecordIter,
+                 ImageRecordIter, LibSVMIter, MNISTIter, NDArrayIter,
+                 PrefetchingIter, ResizeIter, has_state)
+from .device_feed import DeviceFeedIter, prefetch_to_device
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "ImageRecordIter", "ImageDetRecordIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "ImageRecordIter",
+           "ImageDetRecordIter", "MNISTIter", "LibSVMIter", "DeviceFeedIter",
+           "prefetch_to_device", "has_state"]

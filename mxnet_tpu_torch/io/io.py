@@ -1,9 +1,14 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter``,
-``NDArrayIter``, ``ImageRecordIter`` and ``ImageDetRecordIter``.
+``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``CSVIter``,
+``MNISTIter``, ``ImageRecordIter`` and ``ImageDetRecordIter``, with the
+state protocol (``has_state``; ``state()``/``set_state()``: epoch, cursor
+and shuffle seed, so that a resumed epoch neither skips nor repeats a
+batch).
 
 Counterpart of the same names in ``mxnet_tpu/io/io.py`` (reference
 ``python/mxnet/io/io.py`` and ``src/io/iter_image_recordio_2.cc``,
-``iter_image_det_recordio.cc``). ``NDArrayIter``'s batches are NDArrays
+``iter_image_det_recordio.cc``, ``iter_csv.cc``, ``iter_mnist.cc``).
+``LibSVMIter`` waits for the sparse arrays (ROADMAP A3). ``NDArrayIter``'s batches are NDArrays
 on the host (``cpu()``), as the reference's iterators give them;
 ``Module.forward`` copies them onto its card. The record iterators decode
 on host threads and copy each batch to their ``ctx`` (the card by
@@ -14,7 +19,12 @@ does.
 """
 from __future__ import annotations
 
+import gzip
 import os
+import queue
+import struct
+import threading
+import time
 from collections import namedtuple
 from typing import Dict
 
@@ -25,8 +35,52 @@ from ..base import MXNetError
 from ..context import cpu, current_context
 from ..ndarray.ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "ImageRecordIter", "ImageDetRecordIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "MNISTIter", "LibSVMIter",
+           "ImageRecordIter", "ImageDetRecordIter", "has_state"]
+
+
+def has_state(it) -> bool:
+    """Whether ``it`` has the state protocol: ``state() -> dict`` and
+    ``set_state(dict)``."""
+    return callable(getattr(it, "state", None)) \
+        and callable(getattr(it, "set_state", None))
+
+
+def _put_or_stop(q, item, stop) -> bool:
+    """``q.put(item)`` that gives up once ``stop`` is set, so that a
+    producer never stays blocked on a queue nobody reads. False if it
+    gave up."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.2)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _join_producer(thread, q, stop, what: str, deadline_s: float = 60.0):
+    """Stop a producer thread and join it, draining ``q`` meanwhile so that
+    a blocked put sees ``stop``; raise if it has not exited by the
+    deadline. Whatever it staged is dropped."""
+    stop.set()
+    deadline = time.monotonic() + deadline_s
+    while thread is not None and thread.is_alive():
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        thread.join(timeout=0.1)
+        if time.monotonic() > deadline:
+            raise MXNetError(f"{what}: producer thread failed to stop "
+                             f"(base iterator blocked in next()?)")
+    try:
+        while True:
+            q.get_nowait()
+    except queue.Empty:
+        pass
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -99,7 +153,15 @@ class DataIter:
         return 0
 
     def close(self):
-        """Release what the iterator holds; nothing here."""
+        """Release what the iterator holds (threads, staged batches);
+        nothing here. A closed iterator is not iterated again."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 def _init_data(data, allow_empty, default_name):
@@ -141,9 +203,12 @@ class NDArrayIter(DataIter):
         self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
         self.idx = np.arange(self.num_data)
-        self._shuffle_rng = (np.random.RandomState(
-            int(_random.host_rng().randint(0, 2 ** 31 - 1)))
-            if shuffle else None)
+        # the order is a function of (seed, epoch), so the state is O(1)
+        self._shuffle_seed = (int(_random.host_rng().randint(0, 2 ** 31 - 1))
+                              if shuffle else None)
+        self._shuffle_rng = (np.random.RandomState(self._shuffle_seed)
+                             if shuffle else None)
+        self._epoch = -1
         self.reset()
 
     @property
@@ -157,6 +222,7 @@ class NDArrayIter(DataIter):
                 for k, v in self.label]
 
     def reset(self):
+        self._epoch += 1
         if self.shuffle:
             self._shuffle_rng.shuffle(self.idx)
         if self.last_batch_handle == "roll_over" and \
@@ -165,6 +231,34 @@ class NDArrayIter(DataIter):
                 (self.cursor % self.num_data) % self.batch_size
         else:
             self.cursor = -self.batch_size
+
+    def state(self) -> Dict:
+        """Epoch count, cursor and shuffle seed; :meth:`set_state` replays
+        the shuffles."""
+        return {"iter": "NDArrayIter", "epoch": self._epoch,
+                "cursor": int(self.cursor), "num_data": int(self.num_data),
+                "shuffle_seed": self._shuffle_seed}
+
+    def set_state(self, state: Dict) -> None:
+        if int(state["num_data"]) != self.num_data:
+            raise MXNetError(
+                f"NDArrayIter.set_state: checkpointed iterator had "
+                f"{int(state['num_data'])} samples, this one has "
+                f"{self.num_data}: not the same dataset")
+        if bool(self.shuffle) != (state.get("shuffle_seed") is not None):
+            raise MXNetError(
+                f"NDArrayIter.set_state: checkpoint was written with "
+                f"shuffle={state.get('shuffle_seed') is not None} but this "
+                f"iterator has shuffle={self.shuffle}")
+        epoch = int(state["epoch"])
+        self.idx = np.arange(self.num_data)
+        if self.shuffle:
+            self._shuffle_seed = int(state["shuffle_seed"])
+            self._shuffle_rng = np.random.RandomState(self._shuffle_seed)
+            for _ in range(epoch + 1):
+                self._shuffle_rng.shuffle(self.idx)
+        self._epoch = epoch
+        self.cursor = int(state["cursor"])
 
     def iter_next(self) -> bool:
         self.cursor += self.batch_size
@@ -190,6 +284,295 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class ResizeIter(DataIter):
+    """A fixed number of batches an epoch from another iterator, which is
+    reset when it runs out (reference ``io.py:ResizeIter``)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        for attr in ("provide_data", "provide_label", "default_bucket_key"):
+            if hasattr(data_iter, attr):
+                setattr(self, attr, getattr(data_iter, attr))
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def state(self) -> Dict:
+        if not has_state(self.data_iter):
+            raise MXNetError(f"ResizeIter.state: base iterator "
+                             f"{type(self.data_iter).__name__} has no state "
+                             f"protocol")
+        return {"iter": "ResizeIter", "cur": int(self.cur),
+                "base": self.data_iter.state()}
+
+    def set_state(self, state: Dict) -> None:
+        self.cur = int(state["cur"])
+        self.data_iter.set_state(state["base"])
+        self.current_batch = None
+
+    def close(self):
+        self.data_iter.close()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """Batches of one or more iterators, read ahead by a thread
+    (reference ``io.py:PrefetchingIter``). The state is the base
+    iterators' state after the last batch delivered: batches read ahead
+    and not delivered are read again after ``set_state``. A producer's
+    error is raised by every ``next()`` until ``reset()``."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        if not isinstance(iters, list):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._track_state = all(has_state(it) for it in iters)
+        self._last_states = ([it.state() for it in iters]
+                             if self._track_state else None)
+        self._closed = False
+        self._terminal = None     # StopIteration or the producer's error
+        # the producer reads under the caller's context (its own Context:
+        # entering one records the thread's previous context on it)
+        ctx = current_context()
+        self._ctx = type(ctx)(ctx.device_type, ctx.device_id)
+        self._queue: "queue.Queue" = queue.Queue(maxsize=4)
+        self._stop = threading.Event()
+        self._thread = None
+        self._start()
+
+    def _descs(self, attr, rename):
+        return [DataDesc(rename[i][d.name] if rename else d.name, d.shape,
+                         d.dtype)
+                for i, it in enumerate(self.iters)
+                for d in getattr(it, attr)]
+
+    @property
+    def provide_data(self):
+        return self._descs("provide_data", self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._descs("provide_label", self.rename_label)
+
+    def _producer(self, q, stop):
+        # q and stop are arguments: a thread from before a reset() never
+        # touches the new queue
+        with self._ctx:
+            self._produce(q, stop)
+
+    def _produce(self, q, stop):
+        try:
+            while not stop.is_set():
+                try:
+                    batches = [it.next() for it in self.iters]
+                except StopIteration:
+                    _put_or_stop(q, None, stop)
+                    return
+                states = ([it.state() for it in self.iters]
+                          if self._track_state else None)
+                if not _put_or_stop(q, (batches, states), stop):
+                    return
+        except Exception as e:          # raised at the consumer
+            _put_or_stop(q, e, stop)
+
+    def _start(self):
+        self._thread = threading.Thread(
+            target=self._producer, args=(self._queue, self._stop),
+            daemon=True, name="mxtorch-prefetch-iter")
+        self._thread.start()
+
+    def _stop_producer(self):
+        _join_producer(self._thread, self._queue, self._stop,
+                       "PrefetchingIter")
+        self._thread = None
+        self._terminal = None
+        self._stop = threading.Event()
+        self._queue = queue.Queue(maxsize=4)
+
+    def reset(self):
+        if self._closed:
+            raise MXNetError("PrefetchingIter is closed")
+        self._stop_producer()
+        for it in self.iters:
+            it.reset()
+        if self._track_state:
+            self._last_states = [it.state() for it in self.iters]
+        self._start()
+
+    def state(self) -> Dict:
+        if not self._track_state:
+            raise MXNetError(
+                "PrefetchingIter.state: base iterator(s) without the state "
+                "protocol: %s" % [type(it).__name__ for it in self.iters
+                                  if not has_state(it)])
+        return {"iter": "PrefetchingIter",
+                "base": [dict(s) for s in self._last_states]}
+
+    def set_state(self, state: Dict) -> None:
+        if self._closed:
+            raise MXNetError("PrefetchingIter is closed")
+        if not self._track_state:
+            raise MXNetError("PrefetchingIter.set_state: base iterator(s) "
+                             "without the state protocol")
+        if len(state["base"]) != len(self.iters):
+            raise MXNetError(
+                f"PrefetchingIter.set_state: checkpoint carries "
+                f"{len(state['base'])} base state(s) but this iterator "
+                f"composes {len(self.iters)}")
+        self._stop_producer()
+        for it, s in zip(self.iters, state["base"]):
+            it.set_state(s)
+        self._last_states = [dict(s) for s in state["base"]]
+        self._start()
+
+    def close(self):
+        """Stop the producer, drop what it read ahead and close the base
+        iterators."""
+        if self._closed:
+            return
+        self._closed = True
+        self._stop_producer()
+        for it in self.iters:
+            it.close()
+
+    def next(self):
+        if self._closed:
+            raise MXNetError("PrefetchingIter is closed")
+        if self._terminal is not None:
+            raise self._terminal
+        item = self._queue.get()
+        if item is None:
+            self._terminal = StopIteration
+            raise StopIteration
+        if isinstance(item, Exception):
+            self._terminal = item
+            raise item
+        batches, states = item
+        if states is not None:
+            self._last_states = states
+        return DataBatch(data=[d for b in batches for d in b.data],
+                         label=[l for b in batches for l in (b.label or [])],
+                         pad=batches[0].pad, index=batches[0].index)
+
+    def iter_next(self):
+        raise MXNetError("use next() on PrefetchingIter")
+
+
+class _Delegating(DataIter):
+    """An iterator over an inner ``NDArrayIter`` (CSV and MNIST)."""
+
+    def _wrap(self, inner):
+        self._inner = inner
+        self.provide_data = inner.provide_data
+        self.provide_label = inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def state(self) -> Dict:
+        return {"iter": type(self).__name__, "base": self._inner.state()}
+
+    def set_state(self, state: Dict) -> None:
+        self._inner.set_state(state["base"])
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+
+class CSVIter(_Delegating):
+    """Rows of a CSV file as data (and of another as labels) (reference
+    ``src/io/iter_csv.cc``); ``round_batch`` pads the last batch, else it
+    is dropped."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        data = np.loadtxt(data_csv, delimiter=",", dtype=dtype, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=dtype, ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label.shape[-1] == 1:
+                label = label.reshape(label.shape[:-1])
+        self._wrap(NDArrayIter(data, label, batch_size,
+                               last_batch_handle="pad" if round_batch
+                               else "discard"))
+
+
+def _read_idx(path, is_image):
+    """An MNIST idx file (gzip where the name ends in ``.gz``): images as
+    (N, 1, rows, cols) float32 in [0, 1], labels as float32."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        if is_image:
+            _, num, rows, cols = struct.unpack(">IIII", f.read(16))
+            arr = np.frombuffer(f.read(), dtype=np.uint8)
+            return arr.reshape(num, 1, rows, cols).astype("float32") / 255.0
+        struct.unpack(">II", f.read(8))
+        return np.frombuffer(f.read(), dtype=np.uint8).astype("float32")
+
+
+class MNISTIter(_Delegating):
+    """MNIST's idx files (reference ``src/io/iter_mnist.cc``): images
+    scaled to [0, 1], (N, 1, 28, 28) or ``flat`` (N, 784); the last short
+    batch dropped. ``seed`` is accepted and ignored, as in the JAX
+    package: the shuffle draws its seed from the host stream."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True, flat=False,
+                 silent=False, seed=None, **kwargs):
+        super().__init__(batch_size)
+        data = _read_idx(image, True)
+        if flat:
+            data = data.reshape(data.shape[0], -1)
+        self._wrap(NDArrayIter(data, _read_idx(label, False), batch_size,
+                               shuffle=shuffle, last_batch_handle="discard"))
+
+
+class LibSVMIter(DataIter):
+    """LibSVM files give ``CSRNDArray`` batches: waits for the port's
+    sparse arrays (ROADMAP A3)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("LibSVMIter: the port has no sparse "
+                                  "arrays yet (ROADMAP A3)")
 
 
 class ImageRecordIter(DataIter):

@@ -1,11 +1,12 @@
 """Evaluation metrics.
 
-Counterpart of ``EvalMetric``, ``Accuracy``, ``TopKAccuracy``,
-``CrossEntropy``, ``Perplexity``, ``Loss``, ``MSE``,
-``CompositeEvalMetric``, ``CustomMetric`` and ``create`` in
-``mxnet_tpu/metric.py`` (reference ``python/mxnet/metric.py``). Metrics
-read their inputs on the host, in numpy, as the reference's do; the other
-metrics of the registry wait for a later slice.
+Counterpart of ``mxnet_tpu/metric.py`` (reference
+``python/mxnet/metric.py``): the registry with its aliases, ``Accuracy``,
+``TopKAccuracy``, ``F1``, ``MCC``, ``MAE``, ``MSE``, ``RMSE``,
+``CrossEntropy``, ``NegativeLogLikelihood``, ``PearsonCorrelation``,
+``Perplexity``, ``Loss``, ``CompositeEvalMetric``, ``CustomMetric`` and
+``np_metric``. Metrics read their inputs on the host, in numpy, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ import numpy as np
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "MSE", "CrossEntropy",
-           "Perplexity", "Loss", "CompositeEvalMetric", "CustomMetric",
-           "create"]
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MCC", "MAE",
+           "MSE", "RMSE", "CrossEntropy", "NegativeLogLikelihood",
+           "PearsonCorrelation", "Perplexity", "Loss", "CompositeEvalMetric",
+           "CustomMetric", "create", "np_metric"]
 
 _METRIC_REGISTRY: Dict[str, type] = {}
 
@@ -123,6 +125,94 @@ class TopKAccuracy(EvalMetric):
             self.num_inst += len(label)
 
 
+def _binary(label, pred):
+    """Labels and 0/1 predictions: the argmax over classes, or a single
+    score thresholded at 0.5."""
+    pred = _to_np(pred)
+    label = _to_np(label).reshape(-1).astype("int32")
+    if pred.ndim > 1 and pred.shape[-1] > 1:
+        pred = pred.argmax(axis=-1)
+    else:
+        pred = (pred.reshape(-1) > 0.5).astype("int32")
+    return label, pred
+
+
+@register
+class F1(EvalMetric):
+    """F1 of the positive class over every batch so far (the JAX
+    package's ``macro`` is the one binary score)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        super().__init__(name, output_names, label_names)
+        self.average = average
+        self._tp = self._fp = self._fn = 0.0
+
+    def reset(self):
+        super().reset()
+        self._tp = self._fp = self._fn = 0.0
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _binary(label, pred)
+            self._tp += float(((pred == 1) & (label == 1)).sum())
+            self._fp += float(((pred == 1) & (label == 0)).sum())
+            self._fn += float(((pred == 0) & (label == 1)).sum())
+            precision = self._tp / max(self._tp + self._fp, 1e-12)
+            recall = self._tp / max(self._tp + self._fn, 1e-12)
+            self.sum_metric = 2 * precision * recall / max(
+                precision + recall, 1e-12)
+            self.num_inst = 1
+
+
+@register
+class MCC(EvalMetric):
+    """Matthews correlation coefficient over every batch so far."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        super().__init__(name, output_names, label_names)
+        self._tp = self._fp = self._fn = self._tn = 0.0
+
+    def reset(self):
+        super().reset()
+        self._tp = self._fp = self._fn = self._tn = 0.0
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _binary(label, pred)
+            self._tp += float(((pred == 1) & (label == 1)).sum())
+            self._fp += float(((pred == 1) & (label == 0)).sum())
+            self._fn += float(((pred == 0) & (label == 1)).sum())
+            self._tn += float(((pred == 0) & (label == 0)).sum())
+            denom = math.sqrt((self._tp + self._fp) * (self._tp + self._fn)
+                              * (self._tn + self._fp) * (self._tn + self._fn))
+            self.sum_metric = ((self._tp * self._tn - self._fp * self._fn)
+                               / denom if denom else 0.0)
+            self.num_inst = 1
+
+
+def _columns(label, pred):
+    label, pred = _to_np(label), _to_np(pred)
+    if label.ndim == 1:
+        label = label.reshape(label.shape[0], 1)
+    if pred.ndim == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+@register
+class MAE(EvalMetric):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _columns(label, pred)
+            self.sum_metric += float(np.abs(label - pred).mean())
+            self.num_inst += 1
+
+
 @register
 class MSE(EvalMetric):
     def __init__(self, name="mse", output_names=None, label_names=None):
@@ -130,13 +220,20 @@ class MSE(EvalMetric):
 
     def update(self, labels, preds):
         for label, pred in zip(_as_list(labels), _as_list(preds)):
-            label, pred = _to_np(label), _to_np(pred)
-            if label.ndim == 1:
-                label = label.reshape(label.shape[0], 1)
-            if pred.ndim == 1:
-                pred = pred.reshape(pred.shape[0], 1)
+            label, pred = _columns(label, pred)
             self.sum_metric += float(((label - pred) ** 2).mean())
             self.num_inst += 1
+
+
+@register
+class RMSE(MSE):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.sqrt(self.sum_metric / self.num_inst))
 
 
 @register
@@ -153,6 +250,27 @@ class CrossEntropy(EvalMetric):
             self.sum_metric += float((-np.log(prob + self.eps)).sum())
             self.num_inst += label.shape[0]
 
+
+
+@register
+class NegativeLogLikelihood(CrossEntropy):
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(eps, name, output_names, label_names)
+
+
+@register
+class PearsonCorrelation(EvalMetric):
+    """The mean over batches of each batch's Pearson correlation."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            self.sum_metric += float(np.corrcoef(
+                _to_np(pred).ravel(), _to_np(label).ravel())[0, 1])
+            self.num_inst += 1
 
 @register
 class Perplexity(EvalMetric):
@@ -253,7 +371,15 @@ class CustomMetric(EvalMetric):
                 self.num_inst += 1
 
 
+def np_metric(**kwargs):
+    """A decorator making ``f(label, pred)`` a :class:`CustomMetric`."""
+    def deco(f):
+        return CustomMetric(f, **kwargs)
+    return deco
+
+
 for _alias, _klass in (("acc", Accuracy), ("ce", CrossEntropy),
+                       ("nll_loss", NegativeLogLikelihood),
                        ("top_k_accuracy", TopKAccuracy),
                        ("top_k_acc", TopKAccuracy)):
     _METRIC_REGISTRY[_alias] = _klass

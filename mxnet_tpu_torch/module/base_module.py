@@ -113,7 +113,9 @@ class BaseModule:
         """The training loop (reference ``base_module.py:409``): bind, init
         the parameters and the optimizer, then per epoch
         ``forward_backward`` + ``update`` + metric per batch, the
-        callbacks, and ``score`` on ``eval_data``."""
+        callbacks, and ``score`` on ``eval_data``. An exception closes
+        the iterators (their threads and staged batches) and is raised
+        again."""
         if num_epoch is None:
             raise ValueError("fit needs num_epoch")
         if monitor is not None:
@@ -131,33 +133,42 @@ class BaseModule:
                             optimizer_params=optimizer_params)
         validation_metric = validation_metric or eval_metric
         eval_metric = metric_mod.create(eval_metric)
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            train_data.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if batch_end_callback is not None:
-                    _call_all(batch_end_callback, BatchEndParam(
-                        epoch, nbatch, eval_metric, locals()))
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
-            arg_p, aux_p = self.get_params()
-            if epoch_end_callback is not None:
-                _call_all(epoch_end_callback, epoch, self.symbol, arg_p,
-                          aux_p)
-            if eval_data is not None:
-                for name, val in self.score(
-                        eval_data, validation_metric,
-                        score_end_callback=eval_end_callback,
-                        batch_end_callback=eval_batch_end_callback,
-                        epoch=epoch):
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                train_data.reset()
+                for nbatch, data_batch in enumerate(train_data):
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    if batch_end_callback is not None:
+                        _call_all(batch_end_callback, BatchEndParam(
+                            epoch, nbatch, eval_metric, locals()))
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - tic)
+                arg_p, aux_p = self.get_params()
+                if epoch_end_callback is not None:
+                    _call_all(epoch_end_callback, epoch, self.symbol, arg_p,
+                              aux_p)
+                if eval_data is not None:
+                    for name, val in self.score(
+                            eval_data, validation_metric,
+                            score_end_callback=eval_end_callback,
+                            batch_end_callback=eval_batch_end_callback,
+                            epoch=epoch):
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                         name, val)
+        except BaseException:
+            # an interrupted run closes its feeds, so that no producer
+            # thread or staged batch outlives it; a finished one leaves
+            # them open
+            for feed in (train_data, eval_data):
+                if callable(getattr(feed, "close", None)):
+                    feed.close()
+            raise
 
     # ------------------------------------------------------------- interface
     @property

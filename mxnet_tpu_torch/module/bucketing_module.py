@@ -104,6 +104,7 @@ class BucketingModule(BaseModule):
     def _share_optimizer(self, module) -> None:
         module._optimizer = self._curr_module._optimizer
         module._updater = self._curr_module._updater
+        module._kvstore = self._curr_module._kvstore
         module.optimizer_initialized = True
 
     def init_params(self, *args, **kwargs):

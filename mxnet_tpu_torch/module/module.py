@@ -5,9 +5,13 @@ Counterpart of ``mxnet_tpu/module/module.py`` (reference
 ``python/mxnet/module/module.py``). The graph runs through the port's
 executor on one card (``gpu(0)`` unless ``context`` asks for the CPU: the
 reference defaults to ``cpu()``); the optimizer is the port's
-``optimizer.Updater``, MXNet's rules, indexed by parameter order as the
-JAX package's kvstore indexes them. Graph passes (``passes=``) wait for
-ROADMAP A9, a kvstore other than the local one for A8.
+``optimizer.Updater``, MXNet's rules, indexed by parameter order. With a
+store (``init_optimizer(kvstore="local")``, the default, or a
+``KVStore``) the optimizer runs in the store, as in the JAX package:
+``update`` pushes every gradient and pulls every weight back, and the
+optimizer's states files go through the store. ``kvstore=None`` updates
+the executor's weights directly. Graph passes (``passes=``) wait for
+ROADMAP A9, stores across processes for A8.
 """
 from __future__ import annotations
 
@@ -24,8 +28,6 @@ from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
-
-_LOCAL_STORES = ("local", "device", None)
 
 
 class Module(BaseModule):
@@ -60,6 +62,7 @@ class Module(BaseModule):
         self._data_shapes = self._label_shapes = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
         self._preload_opt_states = None   # a states file Module.load names
 
     @staticmethod
@@ -179,22 +182,32 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """The optimizer (a name or an ``Optimizer``) and its updater;
-        ``rescale_grad`` defaults to 1/batch size, as in the reference."""
+        ``rescale_grad`` defaults to 1/batch size, as in the reference.
+        ``kvstore`` (a type name or a ``KVStore``) gets the optimizer and
+        a copy of every parameter, keyed by parameter order."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("init_optimizer needs bind() and init_params()")
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore not in _LOCAL_STORES:
-            raise NotImplementedError(
-                f"kvstore={kvstore!r}: the port's Module updates on its one "
-                f"card; other stores wait for ROADMAP A8")
         if isinstance(optimizer, str):
             kwargs = dict(optimizer_params or ())
             batch = self._data_shapes[0].shape[0] if self._data_shapes else 1
             kwargs.setdefault("rescale_grad", 1.0 / max(batch, 1))
-            optimizer = opt_mod.create(optimizer, **kwargs)
+            optimizer = opt_mod.create(
+                optimizer, param_idx2name=dict(enumerate(self._param_names)),
+                **kwargs)
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = None
+        if kvstore:
+            from .. import kvstore as kv_mod
+            kv = kv_mod.create(kvstore) if isinstance(kvstore, str) \
+                else kvstore
+            kv.set_optimizer(optimizer)
+            ex = self._exec_group.execs[0]
+            for i, name in enumerate(self._param_names):
+                kv.init(i, ex.arg_dict[name])
+            self._kvstore = kv
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -215,13 +228,21 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to every parameter that has a gradient, in
-        parameter order (the reference's ``module.py:644``)."""
+        parameter order (the reference's ``module.py:644``): through the
+        store, every push and then every pull, or directly."""
         if not self.optimizer_initialized:
             raise MXNetError("update needs init_optimizer()")
         ex = self._exec_group.execs[0]
-        for i, name in enumerate(self._param_names):
-            grad = ex.grad_dict.get(name)
-            if grad is not None:
+        live = [(i, name, ex.grad_dict[name])
+                for i, name in enumerate(self._param_names)
+                if ex.grad_dict.get(name) is not None]
+        if self._kvstore is not None:
+            for i, _, grad in live:
+                self._kvstore.push(i, grad, priority=-i)
+            for i, name, _ in live:
+                self._kvstore.pull(i, ex.arg_dict[name], priority=-i)
+        else:
+            for i, name, grad in live:
                 self._updater(i, grad, ex.arg_dict[name])
 
     def get_outputs(self, merge_multi_context=True):
@@ -244,15 +265,29 @@ class Module(BaseModule):
         arg, aux = self.get_params()
         save_checkpoint(prefix, epoch, self._symbol, arg, aux)
         if save_optimizer_states:
-            with open(f"{prefix}-{epoch:04d}.states", "wb") as f:
-                self._updater.dump_states(f, dump_optimizer=True)
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+
+    def _states_updater(self):
+        """The updater that holds the optimizer's states: the store's
+        where the optimizer runs in a store."""
+        if self._kvstore is not None:
+            self._kvstore._flush()
+            return self._kvstore._raw_updater
+        return self._updater
+
+    def save_optimizer_states(self, fname):
+        """The optimizer's states pickled with the optimizer itself
+        (update counts, schedule)."""
+        with open(fname, "wb") as f:
+            self._states_updater().dump_states(f, dump_optimizer=True)
 
     def load_optimizer_states(self, fname):
-        """Load what :meth:`save_checkpoint` wrote with the states (files
-        this program wrote: they are pickles)."""
+        """Load what :meth:`save_optimizer_states` wrote (files this
+        program wrote: they are pickles)."""
+        updater = self._states_updater()
         with open(fname, "rb") as f:
-            self._updater.set_states(f)
-        self._optimizer = self._updater.optimizer
+            updater.set_states(f)
+        self._optimizer = updater.optimizer
 
 
 def _descs(names, shapes):

@@ -20,6 +20,19 @@ the softmax ignores), so both sides hold float32 noise of about 1e-11
 there, and at the default ε = 1e-8 Adam turns that noise into steps of a
 sizeable share of the learning rate with either sign, unlike on both
 sides; at 1e-6 those steps are far below the tolerance.
+
+An Adam step is ``lr·m̂/(√v̂ + ε)``: where a gradient entry is no larger
+than about ε (a bias whose gradient nearly cancels over the batch), the
+step answers to the gradient with a slope of up to ``lr/ε``, so the
+float32 rounding of that gradient's sum, which differs between the two
+packages, moves the weight by more than ``TOL`` of the tensor's largest
+entry (seven of thirty host-stream seeds failed that way, by up to 4.2e-4).
+Adam's LM case therefore holds each entry to the larger of ``TOL`` and
+what Adam can make of the rounding (:func:`_adam_rounding_allowance`):
+the first-order response of the three steps to each step's gradient,
+times twice the largest float32-against-float64 gradient difference in
+the entry's tensor (two float32 runs, each within that of the exact
+gradient). Entries whose response stays under ``TOL`` keep ``TOL``.
 """
 import importlib.util
 import os
@@ -60,6 +73,70 @@ def _close(got, want, what=""):
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got - want).max()) / scale
     assert err <= TOL, f"{what}: {err:.3e} of max|want| {scale:.3e}"
+
+
+def _record_gradients(trainer, arrays):
+    """Wrap the port trainer's rule: for each step, every parameter's
+    float32 gradient as the rule gets it and the float64 gradient at the
+    same parameters (the trainer's graph run in float64)."""
+    import torch
+    steps = []
+    rule_step = trainer._rule.step
+
+    def step(params, grads, state, **kw):
+        inputs = {k: v.double() for k, v in trainer._aux.items()}
+        inputs.update({n: a.double()
+                       for n, a in zip(trainer._data_names, arrays)})
+        leaves = {n: params[n].detach().double().requires_grad_()
+                  for n in grads}
+        inputs.update(leaves)
+        with torch.enable_grad():
+            outs, _ = trainer._fn(inputs)
+            g64 = torch.autograd.grad(outs[0].mean(), list(leaves.values()),
+                                      allow_unused=True)
+        steps.append({n: (grads[n].double(),
+                          torch.zeros_like(leaves[n]) if g is None else g)
+                      for n, g in zip(leaves, g64)})
+        return rule_step(params, grads, state, **kw)
+
+    trainer._rule.step = step
+    return steps
+
+
+def _adam_rounding_allowance(steps, lr, beta1, beta2, eps):
+    """Per entry: ``2·Σ_t |∂w_T/∂g_t|·δg_t``, with ``∂w_T/∂g_t`` the
+    response of optax's Adam over the recorded float64 gradients and
+    ``δg_t`` the largest |float32 − float64| gradient of the tensor at
+    step t."""
+    import torch
+    out = {}
+    for n in steps[0]:
+        gs = [s[n][1].clone().requires_grad_() for s in steps]
+        m = v = w = 0.0
+        for t, g in enumerate(gs, 1):
+            m = beta1 * m + (1 - beta1) * g
+            v = beta2 * v + (1 - beta2) * g * g
+            v_hat = (v / (1 - beta2 ** t)).clamp_min(1e-300)
+            w = w - lr * (m / (1 - beta1 ** t)) / (v_hat.sqrt() + eps)
+        response = torch.autograd.grad(w.sum(), gs)
+        out[n] = 2.0 * sum(
+            r.abs() * float((s[n][0] - s[n][1]).abs().max())
+            for r, s in zip(response, steps)).numpy()
+    return out
+
+
+def _close_within(got, want, allowance, what=""):
+    """``_close``, with an entry allowed up to ``allowance`` where that
+    exceeds ``TOL`` of the tensor's largest entry."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    limit = np.maximum(TOL * scale, allowance)
+    ratio = np.abs(got - want) / limit
+    worst = np.unravel_index(ratio.argmax(), ratio.shape)
+    assert ratio[worst] <= 1.0, (
+        f"{what}{list(worst)}: |Δ| {abs(got - want)[worst]:.3e} against "
+        f"{limit[worst]:.3e} ({TOL} of max|want| {scale:.3e}, Adam's "
+        f"rounding allowance {np.broadcast_to(allowance, ratio.shape)[worst]:.3e})")
 
 
 def _chip_smoke():
@@ -211,17 +288,23 @@ def test_symbolblock_lm_steps_match_jax_gluon_lm(lm_files, opt, params,
     trainer = parallel.DataParallelTrainer(
         block, gluon.loss.SoftmaxCrossEntropyLoss(), opt, dict(params),
         mesh=_port_mesh())
-    losses = [float(trainer.step(mx.nd.array(f["x"], ctx=mx.cpu()),
-                                 mx.nd.array(f["y"], ctx=mx.cpu())))
-              for _ in range(3)]
+    x = mx.nd.array(f["x"], ctx=mx.cpu())
+    y = mx.nd.array(f["y"], ctx=mx.cpu())
+    steps = _record_gradients(trainer, [x._data, y._data]) \
+        if opt == "adam" else None
+    losses = [float(trainer.step(x, y)) for _ in range(3)]
     assert sorted(trainer._param_names) == sorted(
         n for n in f["names"] if n != "pos_table")
     trainer.sync_to_net()
     _close(losses, jl, "losses")
+    allowance = _adam_rounding_allowance(
+        steps, params["learning_rate"], 0.9, 0.999, params["epsilon"]) \
+        if steps else {}
     params_out = block.collect_params()
     for n, full in f["names"].items():
-        _close(params_out[n].data().asnumpy(),
-               net.collect_params()[full].data().asnumpy(), n)
+        _close_within(params_out[n].data().asnumpy(),
+                      net.collect_params()[full].data().asnumpy(),
+                      allowance.get(n, 0.0), n)
 
 
 def test_sync_to_net_is_bitwise():

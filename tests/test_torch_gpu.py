@@ -159,18 +159,20 @@ def test_flash_kernels_match_plain_at_tile_edges(cuda, cs, dtype, D, Tq, Tk,
         assert bool((grads[0][:, :blind] == 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_repeat_bitwise(cuda, dtype):
+def test_flash_kernels_repeat_bitwise(cuda):
     """No atomics: the same inputs launched twice give bitwise-equal out
-    and lse (B1) and dq, dk, dv (B3)."""
-    q, k, v, g = _qkvg(cuda, dtype, 128, 1000, 1000, 3, bh=8)
-    sc = 128 ** -0.5
-    fwd = [hk._fa_fwd_dispatch(q, k, v, sc, True, 0, 0) for _ in range(2)]
-    assert all(torch.equal(a, b) for a, b in zip(*fwd))
-    out, lse = fwd[0]
-    bwd = [hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, True, 0, 0)
-           for _ in range(2)]
-    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    and lse (B1) and dq, dk, dv (B3), in float32 and bf16 (one item that
+    names the failing dtype)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = _qkvg(cuda, dtype, 128, 1000, 1000, 3, bh=8)
+        sc = 128 ** -0.5
+        fwd = [hk._fa_fwd_dispatch(q, k, v, sc, True, 0, 0)
+               for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*fwd)), dtype
+        out, lse = fwd[0]
+        bwd = [hk._fa_bwd_dispatch(q, k, v, out, lse, g, sc, True, 0, 0)
+               for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*bwd)), dtype
 
 
 def test_flash_kernels_take_unaligned_tensors(cuda):
@@ -240,15 +242,17 @@ def cs():
     return mod
 
 
-@pytest.mark.parametrize("template", [False, True])
-def test_rtc_axpy_exports(cuda, cs, template):
-    x = torch.arange(1000, dtype=torch.float32, device=cuda)
-    y = torch.ones_like(x)
-    k = cs.KERNELS.axpy_t if template else cs.KERNELS.axpy_c
-    before = k.launches
-    cs.KERNELS.axpy(x, y, 2.0, template)
-    assert k.launches == before + 1
-    assert torch.equal(y, 2.0 * x + 1.0)
+def test_rtc_axpy_exports(cuda, cs):
+    """The C export and the template export (one item that names the
+    failing one)."""
+    for template in (False, True):
+        x = torch.arange(1000, dtype=torch.float32, device=cuda)
+        y = torch.ones_like(x)
+        k = cs.KERNELS.axpy_t if template else cs.KERNELS.axpy_c
+        before = k.launches
+        cs.KERNELS.axpy(x, y, 2.0, template)
+        assert k.launches == before + 1, f"template={template}"
+        assert torch.equal(y, 2.0 * x + 1.0), f"template={template}"
 
 
 def test_rtc_launch_refuses(cuda, cs):
@@ -647,34 +651,36 @@ def test_full_pooling_on_card_matches_cpu(cuda, pool_type, cip, layout):
     assert torch.allclose(grad, cpu_grad, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
-def test_rnn_op_on_card_matches_cpu(cuda, mode):
+def test_rnn_op_on_card_matches_cpu(cuda):
     """The ``RNN`` op, 2 bidirectional layers, its outputs and gradients
     on the card against the CPU (float32, TF32 off): the same code on
-    both devices, cuBLAS against the CPU's products."""
+    both devices, cuBLAS against the CPU's products; every mode in one
+    item that names the failing one."""
     from mxnet_tpu_torch.ops.registry import get_op
     from mxnet_tpu_torch.ops.rnn import rnn_packed_param_size
-    gen = torch.Generator().manual_seed(0)
-    T, B, I, H, L = 7, 3, 5, 16, 2
-    n = rnn_packed_param_size(mode, L, True, I, H)
-    ins = [torch.randn(T, B, I, generator=gen),
-           torch.randn(n, generator=gen) * 0.2,
-           torch.randn(2 * L, B, H, generator=gen)]
-    if mode == "lstm":
-        ins.append(torch.randn(2 * L, B, H, generator=gen))
-    attrs = dict(state_size=H, num_layers=L, mode=mode, bidirectional=True,
-                 state_outputs=True, is_train=False)
-    runs = []
-    hk.reset_launch_counts()
-    for dev in (torch.device("cpu"), cuda):
-        ts = [t.to(dev).requires_grad_() for t in ins]
-        outs = get_op("RNN").fn(*ts, **attrs)
-        grads = torch.autograd.grad([o.sum() for o in outs], ts)
-        runs.append([t.detach().cpu() for t in list(outs) + list(grads)])
-    assert not any(hk.launch_counts.values())
-    for a, b in zip(*runs):
-        torch.testing.assert_close(b, a, rtol=0,
-                                   atol=1e-5 * float(a.abs().max()))
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        gen = torch.Generator().manual_seed(0)
+        T, B, I, H, L = 7, 3, 5, 16, 2
+        n = rnn_packed_param_size(mode, L, True, I, H)
+        ins = [torch.randn(T, B, I, generator=gen),
+               torch.randn(n, generator=gen) * 0.2,
+               torch.randn(2 * L, B, H, generator=gen)]
+        if mode == "lstm":
+            ins.append(torch.randn(2 * L, B, H, generator=gen))
+        attrs = dict(state_size=H, num_layers=L, mode=mode,
+                     bidirectional=True, state_outputs=True, is_train=False)
+        runs = []
+        hk.reset_launch_counts()
+        for dev in (torch.device("cpu"), cuda):
+            ts = [t.to(dev).requires_grad_() for t in ins]
+            outs = get_op("RNN").fn(*ts, **attrs)
+            grads = torch.autograd.grad([o.sum() for o in outs], ts)
+            runs.append([t.detach().cpu() for t in list(outs) + list(grads)])
+        assert not any(hk.launch_counts.values()), mode
+        for a, b in zip(*runs):
+            torch.testing.assert_close(b, a, rtol=0,
+                                       atol=1e-5 * float(a.abs().max()),
+                                       msg=lambda m, mode=mode: f"{mode}: {m}")
 
 
 def test_word_lm_step_on_card_matches_cpu(cuda):

@@ -9,6 +9,12 @@ from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+IMAGE_CLASSIFICATION = tuple(
+    "example/image-classification/" + n for n in (
+        "common/fit_torch.py", "common/data_torch.py",
+        "symbols/lenet_torch.py", "symbols/mlp_torch.py",
+        "symbols/resnet_torch.py", "train_mnist_torch.py",
+        "train_imagenet_torch.py", "fine_tune_torch.py"))
 
 
 def _port_files():
@@ -18,7 +24,7 @@ def _port_files():
                  "example/gluon/transformer_lm_torch.py",
                  "example/ssd/dataset_torch.py",
                  "example/ssd/symbol_ssd_torch.py",
-                 "example/ssd/train_torch.py"):
+                 "example/ssd/train_torch.py") + IMAGE_CLASSIFICATION:
         yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
@@ -87,7 +93,9 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/gluon/data/vision/datasets.py",
             "mxnet_tpu_torch/gluon/data/vision/transforms.py",
             "example/ssd/dataset_torch.py", "example/ssd/symbol_ssd_torch.py",
-            "example/ssd/train_torch.py"} <= rel
+            "example/ssd/train_torch.py", "mxnet_tpu_torch/kvstore.py",
+            "mxnet_tpu_torch/io/device_feed.py"} | set(IMAGE_CLASSIFICATION) \
+        <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -112,9 +120,14 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.attribute, mxnet_tpu_torch.recordio, "
             "mxnet_tpu_torch.image, mxnet_tpu_torch.image_detection, "
             "mxnet_tpu_torch.ops.multibox, mxnet_tpu_torch.gluon.data, "
-            "mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.io.device_feed; "
             "sys.path[:0] = ['example/ssd']; "
             "import dataset_torch, symbol_ssd_torch, train_torch; "
+            "sys.path[:0] = ['example/image-classification']; "
+            "import train_mnist_torch, train_imagenet_torch, "
+            "fine_tune_torch, common.data_torch, symbols.lenet_torch, "
+            "symbols.mlp_torch, symbols.resnet_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

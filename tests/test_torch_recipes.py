@@ -349,3 +349,161 @@ def test_ssd_twin_fit_matches_the_jax_recipe(tmp_path):
             (jdir / f"train{ext}").read_bytes()
     np.testing.assert_allclose(got, want, rtol=TOL_SSD)
     assert got[1] < got[0]
+
+
+# ------------------------------------------------ image classification
+IC = os.path.join(ROOT, "example", "image-classification")
+
+
+def _ic_modules():
+    """The JAX recipe's and the twin's ``fit``, ``data`` and symbol
+    modules, imported from the recipe's directory as its scripts do."""
+    import importlib
+    sys.path.insert(0, IC)
+    try:
+        names = ("common.fit", "common.data", "symbols.lenet",
+                 "symbols.resnet", "train_mnist")
+        jax_side = [importlib.import_module(n) for n in names]
+        port_side = [importlib.import_module(n + "_torch") for n in names]
+    finally:
+        sys.path.remove(IC)
+    return jax_side, port_side
+
+
+def _ic_args(fit, data, extra, port):
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument("--num-classes", type=int, default=10)
+    p.add_argument("--data-dir", type=str, default=None)
+    fit.add_fit_args(p)
+    data.add_data_args(p)
+    argv = list(extra) + (["--gpus", ""] if port else [])
+    return p.parse_args(argv)
+
+
+def _write_mnist(root, n_train=32, n_val=16):
+    """idx files of a learnable task: the class is the brightest of ten
+    horizontal bands."""
+    import struct
+    rs = np.random.RandomState(11)
+    for prefix, n in (("train", n_train), ("t10k", n_val)):
+        y = rs.randint(0, 10, n).astype("uint8")
+        x = rs.randint(0, 60, (n, 28, 28)).astype("uint8")
+        for i, c in enumerate(y):
+            x[i, 2 + 2 * c:4 + 2 * c] = 250
+        with open(os.path.join(root, f"{prefix}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28) + x.tobytes())
+        with open(os.path.join(root, f"{prefix}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">II", 2049, n) + y.tobytes())
+
+
+def _seeded_xavier_with_norms(monkeypatch):
+    """``_seeded_xavier``, BatchNorm's gamma and beta (and its moving
+    statistics) name-seeded too: a beta that starts at 0 holds only its
+    step, a sum over every pixel whose float32 rounding is a visible share
+    of it."""
+
+    def fill(pkg, write):
+        class Seeded(pkg.init.Initializer):
+            def _init_weight(self, name, arr):
+                write(arr, _seeded(name, tuple(arr.shape)))
+
+            # beta and the moving mean, gamma and the moving variance
+            _init_bias = _init_zero = _init_weight
+
+            def _init_one(self, name, arr):
+                write(arr, 1.0 + _seeded(name, tuple(arr.shape)))
+
+        monkeypatch.setattr(pkg.init, "Xavier", lambda *a, **k: Seeded())
+
+    def jax_write(arr, v):
+        arr[:] = v
+
+    fill(jmx, jax_write)
+    fill(mx, lambda arr, v: arr.copy_(torch.from_numpy(v)))
+
+
+def test_image_classification_twins_match_the_jax_recipes(tmp_path,
+                                                          monkeypatch):
+    """``fit_torch.fit`` against ``fit.fit`` from the same name-seeded
+    weights, every weight and auxiliary state compared: LeNet through
+    ``train_mnist``'s ``MNISTIter`` on idx files (shuffled from each host
+    stream seeded alike; four updates), and ``symbols/resnet`` v1 and v2
+    at 28×28 with ``--num-layers 8`` on two batches of synthetic images
+    (two updates) — both through the store and the device feed on the
+    CPU. Then the recipe's two quirks in both packages: the schedule's
+    epoch is sized by the train iterator's ``.idx`` (one batch without
+    one, so ``lr_step_epochs`` counts updates), and ``--dtype`` changes
+    nothing. Then ``fine_tune_torch``'s demo against ``fine_tune``'s."""
+    _seeded_xavier_with_norms(monkeypatch)
+    (jfit, jdata, jlenet, jresnet, jmnist), \
+        (pfit, pdata, plenet, presnet, pmnist) = _ic_modules()
+    _write_mnist(str(tmp_path))
+    rs = np.random.RandomState(12)
+    images = rs.uniform(-1, 1, (16, 3, 28, 28)).astype("float32")
+    labels = rs.randint(0, 10, 16).astype("float32")
+
+    def synthetic(pkg):
+        return lambda args, kv: (pkg.io.NDArrayIter(images, labels, 8), None)
+
+    common = ["--num-epochs", "1", "--lr", "0.05", "--batch-size", "8"]
+    cases = [
+        ("lenet/MNISTIter", jlenet, plenet, {}, common + [
+            "--network", "lenet", "--data-dir", str(tmp_path)],
+         jmnist.get_iterators, pmnist.get_iterators),
+    ] + [
+        (f"resnet-v{v}", jresnet, presnet,
+         {"num_layers": 8, "image_shape": "3,28,28", "version": v},
+         common + ["--network", "resnet"], synthetic(jmx), synthetic(mx))
+        for v in (1, 2)]
+    for case, jsym, psym, kw, argv, jload, pload in cases:
+        out = []
+        for pkg, fit, data, symmod, load in (
+                (jmx, jfit, jdata, jsym, jload),
+                (mx, pfit, pdata, psym, pload)):
+            args = _ic_args(fit, data, argv, pkg is mx)
+            mx.random.seed(4)
+            with jax_host_seed(4):
+                model = fit.fit(args, symmod.get_symbol(num_classes=10, **kw),
+                                load)
+            arg, aux = model.get_params()
+            out.append({k: v.asnumpy() for k, v in {**arg, **aux}.items()})
+        assert sorted(out[1]) == sorted(out[0]), case
+        for k in out[0]:
+            _close(out[1][k], out[0][k], what=f"{case}: {k}")
+
+    # the quirks: Module.fit's arguments, from each recipe
+    for pkg, fit, data in ((jmx, jfit, jdata), (mx, pfit, pdata)):
+        seen = []
+        monkeypatch.setattr(pkg.mod.Module, "fit",
+                            lambda self, train, **k: seen.append(k))
+        for dtype in ("float32", "float16"):
+            for load in (lambda a, kv: (pkg.io.MNISTIter(
+                    image=str(tmp_path / "train-images-idx3-ubyte"),
+                    label=str(tmp_path / "train-labels-idx1-ubyte"),
+                    batch_size=8), None), synthetic(pkg)):
+                args = _ic_args(fit, data, common + [
+                    "--lr-step-epochs", "10,20", "--dtype", dtype], pkg is mx)
+                fit.fit(args, plenet.get_symbol() if pkg is mx
+                        else jlenet.get_symbol(), load)
+        steps = [k["optimizer_params"]["lr_scheduler"].step for k in seen]
+        # MNISTIter has no .idx: one batch an epoch; NDArrayIter's 16 / 8
+        assert steps == [[10, 20], [20, 40]] * 2, (pkg.__name__, steps)
+        assert [sorted(k["optimizer_params"]) for k in seen[:2]] == \
+            [sorted(k["optimizer_params"]) for k in seen[2:]]
+    monkeypatch.undo()
+
+    _seeded_xavier(monkeypatch)
+    sys.path.insert(0, IC)
+    try:
+        jft = _load("example/image-classification/fine_tune.py", "jax_ft")
+        pft = _load("example/image-classification/fine_tune_torch.py",
+                    "port_ft")
+    finally:
+        sys.path.remove(IC)
+    want = jft.demo(verbose=False)
+    with mx.cpu():
+        got = pft.demo(verbose=False)
+    assert got == want and got[0], (got, want)
