@@ -173,16 +173,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a control that must miss); SGD and
    NAG with ``multi_precision`` on float16 weights through the store;
    each rule's update time on ResNet-50's 161 parameter tensors.
+24. the op grid: every op of slice 11 (``DENSE_OP_GROUPS``: the unary
+   math, the binaries, comparisons and scalar ops, the reductions,
+   ``norm`` and the arg reductions, ``LeakyReLU``, ``InstanceNorm``,
+   ``LRN``, ``softmin``, the regression and SVM outputs, ``UpSampling``,
+   ``sort``/``argsort``/``topk``, the creation ops), the six activation
+   layers, ``InstanceNorm`` and every loss, forward and gradient, on the
+   card against the CPU: discrete outputs equal, the rest within 1e-6 of
+   the largest entry; rrelu by its statistics.
+25. route H: the 64x64 DCGAN of Radford, Metz & Chintala
+   (``build_dcgan64``: ngf = ndf = 64, nz 100, nothing cut) trained
+   through gluon at batch 128 (Adam lr 2e-4, β1 0.5,
+   ``SigmoidBinaryCrossEntropyLoss``) on synthetic images: iteration 1
+   (the D step on real and fake, then the G step) against float64 on the
+   card with a TF32 control that must miss; ten timed iterations (ms,
+   images/s, peak memory, host dispatch beside device time, for the
+   iteration and each half), the losses finite, a ``torch.profiler``
+   breakdown.
+26. route I: ``gluon.loss.CTCLoss`` at a speech batch (32 x 400 frames,
+   29 classes, labels 40-120, one row given fewer frames than it needs)
+   in float32 against float64 on the card, timed beside ``F.ctc_loss``;
+   the ``lstm_ocr`` and ``speech_ctc`` twins trained on the card to the
+   JAX recipes' test thresholds.
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step,
 one bf16 fused step and one route F step (route A's and route D's steps
-are profiled in every run, and one route G1 step). Apart from the
-``transformer_lm`` twin, no phase from 12 on launches a Hopper kernel: the
-conv nets, the recurrent family, the detection family and the
-image-classification recipe reach no TPU kernel (the JAX package
+are profiled in every run, and one route G1 step and one route H
+iteration). Apart from the ``transformer_lm`` twin, no phase from 12 on
+launches a Hopper kernel: the conv nets, the recurrent family, the
+detection family, the image-classification recipe, the dense ops, the GAN
+and CTC reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -4839,6 +4862,849 @@ def optimizer_card_phase(mx, dev):
           f"{', '.join(times)}; card {_card_line()}")
 
 
+# ------------------------------------------------- slice 11: the op grid
+# The cases of every op slice 11 adds (phase 24 on the card against the
+# CPU; ``tests/test_torch_dense_ops.py`` against the JAX package): (case
+# id, op name, numpy inputs, attrs, what to compare: "grad" for values and
+# gradients, "value" for values only, "exact" for equal values).
+TOL_GRID = 1e-6          # of the case's largest |value|, card against CPU
+def grid_values(*shape, seed=0, lo=-2.0, hi=2.0):
+    """Seeded uniform float32 values (the op grid's inputs)."""
+    return np.random.RandomState(seed).uniform(lo, hi, shape).astype(
+        "float32")
+
+
+def with_values(a, *values):
+    """``a`` with its first entries replaced by ``values`` (ties, zeros,
+    bounds)."""
+    a = a.copy()
+    a.reshape(-1)[:len(values)] = values
+    return a
+
+
+# (case id, op name, numpy inputs, attrs, what to compare: "grad" for
+# values and gradients, "value" for values only, "exact" for equal values)
+GRID_POS = dict(lo=0.2, hi=3.0)
+GRID_UNIT = dict(lo=-0.9, hi=0.9)
+
+
+def _grid_unary():
+    general = ["sign", "negative", "square", "exp", "expm1", "sin", "cos",
+               "arctan", "sinh", "cosh", "tanh", "arcsinh", "degrees",
+               "radians", "erf", "sigmoid", "softsign"]
+    cases = [(n, n, [grid_values(3, 5)], {}, "grad") for n in general]
+    cases += [(n, n, [grid_values(3, 5, **GRID_POS)], {}, "grad")
+              for n in ("sqrt", "rsqrt", "log", "log2", "log10", "gammaln",
+                        "digamma", "reciprocal", "cbrt", "rcbrt")]
+    cases += [(n, n, [grid_values(3, 5, **GRID_UNIT)], {}, "grad")
+              for n in ("arcsin", "arccos", "arctanh", "erfinv", "log1p")]
+    cases += [
+        ("tan", "tan", [grid_values(3, 5, lo=-1.2, hi=1.2)], {}, "grad"),
+        ("arccosh", "arccosh", [grid_values(3, 5, lo=1.1, hi=4.0)], {}, "grad"),
+        ("cbrt_negative", "cbrt", [grid_values(3, 5, lo=-3.0, hi=-0.2)], {}, "grad"),
+        ("abs_at_zero", "abs", [with_values(grid_values(3, 5), 0.0, -0.0)], {}, "grad"),
+        ("relu_at_zero", "relu", [with_values(grid_values(3, 5), 0.0)], {}, "grad"),
+        # gamma is exp(lgamma): the sign is lost at negative non-integers
+        ("gamma", "gamma", [with_values(grid_values(3, 5, lo=0.3, hi=4.0), -0.5, -1.5,
+                                  -2.5)], {}, "grad"),
+    ]
+    halves = with_values(grid_values(3, 5), 0.5, 1.5, 2.5, -0.5, -2.5, 0.0, -1.7)
+    cases += [(n, n, [halves], {}, "exact")
+              for n in ("floor", "ceil", "round", "rint", "trunc", "fix",
+                        "logical_not")]
+    return cases
+
+
+def _grid_elemwise():
+    x = grid_values(3, 5, seed=1)
+    y = with_values(grid_values(3, 5, seed=2), *x.reshape(-1)[:4])          # ties
+    xi = np.round(grid_values(3, 5, seed=3))
+    yi = np.round(grid_values(3, 5, seed=4))
+    cases = [
+        # exact bounds (XLA fuses 0.2·x + 0.5 into one rounding)
+        ("hard_sigmoid_bounds", "hard_sigmoid",
+         [with_values(grid_values(3, 5, lo=-4, hi=4), -2.0, 2.0, 0.0)],
+         {"alpha": 0.25, "beta": 0.5}, "grad"),
+        ("hard_sigmoid", "hard_sigmoid", [x], {}, "grad"),
+        ("clip_ties", "clip", [with_values(x, -1.0, 1.0)],
+         {"a_min": -1.0, "a_max": 1.0}, "grad"),
+        ("clip_open_low", "clip", [x], {"a_max": 0.5}, "grad"),
+        ("identity", "identity", [x], {}, "grad"),
+        ("_copy", "_copy", [x], {}, "grad"),
+        ("make_loss", "make_loss", [x], {}, "grad"),
+        ("Cast_f16", "Cast", [x], {"dtype": "float16"}, "exact"),
+        ("cast_i32", "cast", [x * 3], {"dtype": "int32"}, "exact"),
+        ("amp_cast", "amp_cast", [x], {"dtype": "float16"}, "exact"),
+        ("amp_multicast", "amp_multicast", [x, x.astype("float16")],
+         {"num_outputs": 2}, "exact"),
+        ("add_n", "add_n", [x, y, xi], {}, "grad"),
+        ("ElementWiseSum", "ElementWiseSum", [x, y], {}, "grad"),
+        ("_sum", "_sum", [x, y, y], {}, "grad"),
+        ("_power", "_power", [grid_values(3, 5, **GRID_POS), y], {}, "grad"),
+        ("pow", "pow", [grid_values(3, 5, **GRID_POS), y], {}, "grad"),
+        ("_maximum_ties", "_maximum", [x, y], {}, "grad"),
+        ("_minimum_ties", "_minimum", [x, y], {}, "grad"),
+        ("_hypot", "_hypot", [x, y], {}, "grad"),
+        ("_mod", "_mod", [x * 3, grid_values(3, 5, seed=5, lo=0.7, hi=1.9)], {},
+         "grad"),
+        ("mod_negative_divisor", "mod",
+         [x * 3, -grid_values(3, 5, seed=5, lo=0.7, hi=1.9)], {}, "grad"),
+    ]
+    for name in ("elemwise_add", "_plus", "_add", "elemwise_sub", "_minus",
+                 "_sub", "elemwise_mul", "_mul", "elemwise_div", "_div"):
+        cases.append((name, name, [x, grid_values(3, 5, **GRID_POS)], {}, "grad"))
+    for name in ("_equal", "_not_equal", "_greater", "_greater_equal",
+                 "_lesser", "_lesser_equal", "_logical_and", "_logical_or",
+                 "_logical_xor"):
+        cases.append((name, name, [xi, yi], {}, "exact"))
+    xs = with_values(x, 0.5, 0.5, -0.25)
+    for name in ("_maximum_scalar", "_minimum_scalar", "_hypot_scalar",
+                 "_plus_scalar", "_minus_scalar", "_rminus_scalar",
+                 "_mul_scalar", "_div_scalar", "_rdiv_scalar"):
+        cases.append((name, name, [xs], {"scalar": 0.5}, "grad"))
+    for name in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+                 "_greater_equal_scalar", "_lesser_scalar",
+                 "_lesser_equal_scalar", "_logical_and_scalar",
+                 "_logical_or_scalar", "_logical_xor_scalar"):
+        cases.append((name, name, [with_values(xi, 0.0, 1.0)], {"scalar": 1.0},
+                      "exact"))
+    cases.append(("_logical_and_scalar_0", "_logical_and_scalar",
+                  [with_values(xi, 0.0)], {"scalar": 0.0}, "exact"))
+    return cases
+
+
+def _grid_broadcast_reduce():
+    a, b = grid_values(2, 3, 4), grid_values(1, 3, 1, seed=1)
+    ai, bi = np.round(a), np.round(grid_values(2, 1, 4, seed=2))
+    cases = [(n, n, [a, b], {}, "grad")
+             for n in ("broadcast_plus", "broadcast_minus",
+                       "broadcast_hypot")]
+    cases += [(n, n, [np.round(a * 2) / 2, np.round(b * 2) / 2], {}, "grad")
+              for n in ("broadcast_maximum", "broadcast_minimum")]
+    cases += [(n, n, [ai, bi], {}, "exact")
+              for n in ("broadcast_logical_and", "broadcast_logical_or",
+                        "broadcast_logical_xor")]
+    cases += [
+        ("broadcast_like", "broadcast_like", [b, a], {}, "grad"),
+        ("broadcast_like_axes", "broadcast_like", [grid_values(2, 1, 1), grid_values(5, 4, 3)],
+         {"lhs_axes": (1, 2), "rhs_axes": (0, 2)}, "grad"),
+        ("broadcast_axis", "broadcast_axis", [grid_values(2, 1, 4)],
+         {"axis": 1, "size": 3}, "grad"),
+        ("broadcast_axes", "broadcast_axes", [grid_values(1, 3, 1)],
+         {"axis": (0, 2), "size": (2, 5)}, "grad"),
+    ]
+    tied = np.round(grid_values(2, 3, 4, seed=3))                  # many ties
+    zeros = with_values(grid_values(2, 3, 4, seed=4), 0.0, 0.0)
+    nans = with_values(grid_values(2, 3, 4, seed=5), np.nan, 0.0, np.nan)
+    for name, x in (("prod", zeros), ("max", tied), ("min", tied),
+                    ("nansum", nans), ("nanprod", nans)):
+        for tag, attrs in (("all", {}), ("axis1", {"axis": 1}),
+                           ("axes_keep", {"axis": (0, 2), "keepdims": True}),
+                           ("exclude", {"axis": 1, "exclude": True}),
+                           ("exclude_none", {"exclude": True}),
+                           ("neg", {"axis": -1})):
+            cases.append((f"{name}_{tag}", name, [x], attrs, "grad"))
+    pos = grid_values(2, 3, 4, seed=6)
+    for tag, attrs in (("all", {}), ("ord1", {"ord": 1}),
+                       ("axis", {"axis": 1}),
+                       ("axes_keep", {"axis": (1, 2), "keepdims": True}),
+                       ("ord1_axis", {"ord": 1, "axis": -1}),
+                       ("out_dtype", {"axis": 0, "out_dtype": "float16"})):
+        cases.append((f"norm_{tag}", "norm", [pos], attrs,
+                      "value" if "dtype" in tag else "grad"))
+    for name in ("argmax", "argmin"):
+        for tag, attrs in (("all", {}), ("axis1", {"axis": 1}),
+                           ("keep", {"axis": 2, "keepdims": True})):
+            cases.append((f"{name}_{tag}", name, [tied], attrs, "exact"))
+    cases.append(("argmax_channel", "argmax_channel", [tied[0]], {},
+                  "exact"))
+    return cases
+
+
+def _grid_nn():
+    x = with_values(grid_values(2, 3, 4, 5), 0.0, -0.0)
+    cases = [
+        ("leaky", "LeakyReLU", [x], {"act_type": "leaky", "slope": 0.2},
+         "grad"),
+        ("prelu_channels", "LeakyReLU", [x, grid_values(3, seed=1, lo=0, hi=0.5)],
+         {"act_type": "prelu"}, "grad"),
+        ("prelu_one", "LeakyReLU", [x, np.array([0.3], "float32")],
+         {"act_type": "prelu"}, "grad"),
+        ("elu", "LeakyReLU", [x], {"act_type": "elu", "slope": 0.7}, "grad"),
+        ("selu", "LeakyReLU", [x], {"act_type": "selu"}, "grad"),
+        ("gelu", "LeakyReLU", [x], {"act_type": "gelu"}, "grad"),
+        ("rrelu_inference", "LeakyReLU", [x],
+         {"act_type": "rrelu", "is_train": False}, "grad"),
+        ("instance_norm_4d", "InstanceNorm",
+         [x * 3 + 1, grid_values(3, seed=2), grid_values(3, seed=3)], {}, "grad"),
+        ("instance_norm_3d_eps", "InstanceNorm",
+         [grid_values(2, 4, 7), grid_values(4, seed=2), grid_values(4, seed=3)], {"eps": 1e-5},
+         "grad"),
+        ("lrn_5", "LRN", [grid_values(2, 7, 3, 3)], {}, "grad"),
+        ("lrn_3", "LRN", [grid_values(2, 4, 3, 3)],
+         {"nsize": 3, "alpha": 0.1, "beta": 0.5, "knorm": 1.0}, "grad"),
+        ("softmin", "softmin", [grid_values(3, 6)], {}, "grad"),
+        ("softmin_axis_temp", "softmin", [grid_values(3, 6, 2)],
+         {"axis": 1, "temperature": 2.0}, "grad"),
+        ("softmax_activation", "SoftmaxActivation", [grid_values(3, 2, 4)], {},
+         "grad"),
+        ("softmax_activation_channel", "SoftmaxActivation",
+         [grid_values(3, 4, 2, 2)], {"mode": "channel"}, "grad"),
+        ("linear_regression", "LinearRegressionOutput",
+         [grid_values(4, 1), grid_values(4, seed=1)], {"grad_scale": 0.5}, "grad"),
+        ("logistic_regression", "LogisticRegressionOutput",
+         [grid_values(4, 3), grid_values(4, 3, seed=1, lo=0, hi=1)], {}, "grad"),
+        ("mae_regression", "MAERegressionOutput",
+         [grid_values(4, 3), grid_values(4, 3, seed=1)], {"grad_scale": 2.0}, "grad"),
+        ("svm_l2", "SVMOutput",
+         [grid_values(4, 5), np.array([0, 3, 4, 1], "float32")],
+         {"margin": 0.5, "regularization_coefficient": 0.7}, "grad"),
+        ("svm_l1", "SVMOutput",
+         [grid_values(4, 5), np.array([2, 3, 0, 1], "float32")],
+         {"use_linear": True}, "grad"),
+        ("upsampling_nearest", "UpSampling", [grid_values(2, 3, 4, 5)],
+         {"scale": 2, "sample_type": "nearest"}, "grad"),
+        ("upsampling_bilinear", "UpSampling", [grid_values(2, 3, 4, 5)],
+         {"scale": 3, "sample_type": "bilinear"}, "grad"),
+    ]
+    return cases
+
+
+def _grid_order_init():
+    t = np.array([[3, 1, 3, 2, 0], [0, 5, 5, 1, 5], [2, 2, 2, 2, 2]],
+                 "float32")
+    v = with_values(grid_values(3, 5), *t.reshape(-1)[:5])
+    cases = []
+    for tag, attrs in (("", {}), ("_desc", {"is_ascend": False}),
+                       ("_axis0", {"axis": 0}), ("_flat", {"axis": None})):
+        cases.append((f"sort{tag}", "sort", [v], attrs, "grad"))
+        cases.append((f"argsort{tag}", "argsort", [t], attrs, "exact"))
+    cases += [
+        ("argsort_int32", "argsort", [t], {"dtype": "int32"}, "exact"),
+        ("topk_indices", "topk", [t], {"k": 3}, "exact"),
+        ("topk_value", "topk", [t], {"k": 2, "ret_typ": "value"}, "exact"),
+        ("topk_both_ascend", "topk", [t],
+         {"k": 2, "ret_typ": "both", "is_ascend": True}, "exact"),
+        ("topk_all", "topk", [t], {"k": 0, "ret_typ": "both"}, "exact"),
+        ("topk_axis0", "topk", [t], {"axis": 0, "k": 2}, "exact"),
+        ("topk_flat", "topk", [t], {"axis": None, "k": 4,
+                                    "ret_typ": "both"}, "exact"),
+        ("topk_mask_axis1", "topk", [t], {"axis": 1, "k": 2,
+                                          "ret_typ": "mask"}, "exact"),
+        ("topk_mask_1d", "topk", [t[1]], {"k": 2, "ret_typ": "mask"},
+         "exact"),
+        ("topk_int32", "topk", [t], {"k": 2, "dtype": "int32"}, "exact"),
+        ("_full", "_full", [], {"shape": (2, 3), "value": 1.5}, "exact"),
+        ("full_int", "full", [], {"shape": (4,), "value": 7,
+                                  "dtype": "int32"}, "exact"),
+        ("_arange_stop", "_arange", [], {"start": 5}, "exact"),
+        ("_arange_float", "_arange", [],
+         {"start": 0.1, "stop": 1.0, "step": 0.3}, "exact"),
+        ("arange_repeat", "arange", [],
+         {"start": 2, "stop": 8, "step": 2, "repeat": 3}, "exact"),
+        ("_linspace", "_linspace", [], {"start": 0.0, "stop": 1.0,
+                                        "num": 7}, "value"),
+        ("linspace_open", "linspace", [],
+         {"start": -1.0, "stop": 2.0, "num": 6, "endpoint": False}, "value"),
+        ("_eye", "_eye", [], {"N": 3}, "exact"),
+        ("eye_offset", "eye", [], {"N": 3, "M": 5, "k": 1}, "exact"),
+        ("eye_below", "eye", [], {"N": 4, "M": 3, "k": -1,
+                                  "dtype": "int32"}, "exact"),
+    ]
+    return cases
+
+
+DENSE_OP_GROUPS = {"unary": _grid_unary, "elemwise": _grid_elemwise,
+          "broadcast_reduce": _grid_broadcast_reduce, "nn": _grid_nn,
+          "order_init": _grid_order_init}
+
+
+
+
+def grid_cotangents(outs, seed):
+    """Seeded head gradients for a case's outputs."""
+    rs = np.random.RandomState(seed)
+    return [rs.uniform(0.5, 1.5, o.shape).astype(np.float32) for o in outs]
+
+
+def grid_grad_inputs(inputs, how):
+    """Indices of the float inputs a case takes gradients for."""
+    if how != "grad":
+        return []
+    return [i for i, a in enumerate(inputs) if a.dtype == np.float32]
+
+
+def run_grid_case(name, inputs, attrs, how, seed, device="cpu"):
+    """One case through the port's registry op on ``device``: (outputs,
+    gradients of the float inputs under ``grid_cotangents``), as numpy on
+    the host (float16 outputs as float32; an input the op does not read
+    gets None)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    dev = torch.device(device)
+    ts = [torch.from_numpy(np.array(a)).to(dev) for a in inputs]
+    gi = grid_grad_inputs(inputs, how)
+    for i in gi:
+        ts[i].requires_grad_()
+    kw = dict(attrs)
+    fn = get_op(name).fn
+    if "device" in fn.__code__.co_varnames:
+        kw["device"] = dev
+    if "rng" in fn.__code__.co_varnames:
+        kw["rng"] = torch.Generator(dev).manual_seed(SEED)
+    out = fn(*ts, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    grads = []
+    if gi:
+        cts = grid_cotangents([o.detach().cpu().numpy() for o in outs], seed)
+        torch.autograd.backward(outs, [torch.from_numpy(c).to(dev, o.dtype)
+                                       for c, o in zip(cts, outs)])
+        grads = [None if ts[i].grad is None else ts[i].grad.cpu().numpy()
+                 for i in gi]
+    return [(o.detach().float() if o.dtype == torch.float16 else
+             o.detach()).cpu().numpy() for o in outs], grads
+
+
+def grid_error(got, want) -> float:
+    """max|got − want| / max|want| over the entries that are not NaN in
+    ``want`` (NaN where the two disagree on which entries are NaN)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got),
+                                                     np.isnan(want)):
+        return float("nan")
+    ok = ~np.isnan(want)
+    if not ok.any():
+        return 0.0
+    scale = max(float(np.abs(want[ok]).max()), 1e-30)
+    return float(np.abs(got[ok] - want[ok]).max()) / scale
+
+
+def dense_op_grid(dev, tol=TOL_GRID):
+    """Phase 24 (and ``tests/test_torch_gpu.py``): every case of
+    ``DENSE_OP_GROUPS`` on the card against the same case on the CPU —
+    discrete outputs equal, the rest and the gradients within ``tol`` of
+    the case's largest entry; the CTC op at both blank conventions and
+    with lengths; rrelu in training by its statistics. Returns the worst
+    error and the number of cases; raises naming every failing case."""
+    failed, worst, count = [], 0.0, 0
+    for group, cases in DENSE_OP_GROUPS.items():
+        for seed, (cid, name, inputs, attrs, how) in enumerate(cases()):
+            count += 1
+            want = run_grid_case(name, inputs, attrs, how, seed)
+            got = run_grid_case(name, inputs, attrs, how, seed, dev)
+            for g, w in zip(got[0], want[0]):
+                if how == "exact":
+                    if g.dtype != w.dtype or not np.array_equal(
+                            g, w, equal_nan=True):
+                        failed.append(f"{cid}: outputs differ")
+                    continue
+                err = grid_error(g, w)
+                worst = max(worst, err) if err == err else worst
+                if not err <= tol:
+                    failed.append(f"{cid}: {err:.3e}")
+            for g, w in zip(got[1], want[1]):
+                g = np.zeros_like(w) if g is None and w is not None and \
+                    not np.any(w) else g
+                err = grid_error(g, w) if g is not None and w is not None \
+                    else (0.0 if g is w else float("nan"))
+                worst = max(worst, err) if err == err else worst
+                if not err <= tol:
+                    failed.append(f"{cid} (grad): {err:.3e}")
+    x = -np.abs(grid_values(64, 1000, seed=9)) - 0.1
+    slopes = run_grid_case("LeakyReLU", [x], {
+        "act_type": "rrelu", "lower_bound": 0.1, "upper_bound": 0.4,
+        "is_train": True}, "value", 0, dev)[0][0] / x
+    if not (slopes.min() >= 0.1 - 1e-6 and slopes.max() <= 0.4 + 1e-6
+            and abs(slopes.mean() - 0.25) < 0.01):
+        failed.append(f"rrelu slopes {slopes.min()}..{slopes.max()}, "
+                      f"mean {slopes.mean()}")
+    if failed:
+        raise AssertionError("op grid, card against CPU:\n"
+                             + "\n".join(failed))
+    return worst, count
+
+
+def _layer_and_loss_grid(mx, dev, tol=TOL_GRID):
+    """The six activation layers, ``InstanceNorm`` and every loss of
+    ``gluon.loss`` (``CTCLoss`` eager and hybridized), eager on the card
+    against the CPU from the same parameter values: outputs, the input's
+    gradient and the parameters'."""
+    from mxnet_tpu_torch import autograd, gluon
+    nn, L = gluon.nn, gluon.loss
+    x = np.concatenate([grid_values(2, 3, 4, 5),
+                        np.zeros((1, 3, 4, 5), "float32")])
+    layers = [("leaky_relu", lambda: nn.LeakyReLU(0.2)),
+              ("prelu", lambda: nn.PReLU(alpha_initializer="ones")),
+              ("elu", lambda: nn.ELU(0.7)), ("selu", nn.SELU),
+              ("gelu", nn.GELU), ("swish", lambda: nn.Swish(1.5)),
+              ("instance_norm", lambda: nn.InstanceNorm(in_channels=3))]
+    pred, label = grid_values(4, 6), grid_values(4, 6, seed=1)
+    binary = (grid_values(4, 6, seed=3) > 0).astype("float32")
+    dist = np.exp(label) / np.exp(label).sum(-1, keepdims=True)
+    ctc_x = grid_values(3, 7, 5, seed=8)
+    ctc_label = np.array([[0, 1, 1], [2, -1, -1], [3, 3, 3]], "float32")
+    losses = [
+        ("l1", L.L1Loss, [pred, label]),
+        ("sigmoid_bce", L.SigmoidBCELoss, [pred, binary]),
+        ("kl_div", lambda: L.KLDivLoss(from_logits=False), [pred, dist]),
+        ("huber", L.HuberLoss, [pred, label]),
+        ("hinge", L.HingeLoss, [pred, binary * 2 - 1]),
+        ("squared_hinge", L.SquaredHingeLoss, [pred, binary * 2 - 1]),
+        ("logistic", L.LogisticLoss, [pred, binary * 2 - 1]),
+        ("triplet", L.TripletLoss, [pred, label, grid_values(4, 6, seed=6)]),
+        ("cosine_embedding", L.CosineEmbeddingLoss,
+         [pred, label, np.array([1, -1, 1, -1], "float32")]),
+        ("ctc", L.CTCLoss, [ctc_x, ctc_label]),
+        ("ctc_hybridized", L.CTCLoss, [ctc_x, ctc_label]),
+    ]
+
+    def run(make, inputs, ctx, hybridize=False):
+        block = make()
+        block.initialize(ctx=ctx)
+        if hybridize:
+            block.hybridize()
+        arrays = [mx.nd.array(a, ctx=ctx) for a in inputs]
+        arrays[0].attach_grad()
+        with autograd.record():
+            out = block(*arrays)
+        # a seeded head: under ones, InstanceNorm's input and gamma
+        # gradients are 0 in exact arithmetic (rounding noise alone)
+        head = grid_cotangents([out.asnumpy()], 0)[0]
+        out.backward(mx.nd.array(head, ctx=ctx, dtype=out.dtype))
+        params = sorted((k, p.grad.asnumpy()) for k, p in
+                        block.collect_params().items()
+                        if p.grad_req != "null")
+        return [out.asnumpy(), arrays[0].grad.asnumpy()] + [
+            g for _, g in params]
+
+    failed, worst = [], 0.0
+    cases = [(c, m, [x], False) for c, m in layers] + [
+        (c, m, i, c.endswith("hybridized")) for c, m, i in losses]
+    for cid, make, inputs, hyb in cases:
+        want = run(make, inputs, mx.cpu(), hyb)
+        got = run(make, inputs, _ctx(mx, dev), hyb)
+        for g, w in zip(got, want):
+            err = grid_error(g, w)
+            worst = max(worst, err) if err == err else worst
+            if not err <= tol:
+                failed.append(f"{cid}: {err:.3e}")
+    if failed:
+        raise AssertionError("layers and losses, card against CPU:\n"
+                             + "\n".join(failed))
+    return worst, len(cases)
+
+
+def op_grid_phase(mx, dev):
+    """Phase 24: every op, layer and loss of slice 11 on the card against
+    the CPU (no Hopper kernel may launch)."""
+    t0 = time.perf_counter()
+    ops_worst, n_ops = dense_op_grid(dev)
+    layers_worst, n_layers = _layer_and_loss_grid(mx, dev)
+    print(f"op grid: {n_ops} op cases and {n_layers} layers and losses on "
+          f"the card against the CPU: discrete outputs equal, the rest "
+          f"within {ops_worst:.2e} (ops) and {layers_worst:.2e} (layers, "
+          f"losses) of the largest entry (tolerance {TOL_GRID}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------- slice 11: route H, DCGAN
+# DCGAN of Radford, Metz & Chintala (arXiv:1511.06434) at 64x64, as Apache
+# MXNet's example/gluon/dcgan.py and the authors' dcgan.torch build it: the
+# paper's batch, Adam lr 2e-4 and beta1 0.5; synthetic images (no dataset
+# in the repo); nothing cut.
+DCGAN = dict(ngf=64, ndf=64, nz=100, nc=3, image=64, batch=128, lr=2e-4,
+             beta1=0.5)
+DCGAN_TIMED = 10            # iterations timed, after two warm-up ones
+# iteration 1 in float32 (TF32 off) against the same iteration in float64
+# on the card: each loss relative (cuDNN's choice of f32 algorithm moves
+# it by up to 1.25e-5), D's logits of the largest, every gradient by
+# ||dg|| / ||g||: D's output layer tightly; the rest of the D step within
+# 5e-3 (its first layers 0.7-1.2e-3 on an H100); the G step loosely. At
+# initialisation D rejects G's images (errG ~5.9) and the G step's
+# backward through D and the four BatchNorms is ill-conditioned: float32
+# against float64 differs by up to 6.8e-3 per tensor on the CPU at batch
+# 128 and 2.8e-2 with cuDNN's f32 algorithms, the TF32 control 6.6e-2.
+TOL_GAN_LOSS = 3e-5
+TOL_GAN_LOGITS = 1e-4
+TOL_GAN_GRAD_TOP = 1e-4      # D's output convolution
+TOL_GAN_GRAD_D = 5e-3
+TOL_GAN_GRAD_G = 0.1
+GAN_TOP = "disc_conv2d4_"
+
+
+def build_dcgan64(nn, ngf=64, ndf=64, nz=100, nc=3):
+    """(generator, discriminator) of the 64x64 DCGAN from ``nn`` (the
+    port's ``gluon.nn`` or the JAX package's): G is ``Conv2DTranspose``
+    nz→8·ngf (4, 1, 0), then →4·ngf→2·ngf→ngf (4, 2, 1), each with
+    ``BatchNorm`` and ReLU, then →nc (4, 2, 1) and tanh; D is ``Conv2D``
+    nc→ndf (4, 2, 1) with ``LeakyReLU(0.2)``, then →2·ndf→4·ndf→8·ndf
+    (4, 2, 1), each with ``BatchNorm`` and ``LeakyReLU(0.2)``, then →1
+    (4, 1, 0). No convolution has a bias. ``nz`` is read from the noise."""
+    del nz
+    gen = nn.HybridSequential(prefix="gen_")
+    with gen.name_scope():
+        for i, mult in enumerate((8, 4, 2, 1)):
+            gen.add(nn.Conv2DTranspose(ngf * mult, 4, 1 if i == 0 else 2,
+                                       0 if i == 0 else 1, use_bias=False))
+            gen.add(nn.BatchNorm())
+            gen.add(nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False))
+        gen.add(nn.Activation("tanh"))
+    disc = nn.HybridSequential(prefix="disc_")
+    with disc.name_scope():
+        disc.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False))
+        disc.add(nn.LeakyReLU(0.2))
+        for mult in (2, 4, 8):
+            disc.add(nn.Conv2D(ndf * mult, 4, 2, 1, use_bias=False))
+            disc.add(nn.BatchNorm())
+            disc.add(nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return gen, disc
+
+
+def dcgan_d_step(pkg, net_g, net_d, tr_d, loss_fn, data, noise, real, fake):
+    """The D half of ``example/gluon/dcgan.py``'s iteration in ``pkg`` (the
+    port or the JAX package): errD on real and fake images, backward, one
+    trainer step. Returns (errD, D's logits of the real batch)."""
+    with pkg.autograd.record():
+        out_real = net_d(data).reshape((-1,))
+        err_real = loss_fn(out_real, real)
+        out_fake = net_d(net_g(noise).detach()).reshape((-1,))
+        err_d = err_real + loss_fn(out_fake, fake)
+    err_d.backward()
+    tr_d.step(data.shape[0])
+    return err_d, out_real
+
+
+def dcgan_g_step(pkg, net_g, net_d, tr_g, loss_fn, noise, real):
+    """The G half: errG of D's verdict on G's images, backward, a step."""
+    with pkg.autograd.record():
+        err_g = loss_fn(net_d(net_g(noise)).reshape((-1,)), real)
+    err_g.backward()
+    tr_g.step(noise.shape[0])
+    return err_g
+
+
+def dcgan_setup(mx, ctx, weights=None, dtype="float32"):
+    """The nets at ``DCGAN``'s widths on ``ctx`` (``Normal(0.02)`` from the
+    port's seed, or ``weights``, G's and D's by name), cast to ``dtype``,
+    with their Adam trainers and the loss."""
+    from mxnet_tpu_torch import gluon, interop
+    c = DCGAN
+    net_g, net_d = build_dcgan64(gluon.nn, c["ngf"], c["ndf"], c["nz"],
+                                 c["nc"])
+    mx.random.seed(SEED)
+    for net in (net_g, net_d):
+        net.initialize(mx.init.Normal(0.02), ctx=ctx)
+    with mx.autograd.pause():
+        net_d(net_g(mx.nd.zeros((2, c["nz"], 1, 1), ctx=ctx)))
+    if weights is not None:
+        for net, w in zip((net_g, net_d), weights):
+            interop.load_block_params(net, w)
+    for net in (net_g, net_d):
+        for p in net.collect_params().values():
+            if dtype != "float32":
+                p.cast(dtype)
+    opt = {"learning_rate": c["lr"], "beta1": c["beta1"]}
+    trainers = [gluon.Trainer(n.collect_params(), "adam", dict(opt))
+                for n in (net_g, net_d)]
+    return net_g, net_d, trainers, gluon.loss.SigmoidBinaryCrossEntropyLoss()
+
+
+def dcgan_batch(mx, ctx, step, dtype="float32"):
+    """(images in [−1, 1], noise) of one iteration, seeded by ``step``:
+    drawn by the CPU's generator (the card's draws other values from a
+    seed) and copied to ``ctx``."""
+    c = DCGAN
+    gen = torch.Generator().manual_seed(SEED + step)
+    dev, dt = ctx.torch_device(), mx.nd.torch_dtype(dtype)
+    data = torch.rand(c["batch"], c["nc"], c["image"], c["image"],
+                      generator=gen).mul_(2).sub_(1)
+    noise = torch.randn(c["batch"], c["nz"], 1, 1, generator=gen)
+    return (mx.nd.NDArray(data.to(dev, dt)),
+            mx.nd.NDArray(noise.to(dev, dt)))
+
+
+def _gan_grads(net):
+    return {k: p.grad._data.detach().double().clone()
+            for k, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def _gan_iteration_one(mx, ctx, weights, dtype):
+    """Iteration 1 from ``weights`` in ``dtype``: (errD, errG, D's logits,
+    D's gradients after the D step, G's after the G step)."""
+    net_g, net_d, (tr_g, tr_d), loss_fn = dcgan_setup(mx, ctx, weights,
+                                                      dtype)
+    data, noise = dcgan_batch(mx, ctx, 0, dtype)
+    b = DCGAN["batch"]
+    real = mx.nd.ones((b,), ctx=ctx, dtype=dtype)
+    fake = mx.nd.zeros((b,), ctx=ctx, dtype=dtype)
+    err_d, logits = dcgan_d_step(mx, net_g, net_d, tr_d, loss_fn, data,
+                                 noise, real, fake)
+    g_d = _gan_grads(net_d)
+    err_g = dcgan_g_step(mx, net_g, net_d, tr_g, loss_fn, noise, real)
+    return (float(err_d.mean().asscalar()), float(err_g.mean().asscalar()),
+            logits._data.detach().double(), g_d, _gan_grads(net_g))
+
+
+def _gan_tensor_errors(run, ref):
+    """{(half, name): (||dg|| / ||g||, ||g||)} of every gradient of
+    ``run`` against ``ref`` (D's after the D step, G's after the G
+    step)."""
+    return {(half, n): (_norm_rel(g, ref[k][n]), ref[k][n].norm().item())
+            for k, half in ((3, "D"), (4, "G")) for n, g in run[k].items()}
+
+
+def _gan_errors(run, ref):
+    """(loss, logits, D's output layer, the rest of the D step, the G
+    step) errors of ``run`` against ``ref``, each the worst."""
+    loss = max(abs(run[i] - ref[i]) / abs(ref[i]) for i in (0, 1))
+    logits = ((run[2] - ref[2]).abs().max() / ref[2].abs().max()).item()
+    per = _gan_tensor_errors(run, ref)
+
+    def worst(keep):
+        return max(e for k, (e, _) in per.items() if keep(k))
+    return (loss, logits, worst(lambda k: k[1].startswith(GAN_TOP)),
+            worst(lambda k: k[0] == "D" and not k[1].startswith(GAN_TOP)),
+            worst(lambda k: k[0] == "G"))
+
+
+def dcgan_phase(mx, hk, dev, profile=False):
+    """Route H (phase 25): the 64x64 DCGAN trained through gluon on the
+    card. Iteration 1 (the D step on real and fake, then the G step, two
+    Adam trainers) against the same iteration in float64 on the card —
+    both losses, D's logits, every gradient — with a TF32 control that
+    must miss; then ``DCGAN_TIMED`` timed iterations (ms, images/s, peak
+    memory, host dispatch beside the device time, for the iteration and
+    each half), the losses finite, a ``torch.profiler`` breakdown (busy
+    share). No Hopper kernel may launch."""
+    from mxnet_tpu_torch import interop
+    c, ctx = DCGAN, _ctx(mx, dev)
+    net_g, net_d, _, _ = dcgan_setup(mx, ctx)
+    n_g = sum(p.data().size for p in net_g.collect_params().values()
+              if p.grad_req != "null")
+    n_d = sum(p.data().size for p in net_d.collect_params().values()
+              if p.grad_req != "null")
+    weights = [interop.block_params_to_numpy(n) for n in (net_g, net_d)]
+    del net_g, net_d
+    print(f"dcgan: G {n_g:,} and D {n_d:,} trainable parameters at ngf = "
+          f"ndf = {c['ngf']}, nz {c['nz']}, 64x64x{c['nc']}, batch "
+          f"{c['batch']}")
+    hk.reset_launch_counts()
+    run = _gan_iteration_one(mx, ctx, weights, "float32")
+    ref = _gan_iteration_one(mx, ctx, weights, "float64")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = _gan_iteration_one(mx, ctx, weights, "float32")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs, ctl = _gan_errors(run, ref), _gan_errors(control, ref)
+    tols = (TOL_GAN_LOSS, TOL_GAN_LOGITS, TOL_GAN_GRAD_TOP, TOL_GAN_GRAD_D,
+            TOL_GAN_GRAD_G)
+    print(f"dcgan: iteration 1 against float64 (loss, D's logits, "
+          f"||dg||/||g|| of D's output layer, of the rest of the D step, of "
+          f"the G step): {', '.join(f'{e:.2e}' for e in errs)} (tolerances "
+          f"{tols}); TF32 control {', '.join(f'{e:.2e}' for e in ctl)}; "
+          f"errD {run[0]:.6f} errG {run[1]:.6f}")
+    per = _gan_tensor_errors(run, ref)
+    per_ctl = _gan_tensor_errors(control, ref)
+    for half in ("D", "G"):      # the four worst tensors of each step
+        worst = sorted((kv for kv in per.items() if kv[0][0] == half),
+                       key=lambda kv: -kv[1][0])[:4]
+        for key, (e, norm) in worst:
+            print(f"dcgan: {half} step {key[1]}: ||dg||/||g|| {e:.2e} "
+                  f"(TF32 {per_ctl[key][0]:.2e}), ||g64|| {norm:.3e}")
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError("dcgan: iteration 1 is not within its "
+                             "tolerances of the float64 iteration")
+    if all(e <= t for e, t in zip(ctl, tols)):
+        raise AssertionError("dcgan: the TF32 control met every tolerance")
+    del run, ref, control
+    _free()
+
+    net_g, net_d, (tr_g, tr_d), loss_fn = dcgan_setup(mx, ctx, weights)
+    real = mx.nd.ones((c["batch"],), ctx=ctx)
+    fake = mx.nd.zeros((c["batch"],), ctx=ctx)
+    batches = [dcgan_batch(mx, ctx, i) for i in range(DCGAN_TIMED + 3)]
+    losses, halves = [], {"D": [], "G": []}
+
+    def d_half(i):
+        return dcgan_d_step(mx, net_g, net_d, tr_d, loss_fn, batches[i][0],
+                            batches[i][1], real, fake)[0]
+
+    def g_half(i):
+        return dcgan_g_step(mx, net_g, net_d, tr_g, loss_fn, batches[i][1],
+                            real)
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DCGAN_TIMED + 2):
+        out = {}
+        for name, half in (("D", d_half), ("G", g_half)):
+            def step(half=half, name=name):
+                out[name] = half(i)
+            if i >= 2:
+                halves[name].append(_timed_step(step))
+            else:
+                step()
+        losses.append((out["D"].mean(), out["G"].mean()))
+    values = [(float(d.asscalar()), float(g.asscalar())) for d, g in losses]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"dcgan: a loss is not finite: {values}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    line = []
+    for name in ("D", "G"):
+        host = 1e3 * float(np.median([h for h, _, _ in halves[name]]))
+        devms = float(np.median([d for _, d, _ in halves[name]]))
+        wall = 1e3 * float(np.median([w for _, _, w in halves[name]]))
+        line.append(f"{name} half {wall:.2f} ms ({devms:.2f} on the card, "
+                    f"host dispatch {host:.2f})")
+    it_wall = 1e3 * float(np.median([a[2] + b[2] for a, b in zip(
+        halves["D"], halves["G"])]))
+    it_dev = float(np.median([a[1] + b[1] for a, b in zip(
+        halves["D"], halves["G"])]))
+    it_host = 1e3 * float(np.median([a[0] + b[0] for a, b in zip(
+        halves["D"], halves["G"])]))
+    print(f"dcgan: {DCGAN_TIMED} timed iterations: an iteration "
+          f"{it_wall:.2f} ms ({it_dev:.2f} ms on the card, host dispatch "
+          f"{it_host:.2f} ms), {1e3 * c['batch'] / it_wall:.1f} images/s; "
+          f"{'; '.join(line)}; peak memory {peak:.2f} GB; errD "
+          f"{values[0][0]:.4f} -> {values[-1][0]:.4f}, errG "
+          f"{values[0][1]:.4f} -> {values[-1][1]:.4f}; card {_card_line()}")
+    profile_breakdown("dcgan iteration", lambda: (d_half(DCGAN_TIMED + 2),
+                                                  g_half(DCGAN_TIMED + 2)))
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route H launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
+# ------------------------------------------------- slice 11: route I, CTC
+# a speech batch: 32 utterances of 400 frames, 28 graphemes and the blank
+# (last), label lengths 40-120 (one row needs more frames than it has)
+CTC_CARD = dict(batch=32, frames=400, classes=29, min_label=40,
+                max_label=120)
+TOL_CTC_LOSS = 1e-6          # relative, card float32 against float64
+TOL_CTC_GRAD = 1e-5          # of the logits' gradient's largest entry
+OCR_BAR = 0.65               # tests/test_examples.py's thresholds
+SPEECH_BAR = 0.35
+
+
+def ctc_batch(seed=SEED):
+    """(logits (N, T, C), labels (N, Lmax) padded with −1, the label
+    lengths, the frame lengths): row 0 repeats one grapheme 120 times,
+    which needs 239 frames, and is given half of its 400."""
+    c = CTC_CARD
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(c["min_label"], c["max_label"] + 1, c["batch"])
+    labels = np.full((c["batch"], c["max_label"]), -1, "float32")
+    for i, n in enumerate(lens):
+        labels[i, :n] = rs.randint(0, c["classes"] - 1, n)
+    labels[0, :c["max_label"]] = 3
+    lens[0] = c["max_label"]
+    logits = rs.randn(c["batch"], c["frames"], c["classes"]).astype(
+        "float32")
+    frames = np.full(c["batch"], c["frames"], "float32")
+    frames[0] = c["frames"] // 2
+    return logits, labels, lens, frames
+
+
+def ctc_phase(mx, hk, dev):
+    """Route I (phase 26): ``gluon.loss.CTCLoss`` at a speech batch on the
+    card in float32 against float64 on the card (loss, the logits'
+    gradient), timed forward and backward beside ``F.ctc_loss`` (the
+    library's call, not on the path); then the ``lstm_ocr`` and
+    ``speech_ctc`` twins trained on the card at their own widths against
+    the JAX recipes' test thresholds. No Hopper kernel may launch."""
+    from mxnet_tpu_torch import autograd, gluon
+    ctx = _ctx(mx, dev)
+    logits, labels, lens, frames = ctc_batch()
+    c = CTC_CARD
+    hk.reset_launch_counts()
+    loss_fn = gluon.loss.CTCLoss()
+
+    def run(dtype):
+        x = mx.nd.array(logits, ctx=ctx, dtype=dtype)
+        x.attach_grad()
+        with autograd.record():
+            loss = loss_fn(x, mx.nd.array(labels, ctx=ctx),
+                           mx.nd.array(frames, ctx=ctx))
+        loss.backward()
+        return loss._data.detach(), x.grad._data.detach().double()
+
+    (l32, g32), (l64, g64) = run("float32"), run("float64")
+    loss_err = ((l32 - l64).abs() / l64.abs()).max().item()
+    grad_err = ((g32 - g64).abs().max() / g64.abs().max()).item()
+    print(f"ctc: CTCLoss at ({c['batch']}, {c['frames']}, {c['classes']}), "
+          f"labels {int(lens.min())}-{int(lens.max())}, row 0 given "
+          f"{int(frames[0])} frames for {2 * int(lens[0]) - 1} needed: "
+          f"float32 against "
+          f"float64 on the card: loss {loss_err:.2e} (tolerance "
+          f"{TOL_CTC_LOSS}), gradient {grad_err:.2e} of its largest "
+          f"(tolerance {TOL_CTC_GRAD}); the impossible row's loss "
+          f"{l32[0].item():.6e} (finite, optax's log_epsilon)")
+    if not (loss_err <= TOL_CTC_LOSS and grad_err <= TOL_CTC_GRAD):
+        raise AssertionError("ctc: float32 is not within its tolerances of "
+                             "float64")
+    if not (torch.isfinite(l32).all() and l32[0].item() > 1e5 - 1e4):
+        raise AssertionError(f"ctc: the impossible row is not finite and "
+                             f"≈1e5: {l32[0].item()}")
+    x = mx.nd.array(logits, ctx=ctx)
+    x.attach_grad()
+    y, lengths = mx.nd.array(labels, ctx=ctx), mx.nd.array(frames, ctx=ctx)
+
+    def port():
+        with autograd.record():
+            loss = loss_fn(x, y, lengths)
+        loss.backward()
+
+    lx = torch.tensor(logits, device=dev).transpose(0, 1).contiguous() \
+        .requires_grad_()
+    targets = torch.tensor(np.where(labels < 0, 0, labels), device=dev,
+                           dtype=torch.long)
+    in_lens = torch.tensor(frames, dtype=torch.long, device=dev)
+    tgt_lens = torch.tensor(lens, dtype=torch.long, device=dev)
+
+    def library():
+        out = torch.nn.functional.ctc_loss(
+            torch.log_softmax(lx, -1), targets, in_lens, tgt_lens,
+            blank=c["classes"] - 1, reduction="none", zero_infinity=True)
+        out.sum().backward()
+
+    port_ms = _time_ms(port, 5)
+    library_ms = _time_ms(library, 5)
+    host, dev_ms, _ = _timed_step(port)
+    print(f"ctc: forward and backward {port_ms:.2f} ms (host dispatch "
+          f"{1e3 * host:.2f} ms, {dev_ms:.2f} ms between events); "
+          f"F.ctc_loss (cuDNN/native, not on the path) {library_ms:.2f} ms; "
+          f"card {_card_line()}")
+    ocr = _load_example("example/ctc/lstm_ocr_torch.py", "lstm_ocr_torch")
+    t0 = time.perf_counter()
+    first, last, acc = ocr.train(epochs=3, steps_per_epoch=20,
+                                 verbose=False, ctx=ctx)
+    ocr_s = time.perf_counter() - t0
+    speech = _load_example("example/speech_recognition/speech_ctc_torch.py",
+                           "speech_ctc_torch")
+    t0 = time.perf_counter()
+    per0, per1 = speech.train(epochs=16, verbose=False, ctx=ctx)
+    speech_s = time.perf_counter() - t0
+    print(f"ctc: lstm_ocr twin on the card, 3 epochs of 20 steps: loss "
+          f"{first:.3f} -> {last:.3f} (bar {OCR_BAR}x the first), exact "
+          f"match {acc:.2f}, {ocr_s:.1f} s; speech_ctc twin, 16 epochs: "
+          f"phone error rate {per0:.3f} -> {per1:.3f} (bar {SPEECH_BAR}), "
+          f"{speech_s:.1f} s")
+    if not (last < OCR_BAR * first and per1 < SPEECH_BAR):
+        raise AssertionError("ctc: a twin missed the JAX recipe's "
+                             "threshold")
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route I launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+    return port_ms, library_ms
+
+
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4983,6 +5849,19 @@ def main(argv=None) -> int:
     if any(hk.launch_counts.values()):
         raise AssertionError(f"route G launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
+    _free()
+    # slice 11: the dense ops, gluon's activations and losses, route H
+    # (DCGAN) and route I (CTC): no TPU kernel on their paths (XLA lowered
+    # the JAX package's; plain torch and cuDNN run the port's)
+    hk.reset_launch_counts()
+    op_grid_phase(mx, dev)
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"the op grid launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+    _free()
+    dcgan_phase(mx, hk, dev, args.profile)
+    _free()
+    ctc_phase(mx, hk, dev)
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

@@ -48,6 +48,7 @@ from . import metric
 from . import callback
 from . import model
 from . import kvstore
+from . import kvstore as kv
 from . import module
 from . import module as mod
 from . import parallel
@@ -62,4 +63,16 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model", "kvstore",
            "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
-           "recordio", "image"]
+           "recordio", "image", "kv", "serving", "interop"]
+
+
+def __getattr__(name):
+    """``mx.serving`` and ``mx.interop`` import on first use, as in the JAX
+    package."""
+    if name in ("serving", "interop"):
+        import importlib
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "
+                         f"{name!r}")

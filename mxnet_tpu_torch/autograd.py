@@ -32,7 +32,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad", "mark_variables", "Function"]
+           "is_training", "set_recording", "set_training", "backward", "grad",
+           "mark_variables", "get_symbol", "Function"]
 
 _state = threading.local()
 # id -> NDArray of every array marked as a variable (held weakly)
@@ -52,6 +53,28 @@ def is_recording() -> bool:
 
 def is_training() -> bool:
     return _st().training
+
+
+def set_recording(flag: bool) -> bool:
+    """Turn recording on or off; returns the previous state."""
+    st = _st()
+    old, st.recording = st.recording, bool(flag)
+    return old
+
+
+def set_training(flag: bool) -> bool:
+    """Turn training mode on or off; returns the previous state."""
+    st = _st()
+    old, st.training = st.training, bool(flag)
+    return old
+
+
+def get_symbol(x):
+    """Raises, as the JAX package's does: the tape is torch autograd's, not
+    a graph of NNVM nodes; hybridize a block to obtain a graph."""
+    raise MXNetError("get_symbol: the port records torch autograd's graph, "
+                     "not NNVM nodes; use hybridize() or export() to "
+                     "obtain a graph")
 
 
 class _Scope:

@@ -79,6 +79,16 @@ def _bn_param_shapes(attrs, ds):
             "moving_var": (c,)}
 
 
+def _in_param_shapes(attrs, ds):
+    return {"gamma": (ds[1],), "beta": (ds[1],)}
+
+
+def _prelu_param_shapes(attrs, ds):
+    if attrs.get("act_type", "leaky") == "prelu":
+        return {"gamma": (ds[1] if len(ds) > 1 else 1,)}
+    return {}
+
+
 def _emb_param_shapes(attrs, ds):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
@@ -101,6 +111,8 @@ _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "Deconvolution": _deconv_param_shapes,
     "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
+    "InstanceNorm": _in_param_shapes,
+    "LeakyReLU": _prelu_param_shapes,
     "Embedding": _emb_param_shapes,
     "RNN": _rnn_param_shapes,
 }

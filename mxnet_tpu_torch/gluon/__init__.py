@@ -13,4 +13,5 @@ from . import contrib  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import rnn  # noqa: F401
 from . import utils  # noqa: F401
+from .utils import split_and_load, split_data, clip_global_norm  # noqa: F401
 from . import data  # noqa: F401

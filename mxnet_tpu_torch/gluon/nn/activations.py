@@ -1,14 +1,16 @@
 """Activation Gluon layers.
 
-Counterpart of ``Activation`` in ``mxnet_tpu/gluon/nn/activations.py``
-(reference ``python/mxnet/gluon/nn/activations.py``); the parametric and
-LeakyReLU-family layers wait for the op-library slice.
+Counterpart of ``mxnet_tpu/gluon/nn/activations.py`` (reference
+``python/mxnet/gluon/nn/activations.py``): ``Activation``, and the
+``LeakyReLU`` family over the ``LeakyReLU`` op (``PReLU`` learns one slope,
+initialised to zeros), ``Swish`` as ``x·sigmoid(βx)``.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 
-__all__ = ["Activation"]
+__all__ = ["Activation", "LeakyReLU", "PReLU", "ELU", "SELU", "Swish",
+           "GELU"]
 
 
 class Activation(HybridBlock):
@@ -18,3 +20,51 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    def __init__(self, alpha_initializer="zeros", prefix=None, params=None):
+        super().__init__(prefix, params)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

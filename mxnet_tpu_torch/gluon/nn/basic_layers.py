@@ -1,11 +1,10 @@
 """Basic Gluon layers.
 
 Counterpart of ``Sequential``, ``HybridSequential``, ``Dense``,
-``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
-``Lambda`` and ``HybridLambda`` in
+``Dropout``, ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``,
+``Embedding``, ``Flatten``, ``Lambda`` and ``HybridLambda`` in
 ``mxnet_tpu/gluon/nn/basic_layers.py`` (reference
-``python/mxnet/gluon/nn/basic_layers.py``); the rest of that module waits
-for a later slice.
+``python/mxnet/gluon/nn/basic_layers.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -153,6 +152,29 @@ class BatchNorm(HybridBlock):
                 if idx in upd:
                     t.copy_(upd[idx])
         return out[0]
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization over the spatial axes, its layer ``epsilon``
+    1e-5 (the op's default is 1e-3). As in the JAX package, ``axis``,
+    ``center`` and ``scale`` are accepted and not read: gamma and beta are
+    always applied and learned."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._eps = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
 
 
 class LayerNorm(HybridBlock):

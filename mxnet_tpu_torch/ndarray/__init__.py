@@ -10,13 +10,62 @@ from __future__ import annotations
 import numpy as np
 
 from .ndarray import NDArray, array, torch_dtype
-from .utils import (zeros, ones, save, load, load_frombuffer, concat, stack,
-                    split)
+from .utils import (zeros, ones, full, empty, arange, save, load,
+                    load_frombuffer, concat, stack, split)
 from .._imperative import invoke
 from ..ops.registry import _REGISTRY, get_op, list_ops
 
-__all__ = ["NDArray", "array", "zeros", "ones", "save", "load",
-           "load_frombuffer", "torch_dtype", "concat", "stack", "split"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "save", "load", "load_frombuffer", "torch_dtype", "concat",
+           "stack", "split", "add", "subtract", "multiply", "divide",
+           "true_divide", "modulo", "maximum", "minimum", "power", "equal",
+           "not_equal", "greater", "greater_equal", "lesser", "lesser_equal",
+           "logical_and", "logical_or", "logical_xor"]
+
+
+def _scalar_or_elemwise(elem_op, scalar_op, rscalar_op=None):
+    """The top-level binary functions (``mx.nd.maximum(a, 2)``): the
+    broadcast op for two arrays, the scalar op otherwise (the JAX
+    package's dispatch)."""
+    def fn(lhs, rhs):
+        l_scalar, r_scalar = np.isscalar(lhs), np.isscalar(rhs)
+        if l_scalar and r_scalar:
+            raise ValueError("at least one operand must be an NDArray")
+        if r_scalar:
+            return invoke(scalar_op, [lhs], {"scalar": float(rhs)})
+        if l_scalar:
+            return invoke(rscalar_op or scalar_op, [rhs],
+                          {"scalar": float(lhs)})
+        return invoke(elem_op, [lhs, rhs], {})
+    fn.__name__ = elem_op.replace("broadcast_", "")
+    return fn
+
+
+maximum = _scalar_or_elemwise("broadcast_maximum", "_maximum_scalar")
+minimum = _scalar_or_elemwise("broadcast_minimum", "_minimum_scalar")
+power = _scalar_or_elemwise("broadcast_power", "_power_scalar",
+                            "_rpower_scalar")
+add = _scalar_or_elemwise("broadcast_add", "_plus_scalar")
+subtract = _scalar_or_elemwise("broadcast_sub", "_minus_scalar",
+                               "_rminus_scalar")
+multiply = _scalar_or_elemwise("broadcast_mul", "_mul_scalar")
+divide = _scalar_or_elemwise("broadcast_div", "_div_scalar", "_rdiv_scalar")
+true_divide = divide
+modulo = _scalar_or_elemwise("broadcast_mod", "_mod_scalar", "_rmod_scalar")
+equal = _scalar_or_elemwise("broadcast_equal", "_equal_scalar")
+not_equal = _scalar_or_elemwise("broadcast_not_equal", "_not_equal_scalar")
+greater = _scalar_or_elemwise("broadcast_greater", "_greater_scalar")
+greater_equal = _scalar_or_elemwise("broadcast_greater_equal",
+                                    "_greater_equal_scalar")
+lesser = _scalar_or_elemwise("broadcast_lesser", "_lesser_scalar")
+lesser_equal = _scalar_or_elemwise("broadcast_lesser_equal",
+                                   "_lesser_equal_scalar")
+logical_and = _scalar_or_elemwise("broadcast_logical_and",
+                                  "_logical_and_scalar")
+logical_or = _scalar_or_elemwise("broadcast_logical_or",
+                                 "_logical_or_scalar")
+logical_xor = _scalar_or_elemwise("broadcast_logical_xor",
+                                  "_logical_xor_scalar")
 
 
 def _make_op_func(name: str):

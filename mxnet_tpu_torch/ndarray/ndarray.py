@@ -112,6 +112,8 @@ class NDArray:
         if self._data.device.type == "cuda":
             torch.cuda.current_stream(self._data.device).synchronize()
 
+    wait_to_write = wait_to_read
+
     def asnumpy(self) -> np.ndarray:
         """A copy on the host: a CPU tensor's numpy view would change with
         the in-place updates of gradients, weights and moving statistics."""
@@ -146,6 +148,10 @@ class NDArray:
             raise TypeError("len() of 0-d array")
         return self.shape[0]
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     def __repr__(self):
         return f"\n{self.asnumpy()}\n<NDArray " \
                f"{'x'.join(map(str, self.shape))} @{self.context}>"
@@ -174,6 +180,8 @@ class NDArray:
         if ctx == self.context:
             return self
         return NDArray(self._data.to(ctx.torch_device()))
+
+    as_in_ctx = as_in_context
 
     def copy(self) -> "NDArray":
         return NDArray(self._data.detach().clone())
@@ -262,6 +270,7 @@ class NDArray:
     def __rpow__(self, o): return self._binop("broadcast_power", o, "_rpower_scalar", True)
     def __mod__(self, o): return self._binop("broadcast_mod", o, "_mod_scalar")
     def __rmod__(self, o): return self._binop("broadcast_mod", o, "_rmod_scalar", True)
+    def __matmul__(self, o): return invoke("dot", [self, o], {})
     def __neg__(self): return invoke("negative", [self], {})
     def __abs__(self): return invoke("abs", [self], {})
 
@@ -291,6 +300,12 @@ class NDArray:
 
     def broadcast_to(self, shape) -> "NDArray":
         return invoke("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def broadcast_like(self, other) -> "NDArray":
+        return invoke("broadcast_like", [self, other], {})
+
+    def reshape_like(self, other) -> "NDArray":
+        return invoke("reshape_like", [self, other], {})
 
     def expand_dims(self, axis) -> "NDArray":
         return invoke("expand_dims", [self], {"axis": axis})

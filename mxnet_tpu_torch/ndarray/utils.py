@@ -22,8 +22,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from .ndarray import NDArray, array, torch_dtype
 
-__all__ = ["zeros", "ones", "concat", "stack", "split", "save", "load",
-           "load_frombuffer"]
+__all__ = ["zeros", "ones", "full", "empty", "arange", "concat", "stack",
+           "split", "save", "load", "load_frombuffer"]
 
 _MAGIC = b"MXTPU001"
 
@@ -44,6 +44,25 @@ def zeros(shape, ctx: Optional[Context] = None, dtype=None,
 def ones(shape, ctx: Optional[Context] = None, dtype=None,
          **kwargs) -> NDArray:
     return _full(shape, 1, ctx, dtype)
+
+
+def full(shape, val, ctx: Optional[Context] = None, dtype=None,
+         **kwargs) -> NDArray:
+    return _full(shape, val, ctx, dtype)
+
+
+def empty(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
+    """Zeros, as in the JAX package."""
+    return _full(shape, 0, ctx, dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=None) -> NDArray:
+    """``np.arange`` (each value ``repeat`` times) on ``ctx``."""
+    out = np.arange(start, stop, step, dtype=dtype or "float32")
+    if repeat > 1:
+        out = np.repeat(out, repeat)
+    return array(out, ctx=ctx)
 
 
 def concat(*arrays, dim=1) -> NDArray:

@@ -3,9 +3,11 @@ symbolic heads.
 
 Counterpart of ``FullyConnected``, ``Convolution``, ``Deconvolution``,
 ``Pooling``, ``LayerNorm``, ``BatchNorm``, ``Activation``, ``Dropout``,
-``softmax``, ``log_softmax``, ``softmax_cross_entropy``,
-``SoftmaxOutput`` and ``_contrib_flash_attention`` in
-``mxnet_tpu/ops/nn.py``, and ``MakeLoss`` in ``mxnet_tpu/ops/parity_ops.py``
+``InstanceNorm``, ``LRN``, ``LeakyReLU``, ``softmax``, ``log_softmax``,
+``softmin``, ``SoftmaxActivation``, ``softmax_cross_entropy``,
+``SoftmaxOutput``, the regression outputs, ``SVMOutput``, ``UpSampling``
+and ``_contrib_flash_attention`` in ``mxnet_tpu/ops/nn.py``, and
+``MakeLoss`` in ``mxnet_tpu/ops/parity_ops.py``
 (reference ``src/operator/nn/``, ``src/operator/loss_binary_op.cc``,
 ``softmax_output.cc``, ``make_loss.cc``). Matrix products
 go to ``torch`` (cuBLAS on the card, in full float32: TF32 stays off);
@@ -243,6 +245,35 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
             var.squeeze(ax).to(data.dtype))
 
 
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Per sample and channel over the spatial axes: one-pass float32
+    statistics (``var = E[x²] − E[x]²`` clamped at 0), normalised in
+    float32, cast back to the data's type, then scaled and shifted (the
+    JAX package's order; ``F.instance_norm`` differs in all three)."""
+    red = tuple(range(2, data.ndim))
+    xf = data.float()
+    mean = xf.mean(dim=red, keepdim=True)
+    var = ((xf * xf).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return ((xf - mean) * torch.rsqrt(var + float(eps))).to(data.dtype) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("LRN", num_outputs=2, arg_names=("data",))
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response norm across channels (reference
+    ``src/operator/nn/lrn.cc``): ``x / (k + α/n · Σ x²)^β`` over a window
+    of ``nsize`` channels; outputs (out, the denominator).
+    ``F.local_response_norm`` scales the sum otherwise."""
+    n = int(nsize)
+    half = n // 2
+    padded = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    windows = sum(padded[:, i:i + data.shape[1]] for i in range(n))
+    norm = (float(knorm) + (float(alpha) / n) * windows) ** float(beta)
+    return data / norm, norm
+
+
 @register("Activation", arg_names=("data",))
 def _activation(data, act_type="relu"):
     if act_type == "relu":
@@ -255,6 +286,40 @@ def _activation(data, act_type="relu"):
         return F.softplus(data)
     if act_type == "softsign":
         return data / (1.0 + data.abs())
+    raise MXNetError(f"bad act_type {act_type}")
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", needs_rng=True, arg_names=("data", "gamma"))
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, rng=None,
+                is_train=True):
+    """The leaky family: ``x`` where ``x >= 0``, else ``slope·x`` (leaky),
+    ``gamma·x`` per channel (prelu), ``slope·expm1(x)`` (elu), SELU's
+    scaled ELU, exact-erf GELU, or (rrelu) ``x`` times a slope drawn
+    uniformly from [lower, upper] per element from ``rng`` in training and
+    their mean otherwise."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, float(slope) * data)
+    if act_type == "prelu":
+        shape = (1, -1) + (1,) * (data.ndim - 2) if data.ndim > 1 else (-1,)
+        return torch.where(data >= 0, data, gamma.reshape(shape) * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, float(slope) * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data >= 0, data, _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        lo, hi = float(lower_bound), float(upper_bound)
+        if is_train and rng is not None:
+            sl = torch.empty_like(data).uniform_(lo, hi, generator=rng)
+        else:
+            sl = (lo + hi) / 2.0
+        return torch.where(data >= 0, data, sl * data)
     raise MXNetError(f"bad act_type {act_type}")
 
 
@@ -311,6 +376,37 @@ def _log_softmax(data, axis=-1, temperature=None, dtype=None):
     x = data / temperature if temperature else data
     out = torch.log_softmax(x, dim=int(axis))
     return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("softmin", arg_names=("data",))
+def _softmin(data, axis=-1, temperature=None, dtype=None):
+    return _softmax(-data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(data, mode="instance"):
+    """Softmax over the channels (``mode="channel"``, axis 1) or over
+    everything but the batch axis."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+@register("UpSampling", arg_names=("data",))
+def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+                num_args=1, multi_input_mode="concat", workspace=512):
+    """The first input scaled by ``scale`` on both spatial axes: each
+    pixel repeated (nearest) or resampled bilinearly at half-pixel centres
+    (``jax.image.resize``'s upsampling); further inputs (the bilinear
+    mode's learned weight, or more maps to concatenate) are ignored, as in
+    the JAX package."""
+    data = args[0]
+    s = int(scale)
+    if sample_type == "nearest":
+        return data.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+    return F.interpolate(data, scale_factor=s, mode="bilinear",
+                         align_corners=False)
 
 
 @register("softmax_cross_entropy", arg_names=("data", "label"))
@@ -457,3 +553,74 @@ def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
     the head gradient."""
     return _MakeLoss.apply(data, float(grad_scale), float(valid_thresh),
                            str(normalization))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """The regression heads: the forward is ``data`` (linear, MAE) or its
+    sigmoid (logistic); the backward ignores the head gradient and emits
+    ``(out − label)·grad_scale``, or its sign for MAE (the JAX package's
+    rules, reference ``regression_output.cc``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.view_as(
+            data)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (kind, grad_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        kind, grad_scale = ctx.attrs
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if kind == "mae" else diff
+        return grad * grad_scale, torch.zeros_like(label), None, None
+
+
+def _regression(name, kind):
+    register(name, arg_names=("data", "label"))(
+        lambda data, label, grad_scale=1.0: _RegressionOutput.apply(
+            data, label, kind, float(grad_scale)))
+
+
+_regression("LinearRegressionOutput", "linear")
+_regression("LogisticRegressionOutput", "logistic")
+_regression("MAERegressionOutput", "mae")
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity on the scores; the backward ignores the head gradient and
+    writes the hinge's gradient (reference ``svm_output.cc``): L1 with
+    ``use_linear``, else squared, scaled by the regularization
+    coefficient."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = (margin, reg, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.attrs
+        k = label.reshape(-1).to(torch.int64)
+        is_true = k.unsqueeze(-1) == torch.arange(d.shape[1],
+                                                  device=d.device)
+        if use_linear:
+            g_true = -(margin > d).to(d.dtype) * reg
+            g_other = (margin > -d).to(d.dtype) * reg
+        else:
+            g_true = -2.0 * torch.clamp_min(margin - d, 0.0) * reg
+            g_other = 2.0 * torch.clamp_min(margin + d, 0.0) * reg
+        return (torch.where(is_true, g_true, g_other),
+                torch.zeros_like(label), None, None, None)
+
+
+@register("SVMOutput", arg_names=("data", "label"))
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))

@@ -50,6 +50,9 @@ def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
             elif an == "bias" and attrs.get(
                     "no_bias", op_name == "Deconvolution"):
                 continue
+            elif op_name == "LeakyReLU" and an == "gamma" and attrs.get(
+                    "act_type", "leaky") != "prelu":
+                continue
             else:
                 final.append((_Node(None, f"{name}_{an}", {}, []), 0))
         entries = final

@@ -80,6 +80,10 @@ class Symbol:
     def __truediv__(self, o): return self._binop("broadcast_div", o, "_div_scalar")
     def __rtruediv__(self, o): return self._binop("broadcast_div", o, "_rdiv_scalar", True)
     def __pow__(self, o): return self._binop("broadcast_power", o, "_power_scalar")
+    def __lt__(self, o): return self._binop("_lesser", o, "_lesser_scalar")
+    def __le__(self, o): return self._binop("_lesser_equal", o, "_lesser_equal_scalar")
+    def __gt__(self, o): return self._binop("_greater", o, "_greater_scalar")
+    def __ge__(self, o): return self._binop("_greater_equal", o, "_greater_equal_scalar")
 
     def __neg__(self):
         from . import _invoke_sym

@@ -19,7 +19,9 @@ inputs, no layout copy), the NHWC net against the NCHW net, and the
 "full" pooling convention against the CPU. The recurrent family: the
 ``RNN`` op (each mode, bidirectional, its gradients) and one step of a
 small word LM through gluon (the recipe twin's ``train_step``) on the
-card against the CPU, no Hopper kernel launched. The detection family:
+card against the CPU, no Hopper kernel launched. Slice 11: every dense
+op, activation layer and loss it adds, and an iteration of the 64x64
+DCGAN's nets, on the card against the CPU. The detection family:
 the multibox ops and ``box_nms`` on the card against the CPU (discrete
 outputs equal), a ``Module`` step of the small SSD twin on records read
 by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
@@ -55,7 +57,19 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_flash_attention_kernel_refuses(cuda):
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    """B1's, B3's and B2's wrappers on the card refuse other dtypes, head
+    dims and devices (one item that names the failing kernel)."""
+    for check in (_flash_attention_kernel_refuses,
+                  _flash_attention_backward_kernel_refuses,
+                  _softmax_cross_entropy_kernel_refuses):
+        try:
+            check(cuda)
+        except AssertionError as e:
+            raise AssertionError(f"{check.__name__}: {e}") from e
+
+
+def _flash_attention_kernel_refuses(cuda):
     x = torch.zeros(1, 1, 8, 48, device=cuda)
     with pytest.raises(MXNetError, match="supported"):
         hk.flash_attention(x, x, x)
@@ -91,7 +105,7 @@ def test_flash_attention_backward_runs_the_kernels(cuda):
         assert err <= 1e-5 * r.abs().max().item()
 
 
-def test_flash_attention_backward_kernel_refuses(cuda):
+def _flash_attention_backward_kernel_refuses(cuda):
     q = torch.zeros(2, 8, 64, device=cuda)
     lse = torch.zeros(2, 8, device=cuda)
     h = q.half()
@@ -121,13 +135,23 @@ def _qkvg(cuda, dtype, D, Tq, Tk, seed, bh=2):
             for t in (Tq, Tk, Tk, Tq)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", hk.SUPPORTED_HEAD_DIMS)
-@pytest.mark.parametrize("Tq,Tk,causal,q_offset,k_offset", TILE_EDGES)
-def test_flash_kernels_match_plain_at_tile_edges(cuda, cs, dtype, D, Tq, Tk,
-                                                 causal, q_offset, k_offset):
+def test_flash_kernels_match_plain_at_tile_edges(cuda, cs):
     """B1 and B3 against their plain versions, with chip_smoke.py's
-    tolerances; rows that see no key get out 0, lse -1e30 and dq 0."""
+    tolerances, for each dtype, head dim and edge of ``TILE_EDGES`` (one
+    item that names the failing case); rows that see no key get out 0, lse
+    -1e30 and dq 0."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in hk.SUPPORTED_HEAD_DIMS:
+            for edge in TILE_EDGES:
+                try:
+                    _check_tile_edge(cuda, cs, dtype, D, *edge)
+                except AssertionError as e:
+                    raise AssertionError(f"{dtype}, D={D}, {edge}: {e}") \
+                        from e
+
+
+def _check_tile_edge(cuda, cs, dtype, D, Tq, Tk, causal, q_offset,
+                     k_offset):
     q, k, v, g = _qkvg(cuda, dtype, D, Tq, Tk, D + Tq + q_offset)
     sc = D ** -0.5
     hk.reset_launch_counts()
@@ -195,27 +219,30 @@ def test_flash_kernels_take_unaligned_tensors(cuda):
     assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fwd",
-                                  "flash_attention_bwd"])
-def test_flash_kernels_run_on_tensor_cores(cuda, name):
+def test_flash_kernels_run_on_tensor_cores(cuda):
     """Every kernel function of the flash libraries issues tensor-core
-    MMAs: TF32 (the split product) and bf16."""
+    MMAs: TF32 (the split product) and bf16 (one item that names the
+    failing library)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                      "cuobjdump")
     if not os.path.exists(tool):
         pytest.skip("cuobjdump not found: it reads the built SASS")
-    sass = subprocess.run([tool, "-sass", str(hk.build()[name])],
-                          capture_output=True, text=True, check=True).stdout
-    functions = sass.split("Function : ")[1:]
-    per_dim = 2 if name.endswith("fwd") else 4     # (kernels) x 2 dtypes
-    assert len(functions) == per_dim * len(hk.SUPPORTED_HEAD_DIMS)
-    for fn in functions:
-        kind = "TF32" if "kernelIfLi" in fn.split("\n", 1)[0] else "BF16"
-        assert f"F32.{kind}" in fn and "HMMA" in fn
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(hk.build()[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        functions = sass.split("Function : ")[1:]
+        per_dim = 2 if name.endswith("fwd") else 4   # (kernels) x 2 dtypes
+        assert len(functions) == per_dim * len(hk.SUPPORTED_HEAD_DIMS), \
+            name
+        for fn in functions:
+            kind = "TF32" if "kernelIfLi" in fn.split("\n", 1)[0] \
+                else "BF16"
+            assert f"F32.{kind}" in fn and "HMMA" in fn, name
 
 
-def test_softmax_cross_entropy_kernel_refuses(cuda):
+def _softmax_cross_entropy_kernel_refuses(cuda):
     labels = torch.zeros(4, dtype=torch.int64, device=cuda)
     with pytest.raises(MXNetError, match="float32 or bfloat16"):
         hk.softmax_cross_entropy(torch.zeros(4, 9, device=cuda,
@@ -242,7 +269,20 @@ def cs():
     return mod
 
 
-def test_rtc_axpy_exports(cuda, cs):
+def test_rtc_on_card(cuda, cs):
+    """``mx.rtc`` on the card: the axpy exports, what a launch refuses, a
+    launch from another thread, a launch above 48 KB of dynamic shared
+    memory (one item that names the failing check)."""
+    for check in (_rtc_axpy_exports, _rtc_launch_refuses,
+                  _rtc_launch_from_another_thread,
+                  _rtc_large_dynamic_shared_memory):
+        try:
+            check(cuda, cs)
+        except AssertionError as e:
+            raise AssertionError(f"{check.__name__}: {e}") from e
+
+
+def _rtc_axpy_exports(cuda, cs):
     """The C export and the template export (one item that names the
     failing one)."""
     for template in (False, True):
@@ -255,7 +295,7 @@ def test_rtc_axpy_exports(cuda, cs):
         assert torch.equal(y, 2.0 * x + 1.0), f"template={template}"
 
 
-def test_rtc_launch_refuses(cuda, cs):
+def _rtc_launch_refuses(cuda, cs):
     k = cs.KERNELS.axpy_c
     x = torch.zeros(8, device=cuda)
     with pytest.raises(MXNetError, match="takes torch.float32"):
@@ -277,7 +317,7 @@ def test_rtc_launch_refuses(cuda, cs):
         mod.get_kernel("broken", "").launch([], mx.gpu(0), (1,), (1,))
 
 
-def test_rtc_launch_from_another_thread(cuda, cs):
+def _rtc_launch_from_another_thread(cuda, cs):
     """A thread that has not touched CUDA yet launches (the driver's
     context is made current for it)."""
     x = torch.arange(64, dtype=torch.float32, device=cuda)
@@ -298,7 +338,7 @@ def test_rtc_launch_from_another_thread(cuda, cs):
     assert torch.equal(y, 3.0 * x)
 
 
-def test_rtc_large_dynamic_shared_memory(cuda, cs):
+def _rtc_large_dynamic_shared_memory(cuda, cs):
     """A 50272-wide softmax row kept in shared memory: 201 KB, above the
     48 KB a launch gets without the attribute."""
     x = 2.0 * torch.randn(3, 50272, device=cuda)
@@ -309,11 +349,18 @@ def test_rtc_large_dynamic_shared_memory(cuda, cs):
     assert (p - ref).abs().max().item() <= 1e-5 * ref.max().item()
 
 
-@pytest.mark.parametrize("n", [7, 8192])
-def test_custom_head_matches_plain(cuda, cs, n):
+def test_custom_head_matches_plain(cuda, cs):
     """``mx.nd.Custom`` with the rtc head: forward probabilities and the
     logits' gradient against the plain versions, one launch of each
-    kernel."""
+    kernel, at 7 and 8192 rows (one item that names the failing count)."""
+    for n in (7, 8192):
+        try:
+            _check_custom_head(cuda, cs, n)
+        except AssertionError as e:
+            raise AssertionError(f"n={n}: {e}") from e
+
+
+def _check_custom_head(cuda, cs, n):
     C = 50272
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n)
@@ -620,13 +667,23 @@ def _nhwc_against_nchw(cs, x, y):
         assert e <= tol, (n, e)
 
 
-@pytest.mark.parametrize("pool_type,cip", [("max", True), ("avg", True),
-                                           ("avg", False), ("sum", True)])
-@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
-def test_full_pooling_on_card_matches_cpu(cuda, pool_type, cip, layout):
+def test_full_pooling_on_card_matches_cpu(cuda):
     """The "full" convention with a window wholly in padding (size 5,
     kernel 2, stride 3, pad 1) on the card: the CPU's values, −inf and
-    0/0 included, and the same input gradient."""
+    0/0 included, and the same input gradient, for max, avg (with and
+    without the padding counted) and sum pooling in NCHW and NHWC (one
+    item that names the failing case)."""
+    for pool_type, cip in (("max", True), ("avg", True), ("avg", False),
+                           ("sum", True)):
+        for layout in ("NCHW", "NHWC"):
+            try:
+                _check_full_pooling(cuda, pool_type, cip, layout)
+            except AssertionError as e:
+                raise AssertionError(f"{pool_type}, count_include_pad="
+                                     f"{cip}, {layout}: {e}") from e
+
+
+def _check_full_pooling(cuda, pool_type, cip, layout):
     from mxnet_tpu_torch.ops.registry import get_op
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 3, 5, 5, generator=gen)
@@ -851,3 +908,45 @@ def _check_dataloader_pins_host_batches():
     for data, label in loader:
         assert data._data.is_pinned() and label._data.is_pinned()
         assert data.context == mx.cpu()
+
+
+def test_slice_11_on_card_matches_cpu(cuda, cs):
+    """The dense ops, gluon's activations and losses of slice 11 on the
+    card against the CPU (``chip_smoke.dense_op_grid`` and its layer and
+    loss grid: discrete outputs equal, the rest within 1e-6 of the
+    largest entry), and one iteration of route H's nets at ngf = ndf = 8,
+    batch 4, on the card against the CPU from the same weights (cuDNN's
+    TF32 off: the losses and D's logits within 1e-5, the D step's
+    gradients within ``TOL_GAN_GRAD_D`` and the G step's within
+    ``TOL_GAN_GRAD_G`` by ||dg||/||g||); no Hopper kernel launched."""
+    hk.reset_launch_counts()
+    cs.dense_op_grid(cuda)
+    cs._layer_and_loss_grid(mx, cuda)
+    saved = dict(cs.DCGAN)
+    cs.DCGAN.update(ngf=8, ndf=8, batch=4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        weights = None
+        runs = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            net_g, net_d, _, _ = cs.dcgan_setup(mx, ctx)
+            if weights is None:
+                from mxnet_tpu_torch import interop
+                weights = [interop.block_params_to_numpy(n)
+                           for n in (net_g, net_d)]
+            runs.append(cs._gan_iteration_one(mx, ctx, weights, "float32"))
+    finally:
+        cs.DCGAN.clear()
+        cs.DCGAN.update(saved)
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cpu, card) = runs
+    for i in (0, 1):
+        assert abs(card[i] - cpu[i]) <= 1e-5 * abs(cpu[i])
+    assert ((card[2].cpu() - cpu[2]).abs().max()
+            <= 1e-5 * cpu[2].abs().max())
+    for k, tol in ((3, cs.TOL_GAN_GRAD_D), (4, cs.TOL_GAN_GRAD_G)):
+        for n, g in cpu[k].items():
+            err = (card[k][n].cpu() - g).norm() / g.norm().clamp_min(1e-30)
+            assert err.item() <= tol, (n, err.item())
+    assert not any(hk.launch_counts.values())

@@ -1,10 +1,16 @@
 """PyTorch port, import hygiene: ``mxnet_tpu_torch``, ``chip_smoke.py`` and
 the recipe twins (``example/**/*_torch.py``) import neither JAX nor the JAX
-package — not even a module of it that does not import JAX."""
+package — not even a module of it that does not import JAX; and the JAX
+package's public aliases are there (``mx.kv``, the lazy ``mx.serving`` and
+``mx.interop``, ``gluon.split_and_load``/``split_data``/
+``clip_global_norm``, ``autograd.set_recording``/``set_training``/
+``get_symbol``)."""
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -17,6 +23,11 @@ IMAGE_CLASSIFICATION = tuple(
         "train_imagenet_torch.py", "fine_tune_torch.py"))
 
 
+SLICE_11_TWINS = ("example/gluon/dcgan_torch.py",
+                  "example/ctc/lstm_ocr_torch.py",
+                  "example/speech_recognition/speech_ctc_torch.py")
+
+
 def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
     for twin in ("example/gluon/word_language_model/train_torch.py",
@@ -24,7 +35,8 @@ def _port_files():
                  "example/gluon/transformer_lm_torch.py",
                  "example/ssd/dataset_torch.py",
                  "example/ssd/symbol_ssd_torch.py",
-                 "example/ssd/train_torch.py") + IMAGE_CLASSIFICATION:
+                 "example/ssd/train_torch.py") + IMAGE_CLASSIFICATION \
+            + SLICE_11_TWINS:
         yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
@@ -94,8 +106,12 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/gluon/data/vision/transforms.py",
             "example/ssd/dataset_torch.py", "example/ssd/symbol_ssd_torch.py",
             "example/ssd/train_torch.py", "mxnet_tpu_torch/kvstore.py",
-            "mxnet_tpu_torch/io/device_feed.py"} | set(IMAGE_CLASSIFICATION) \
-        <= rel
+            "mxnet_tpu_torch/io/device_feed.py", "mxnet_tpu_torch/ops/ctc.py",
+            "mxnet_tpu_torch/ops/order.py", "mxnet_tpu_torch/ops/elemwise.py",
+            "mxnet_tpu_torch/ops/broadcast_reduce.py",
+            "mxnet_tpu_torch/gluon/loss.py",
+            "mxnet_tpu_torch/gluon/nn/activations.py"} \
+        | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -128,8 +144,30 @@ def test_importing_the_port_loads_no_jax():
             "import train_mnist_torch, train_imagenet_torch, "
             "fine_tune_torch, common.data_torch, symbols.lenet_torch, "
             "symbols.mlp_torch, symbols.resnet_torch; "
+            "sys.path[:0] = ['example/gluon', 'example/ctc', "
+            "'example/speech_recognition']; "
+            "import dcgan_torch, lstm_ocr_torch, speech_ctc_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+    # the JAX package's public aliases: mx.kv, the lazy mx.serving and
+    # mx.interop, gluon's batch helpers, autograd's setters
+    import mxnet_tpu_torch as mx
+    for name in ("serving", "interop"):
+        vars(mx).pop(name, None)
+        assert getattr(mx, name) is sys.modules[f"mxnet_tpu_torch.{name}"]
+    assert mx.kv is mx.kvstore
+    from mxnet_tpu_torch.gluon import utils
+    assert (mx.gluon.split_and_load, mx.gluon.split_data,
+            mx.gluon.clip_global_norm) == (utils.split_and_load,
+                                           utils.split_data,
+                                           utils.clip_global_norm)
+    ag = mx.autograd
+    assert ag.set_recording(True) is False and ag.is_recording()
+    assert ag.set_training(True) is False and ag.is_training()
+    assert ag.set_recording(False) is True and ag.set_training(False)
+    with pytest.raises(mx.MXNetError, match="get_symbol"):
+        ag.get_symbol(mx.nd.zeros((1,), ctx=mx.cpu()))

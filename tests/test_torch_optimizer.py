@@ -13,7 +13,10 @@ semantics, and ``Module`` over it to the JAX ``Module``. Tolerance:
 weights and states within 1e-5 of the tensor's largest entry (float16
 weights: equal after rounding both float32 masters to float16, 1e-3).
 """
+import os
 import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -323,6 +326,26 @@ def test_store_and_module_match_jax(tmp_path, monkeypatch):
     jmod.save_checkpoint(jprefix, 1, save_optimizer_states=True)
     with open(jprefix + "-0001.states", "rb") as f:
         assert pickle.loads(f.read()) == {}
+
+    # pinned JAX-side behaviour, copied: a string key's optimizer state is
+    # indexed by ``hash(key) % 2**30``, and Python salts string hashes per
+    # process, so a states file saved under string keys does not meet its
+    # keys in the next process
+    for pkg in (jmx, mx):
+        with mx.cpu():
+            kv = pkg.kvstore.create("local")
+            kv.init("w", pkg.nd.array(np.ones(3, "float32")))
+            kv.set_optimizer(pkg.optimizer.create("sgd", momentum=0.9,
+                                                  learning_rate=0.1))
+            kv.push("w", pkg.nd.array(np.ones(3, "float32")))
+            kv.pull("w", pkg.nd.array(np.zeros(3, "float32")))
+        states = kv._raw_updater.states
+        assert list(states) == [hash("w") % (1 << 30)], (pkg, list(states))
+    salted = {subprocess.run(
+        [sys.executable, "-c", "print(hash('w') % (1 << 30))"],
+        env=dict(os.environ, PYTHONHASHSEED=seed), capture_output=True,
+        text=True, check=True).stdout for seed in ("1", "2")}
+    assert len(salted) == 2
 
     # what waits
     for call in (lambda: mx.kvstore.create("dist_sync"),

@@ -507,3 +507,238 @@ def test_image_classification_twins_match_the_jax_recipes(tmp_path,
     with mx.cpu():
         got = pft.demo(verbose=False)
     assert got == want and got[0], (got, want)
+
+
+# ------------------------------------------------------- slice 11: the GANs
+def _seeded_normal(monkeypatch):
+    """Both packages' ``init.Normal(σ)`` fill each parameter from its name
+    (``_seeded``'s values scaled by σ / 0.2; BatchNorm's gamma, beta and
+    statistics keep their own initializers)."""
+
+    def make(base, copy):
+        class Seeded(base.Initializer):
+            def __init__(self, sigma=0.01):
+                super().__init__()
+                self.sigma = sigma
+
+            def _init_weight(self, name, arr):
+                copy(arr, _seeded(name, tuple(arr.shape)) * (self.sigma / 0.2))
+
+        return Seeded
+
+    def jcopy(arr, v):
+        arr[:] = v
+
+    def pcopy(arr, v):
+        arr.copy_(torch.from_numpy(v.astype("float32")))
+
+    monkeypatch.setattr(jmx.init, "Normal", make(jmx.init, jcopy))
+    monkeypatch.setattr(mx.init, "Normal", make(mx.init, pcopy))
+
+
+def _trainable(nets):
+    return {re.sub(r"^[a-z]+\d+_", "", k): p.data().asnumpy()
+            for net in nets for k, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def _hybridized(build):
+    def make(*args, **kwargs):
+        net = build(*args, **kwargs)
+        net.hybridize()
+        return net
+    return make
+
+
+def _gan_iteration(pkg, nets, data, noise, opt, ctx, dtype="float32",
+                   values=None):
+    """One D and G iteration (``chip_smoke.dcgan_d_step`` and
+    ``dcgan_g_step``) of the initialized ``nets`` (their trainable
+    parameters set from ``values`` by name, if given, and cast to
+    ``dtype``): (errD, errG, D's logits, {name: gradient}, {name: weight
+    after Adam})."""
+    cs = _load("chip_smoke.py", "chip_smoke_gan")
+    for net in nets:
+        for k, p in net.collect_params().items():
+            if dtype != "float32":
+                p.cast(dtype)
+            if values is not None and k in values:
+                p.set_data(pkg.nd.array(values[k], ctx=ctx, dtype=dtype))
+    tr_g, tr_d = (pkg.gluon.Trainer(n.collect_params(), "adam", dict(opt))
+                  for n in nets)
+    loss_fn = pkg.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+
+    def arr(a):
+        return pkg.nd.array(a, ctx=ctx, dtype=dtype)
+
+    n = data.shape[0]
+    real, fake = arr(np.ones(n)), arr(np.zeros(n))
+    err_d, logits = cs.dcgan_d_step(pkg, *nets, tr_d, loss_fn, arr(data),
+                                    arr(noise), real, fake)
+    grads = {k: p.grad.asnumpy() for k, p in nets[1].collect_params().items()
+             if p.grad_req != "null"}
+    err_g = cs.dcgan_g_step(pkg, *nets, tr_g, loss_fn, arr(noise), real)
+    grads.update({k: p.grad.asnumpy() for k, p in
+                  nets[0].collect_params().items() if p.grad_req != "null"})
+    after = {k: p.data().asnumpy() for net in nets
+             for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    return err_d.asnumpy(), err_g.asnumpy(), logits.asnumpy(), grads, after
+
+
+def _adam_allowance(port, port64, opt, batch):
+    """Per entry, ``_adam_rounding_allowance`` (``2·|∂w/∂g|·δg``, δg the
+    tensor's largest |float32 − float64| gradient of the port's iteration).
+    MXNet's Adam adds ε to √v before the bias correction and takes the
+    gradient scaled by 1/batch (``trainer.step(batch)``), so its first step
+    is optax's on the unscaled gradient with ε·batch / √(1 − β2)."""
+    from test_torch_data_parallel import _adam_rounding_allowance
+    beta2, eps = 0.999, 1e-8 * batch
+    return _adam_rounding_allowance(
+        [{k: (torch.from_numpy(port[3][k]).double(),
+              torch.from_numpy(port64[3][k])) for k in port64[3]}],
+        opt["learning_rate"], opt["beta1"], beta2,
+        eps / np.sqrt(1.0 - beta2))
+
+
+def _check_weights(got, want, allowance):
+    from test_torch_data_parallel import _close_within
+    strip = {re.sub(r"^[a-z]+\d+_", "", k): k for k in allowance}
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        key = strip.get(re.sub(r"^[a-z]+\d+_", "", k), k)
+        _close_within(got[k], w, allowance[key], what=k)
+
+
+def test_dcgan_twin_iteration_matches_the_jax_recipe(monkeypatch):
+    """``dcgan_torch.train`` against the JAX recipe's ``train`` (the
+    recipe's nets, Adam lr 2e-3, β1 0.5, batch 8; the JAX nets
+    hybridized), from the same name-seeded ``Normal(0.02)`` weights: errD
+    and errG of one iteration within ``TOL``, and every trainable weight
+    after it within ``TOL`` of its largest or Adam's response to the
+    float32 rounding of its gradient (the port's iteration repeated in
+    float32 and float64)."""
+    _seeded_normal(monkeypatch)
+    jr = _load("example/gluon/dcgan.py", "jax_dcgan")
+    pr = _load("example/gluon/dcgan_torch.py", "port_dcgan")
+    monkeypatch.setattr(jr, "build_generator",
+                        _hybridized(jr.build_generator))
+    monkeypatch.setattr(jr, "build_discriminator",
+                        _hybridized(jr.build_discriminator))
+    jg, jd, jh = jr.train(epochs=1, batch=8, steps_per_epoch=1,
+                          verbose=False)
+    pg, pd, ph = pr.train(epochs=1, batch=8, steps_per_epoch=1,
+                          verbose=False, ctx=mx.cpu())
+    np.testing.assert_allclose(ph, jh, rtol=TOL)
+    rng = np.random.RandomState(0)              # train()'s first batch
+    data = pr.real_batch(rng, 8)
+    noise = rng.randn(8, 16, 1, 1).astype("float32")
+    opt = {"learning_rate": 2e-3, "beta1": 0.5}
+    runs = []
+    with mx.cpu():
+        for dtype in ("float32", "float64"):
+            nets = pr.build_generator(), pr.build_discriminator()
+            for net in nets:
+                net.initialize(mx.init.Normal(0.02))
+            runs.append(_gan_iteration(mx, nets, data, noise, opt,
+                                       mx.cpu(), dtype))
+    _close(runs[0][0].mean(), ph[0][0], what="errD")
+    _check_weights({k: p.data().asnumpy() for net in (pg, pd)
+                    for k, p in net.collect_params().items()
+                    if p.grad_req != "null"},
+                   {k: p.data().asnumpy() for net in (jg, jd)
+                    for k, p in net.collect_params().items()
+                    if p.grad_req != "null"},
+                   _adam_allowance(runs[0], runs[1], opt, 8))
+
+
+def test_dcgan64_iteration_matches_jax():
+    """``chip_smoke.build_dcgan64`` (route H's nets) at ngf = ndf = 8 built
+    from each package's ``gluon.nn`` (the JAX nets hybridized), one
+    iteration of ``chip_smoke.dcgan_d_step`` and ``dcgan_g_step`` at batch
+    4 on 64x64x3 images from the same weights: the losses and D's logits
+    within ``TOL``, and every weight after Adam within ``TOL`` of its
+    largest or Adam's response to the float32 rounding of its gradient
+    (from the port's iteration in float32 and float64)."""
+    cs = _load("chip_smoke.py", "chip_smoke_gan")
+    rs = np.random.RandomState(0)
+    data = rs.uniform(-1, 1, (4, 3, 64, 64)).astype("float32")
+    noise = rs.randn(4, 100, 1, 1).astype("float32")
+    opt = {"learning_rate": 2e-4, "beta1": 0.5}
+
+    def nets(pkg, ctx, hybridize=False):
+        out = cs.build_dcgan64(pkg.gluon.nn, ngf=8, ndf=8)
+        for net in out:
+            net.initialize(ctx=ctx)
+            if hybridize:
+                net.hybridize()
+        return out
+
+    jnets = nets(jmx, jmx.cpu(), True)
+    with jmx.autograd.pause():
+        jnets[1](jnets[0](jmx.nd.array(noise)))
+    values = {k: _seeded(k, p.shape) * 0.1 for net in jnets
+              for k, p in net.collect_params().items()
+              if p.grad_req != "null"}
+    want = _gan_iteration(jmx, jnets, data, noise, opt, jmx.cpu(),
+                          values=values)
+    runs = []
+    with mx.cpu():
+        for dtype in ("float32", "float64"):
+            pnets = nets(mx, mx.cpu())
+            with mx.autograd.pause():
+                pnets[1](pnets[0](mx.nd.array(noise)))
+            runs.append(_gan_iteration(mx, pnets, data, noise, opt,
+                                       mx.cpu(), dtype, values))
+    for i, what in enumerate(("errD", "errG", "D's logits")):
+        _close(runs[0][i], want[i], what=what)
+    _check_weights(runs[0][4], want[4], _adam_allowance(*runs, opt, 4))
+
+
+def _recording_ctc(pkg, seen):
+    """A ``CTCLoss`` subclass for ``pkg`` that keeps each call's mean
+    loss in ``seen``; the JAX one runs hybridized (its graph path: one
+    program, where its eager path traces optax's scan at every call;
+    ``tests/test_torch_gluon_losses.py`` holds both paths)."""
+    class Recording(pkg.gluon.loss.CTCLoss):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if pkg is jmx:
+                self.hybridize()
+
+        def __call__(self, *args):
+            out = super().__call__(*args)
+            seen.append(float(out.asnumpy().mean()))
+            return out
+
+    return Recording
+
+
+def test_ctc_twins_match_the_jax_recipes(monkeypatch):
+    """``lstm_ocr_torch.train`` (two epochs of one step at batch 16) and
+    ``speech_ctc_torch.train`` (one epoch of two steps of 128) against the
+    JAX recipes from the same name-seeded ``Xavier`` weights: every step's
+    CTC loss (recorded through a ``CTCLoss`` subclass patched into both
+    packages, hybridized in the JAX one), the recipes' returned first and
+    last losses, and the speech recipe's phone error rates."""
+    _seeded_xavier(monkeypatch)
+    jseen, pseen = [], []
+    monkeypatch.setattr(jmx.gluon.loss, "CTCLoss", _recording_ctc(jmx, jseen))
+    monkeypatch.setattr(mx.gluon.loss, "CTCLoss", _recording_ctc(mx, pseen))
+    jo = _load("example/ctc/lstm_ocr.py", "jax_lstm_ocr")
+    po = _load("example/ctc/lstm_ocr_torch.py", "port_lstm_ocr")
+    want = jo.train(epochs=2, batch=16, steps_per_epoch=1, verbose=False)
+    got = po.train(epochs=2, batch=16, steps_per_epoch=1, verbose=False,
+                   ctx=mx.cpu())
+    np.testing.assert_allclose(pseen, jseen, rtol=TOL)
+    np.testing.assert_allclose(got[:2], want[:2], rtol=TOL)
+    assert got[2] == want[2]
+    del jseen[:], pseen[:]
+    js = _load("example/speech_recognition/speech_ctc.py", "jax_speech")
+    ps = _load("example/speech_recognition/speech_ctc_torch.py",
+               "port_speech")
+    want = js.train(epochs=1, batch_size=128, verbose=False)
+    got = ps.train(epochs=1, batch_size=128, verbose=False, ctx=mx.cpu())
+    assert len(jseen) == 2
+    np.testing.assert_allclose(pseen, jseen, rtol=TOL)
+    assert got == want
