@@ -180,7 +180,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``sort``/``argsort``/``topk``, the creation ops), the six activation
    layers, ``InstanceNorm`` and every loss, forward and gradient, on the
    card against the CPU: discrete outputs equal, the rest within 1e-6 of
-   the largest entry; rrelu by its statistics.
+   the largest entry; rrelu by its statistics. Then every op of slice 12
+   (``LIBRARY_OP_GROUPS``: ``batch_dot``, ``slice``, ``tile``, ``take``,
+   ``one_hot``, the gathers and scatters, the spatial transformer, the
+   tail ops, linalg within 1e-5, the ``*_update`` ops and the legacy and
+   contrib tail; ``boolean_mask``), and every random op at 10^6 draws a
+   row against the CPU's draws by mean and variance, each repeated from
+   its seed bitwise; a bound ``Dropout(mode="always")`` at inference.
 25. route H: the 64x64 DCGAN of Radford, Metz & Chintala
    (``build_dcgan64``: ngf = ndf = 64, nz 100, nothing cut) trained
    through gluon at batch 128 (Adam lr 2e-4, β1 0.5,
@@ -195,17 +201,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    in float32 against float64 on the card, timed beside ``F.ctc_loss``;
    the ``lstm_ocr`` and ``speech_ctc`` twins trained on the card to the
    JAX recipes' test thresholds.
+27. route J: CapsNet of Sabour, Frosst & Hinton at the paper's widths
+   (``build_capsnet``: Conv1 256 9x9, 1,152 primary capsules of 8-D, 3
+   routing iterations, 10 x 16-D digit capsules, the margin loss and the
+   512-1024-784 reconstruction decoder; 8,215,568 parameters) trained
+   through ``MNISTIter``, gluon and Adam (lr 1e-3) at batch 100 on
+   synthetic idx images: iteration 1 against float64 on the card with a
+   TF32 control that must miss; ten timed iterations (wall ms, host
+   dispatch, images/s, peak memory, the ops one iteration dispatches).
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step,
-one bf16 fused step and one route F step (route A's and route D's steps
+one bf16 fused step, one route F step and one route J iteration (route A's and route D's steps
 are profiled in every run, and one route G1 step and one route H
 iteration). Apart from the ``transformer_lm`` twin, no phase from 12 on
 launches a Hopper kernel: the conv nets, the recurrent family, the
-detection family, the image-classification recipe, the dense ops, the GAN
-and CTC reach no TPU kernel (the JAX package
+detection family, the image-classification recipe, the dense ops, the GAN,
+CTC, the op library of slice 12 and CapsNet reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -5295,8 +5309,8 @@ def _layer_and_loss_grid(mx, dev, tol=TOL_GRID):
 
 
 def op_grid_phase(mx, dev):
-    """Phase 24: every op, layer and loss of slice 11 on the card against
-    the CPU (no Hopper kernel may launch)."""
+    """Phase 24: every op, layer and loss of slices 11 and 12 on the card
+    against the CPU (no Hopper kernel may launch)."""
     t0 = time.perf_counter()
     ops_worst, n_ops = dense_op_grid(dev)
     layers_worst, n_layers = _layer_and_loss_grid(mx, dev)
@@ -5305,6 +5319,7 @@ def op_grid_phase(mx, dev):
           f"within {ops_worst:.2e} (ops) and {layers_worst:.2e} (layers, "
           f"losses) of the largest entry (tolerance {TOL_GRID}); "
           f"{time.perf_counter() - t0:.1f} s")
+    library_grid_phase(mx, dev)
 
 
 # --------------------------------------------- slice 11: route H, DCGAN
@@ -5705,14 +5720,815 @@ def ctc_phase(mx, hk, dev):
 
 
 
+# ------------------------------------------ slice 12: the op library grid
+# The cases of every deterministic op slice 12 adds (phase 24 on the card
+# against the CPU; ``tests/test_torch_op_library.py`` against the JAX
+# package), in the op grid's form: (case id, op name, numpy inputs, attrs,
+# what to compare). "signs" compares the outputs of ``gelqf``/``syevd``
+# after ``canonical_signs`` (a factor's rows are unique up to sign).
+TOL_LINALG = 1e-5        # of the case's largest |value|, linalg
+
+
+def spd(n, batch=(), seed=0):
+    """A well-conditioned symmetric positive-definite M·Mᵀ + n·I."""
+    m = grid_values(*batch, n, n, seed=seed, lo=-1, hi=1).astype("float64")
+    a = m @ np.swapaxes(m, -1, -2) + n * np.eye(n)
+    return a.astype("float32")
+
+
+def _grid_matrix_index():
+    x = grid_values(4, 5, 6)
+    idx = np.array([-3, 0, 7, 2.7, -0.5], "float32")
+    nd_idx = np.array([[0, 2, -1, 7], [1, -9, 3, 0]], "float32")
+    sc_idx = np.array([[0, 1, 5, 2], [1, 3, 0, -1]], "float32")
+    return [
+        ("batch_dot", "batch_dot", [grid_values(2, 3, 4),
+                                    grid_values(2, 4, 5, seed=1)], {}, "grad"),
+        ("batch_dot_ta_tb", "batch_dot",
+         [grid_values(2, 4, 3), grid_values(2, 5, 4, seed=1)],
+         {"transpose_a": True, "transpose_b": True}, "grad"),
+        ("slice", "slice", [x], {"begin": (1, 0), "end": (3, 4)}, "grad"),
+        ("slice_open_negative_step", "slice", [x],
+         {"begin": (None, 4), "end": (None, 0), "step": (1, -2)}, "grad"),
+        ("crop", "crop", [x], {"begin": (0, 1, 2), "end": (2, 3, 5),
+                               "step": (1, 1, 2)}, "grad"),
+        ("tile", "tile", [grid_values(2, 3)], {"reps": (2, 1, 3)}, "grad"),
+        ("tile_short", "tile", [grid_values(2, 3, 2)], {"reps": (2,)},
+         "grad"),
+        ("repeat_axis", "repeat", [grid_values(2, 3)],
+         {"repeats": 2, "axis": 1}, "grad"),
+        ("repeat_flat", "repeat", [grid_values(2, 3)], {"repeats": 3},
+         "grad"),
+        ("diag_1d", "diag", [grid_values(4)], {"k": 1}, "grad"),
+        ("diag_2d", "diag", [grid_values(4, 5)], {"k": -1}, "grad"),
+        ("diag_3d", "diag", [x], {"k": 1, "axis1": 1, "axis2": 2}, "grad"),
+        ("shape_array", "shape_array", [x], {}, "exact"),
+        ("size_array", "size_array", [x], {}, "exact"),
+        ("take_clip", "take", [grid_values(5, 3), idx], {}, "grad"),
+        ("take_raise", "take", [grid_values(5, 3), idx], {"mode": "raise"},
+         "grad"),
+        ("take_wrap_axis1", "take", [grid_values(3, 5), idx],
+         {"axis": 1, "mode": "wrap"}, "grad"),
+        ("batch_take", "batch_take",
+         [grid_values(3, 4), np.array([1, 5, -1], "float32")], {}, "grad"),
+        ("one_hot", "one_hot", [np.array([0, 2, 5, -1, 1.7], "float32")],
+         {"depth": 4, "on_value": 2.0, "off_value": -1.0}, "exact"),
+        ("gather_nd", "gather_nd", [grid_values(3, 4), nd_idx], {}, "grad"),
+        ("gather_nd_rows", "gather_nd",
+         [grid_values(3, 4, 2), nd_idx[:1]], {}, "grad"),
+        ("scatter_nd", "scatter_nd", [grid_values(4), sc_idx],
+         {"shape": (3, 4)}, "grad"),
+        ("scatter_nd_rows", "scatter_nd",
+         [grid_values(3, 2), np.array([[2, 0, 9]], "float32")],
+         {"shape": (4, 2)}, "grad"),
+        ("_scatter_set_nd", "_scatter_set_nd",
+         [grid_values(3, 4), grid_values(4, seed=1), sc_idx],
+         {"shape": (3, 4)}, "grad"),
+        ("unravel_index", "unravel_index",
+         [np.array([0, 5, 11, 13, -1, -14], "float32")],
+         {"shape": (3, 4)}, "exact"),
+        ("ravel_multi_index", "_ravel_multi_index",
+         [np.array([[0, 2, 5, -1], [1, -1, 3, 2]], "float32")],
+         {"shape": (3, 4)}, "exact"),
+    ]
+
+
+def _grid_spatial():
+    # no grid point within float32 rounding of the image's border (the JAX
+    # package computes the grid in float64: ROADMAP C)
+    theta = np.array([[0.9, 0.1, 0.07, -0.2, 1.1, 0.13],
+                      [1.2, -0.3, -0.11, 0.2, 0.8, 0.03]], "float32")
+    data = grid_values(2, 3, 5, 6)
+    grid = grid_values(2, 2, 4, 7, seed=1, lo=-1.2, hi=1.2)
+    return [
+        ("grid_affine", "GridGenerator", [theta],
+         {"transform_type": "affine", "target_shape": (3, 4)}, "grad"),
+        ("grid_warp", "GridGenerator", [grid],
+         {"transform_type": "warp"}, "grad"),
+        ("bilinear_sampler", "BilinearSampler", [data, grid], {}, "grad"),
+        ("spatial_transformer", "SpatialTransformer", [data, theta],
+         {"target_shape": (4, 5)}, "grad"),
+    ]
+
+
+def _grid_tail():
+    img = np.random.RandomState(4).randint(0, 256, (5, 6, 3)).astype("uint8")
+    return [
+        ("_grad_add", "_grad_add", [grid_values(3, 4),
+                                    grid_values(3, 4, seed=1)], {}, "grad"),
+        ("_square_sum", "_square_sum", [grid_values(3, 4)], {}, "grad"),
+        ("_square_sum_axis", "_square_sum", [grid_values(3, 4, 2)],
+         {"axis": 1, "keepdims": True}, "grad"),
+        ("_square_sum_axes", "_square_sum", [grid_values(3, 4, 2)],
+         {"axis": (0, 2)}, "grad"),
+        ("_scatter_elemwise_div", "_scatter_elemwise_div",
+         [grid_values(3, 4), grid_values(3, 4, seed=1, **GRID_POS)], {},
+         "grad"),
+        ("_scatter_plus_scalar", "_scatter_plus_scalar", [grid_values(3, 4)],
+         {"scalar": 1.5}, "grad"),
+        ("_scatter_minus_scalar", "_scatter_minus_scalar",
+         [grid_values(3, 4)], {"scalar": 0.5}, "grad"),
+        ("div_sqrt_dim", "_contrib_div_sqrt_dim", [grid_values(2, 3, 8)], {},
+         "grad"),
+        ("image_to_tensor", "_image_to_tensor", [img], {}, "value"),
+        ("image_to_tensor_batch", "image_to_tensor",
+         [np.stack([img, img[::-1]])], {}, "value"),
+        ("image_normalize", "_image_normalize", [grid_values(3, 4, 5)],
+         {"mean": (0.5, 0.4, 0.3), "std": (0.2, 0.3, 0.4)}, "grad"),
+        ("image_normalize_scalar", "image_normalize",
+         [grid_values(2, 3, 4, 5)], {"mean": 0.5, "std": 2.0}, "grad"),
+    ]
+
+
+def _grid_linalg():
+    a, b = grid_values(2, 3, 4), grid_values(2, 4, 5, seed=1)
+    s = spd(4, (2,))
+    low = np.tril(grid_values(2, 4, 4, seed=2, lo=-0.5, hi=0.5)) \
+        + 2 * np.eye(4, dtype="float32")
+    rhs = grid_values(2, 4, 3, seed=3)
+    sq = grid_values(2, 4, 4, seed=5) + 3 * np.eye(4, dtype="float32")
+    return [
+        ("gemm", "_linalg_gemm", [a, b, grid_values(2, 3, 5, seed=2)],
+         {"alpha": 0.5, "beta": 2.0}, "grad"),
+        ("gemm_t", "linalg_gemm",
+         [np.swapaxes(a, 1, 2).copy(), np.swapaxes(b, 1, 2).copy(),
+          grid_values(2, 3, 5, seed=2)],
+         {"transpose_a": True, "transpose_b": True}, "grad"),
+        ("gemm2", "_linalg_gemm2", [a, b], {"alpha": 1.5}, "grad"),
+        ("potrf", "_linalg_potrf", [s], {}, "value"),
+        ("potrf_upper", "linalg_potrf", [s], {"lower": False}, "value"),
+        ("potri", "_linalg_potri", [low], {}, "grad"),
+        ("potri_upper", "linalg_potri",
+         [np.swapaxes(low, 1, 2).copy()], {"lower": False}, "grad"),
+        ("trsm", "_linalg_trsm", [low, rhs], {"alpha": 2.0}, "grad"),
+        ("trsm_t", "linalg_trsm", [low, rhs], {"transpose": True}, "grad"),
+        ("trsm_right_upper", "linalg_trsm",
+         [np.swapaxes(low, 1, 2).copy(), np.swapaxes(rhs, 1, 2).copy()],
+         {"rightside": True, "lower": False}, "grad"),
+        ("trmm", "_linalg_trmm", [low, rhs], {"alpha": 0.5}, "grad"),
+        ("trmm_t_right", "linalg_trmm",
+         [low, np.swapaxes(rhs, 1, 2).copy()],
+         {"transpose": True, "rightside": True}, "grad"),
+        ("trmm_upper", "linalg_trmm", [sq, rhs], {"lower": False}, "grad"),
+        ("syrk", "_linalg_syrk", [a], {"alpha": 2.0}, "grad"),
+        ("syrk_t", "linalg_syrk", [a], {"transpose": True}, "grad"),
+        ("sumlogdiag", "_linalg_sumlogdiag", [s], {}, "grad"),
+        ("extractdiag", "_linalg_extractdiag", [sq], {"offset": 1}, "grad"),
+        ("makediag", "_linalg_makediag", [grid_values(2, 3)], {}, "grad"),
+        ("makediag_below", "linalg_makediag", [grid_values(2, 3)],
+         {"offset": -1}, "grad"),
+        ("extracttrian", "_linalg_extracttrian", [sq], {}, "grad"),
+        ("extracttrian_below", "linalg_extracttrian", [sq],
+         {"offset": -1}, "grad"),
+        ("extracttrian_upper", "linalg_extracttrian", [sq],
+         {"offset": 1, "lower": False}, "grad"),
+        ("maketrian", "_linalg_maketrian", [grid_values(2, 10)], {}, "grad"),
+        ("maketrian_below", "linalg_maketrian", [grid_values(2, 6)],
+         {"offset": -1}, "grad"),
+        ("maketrian_upper", "linalg_maketrian", [grid_values(2, 6)],
+         {"offset": 1, "lower": False}, "grad"),
+        ("inverse", "_linalg_inverse", [sq], {}, "grad"),
+        ("det", "_linalg_det", [sq], {}, "grad"),
+        ("slogdet", "_linalg_slogdet", [sq - 6 * np.eye(4, dtype="float32")],
+         {}, "value"),
+        ("gelqf", "_linalg_gelqf", [grid_values(2, 3, 5)], {}, "signs"),
+        ("syevd", "_linalg_syevd", [s], {}, "signs"),
+    ]
+
+
+def _grid_parity():
+    w, g = grid_values(3, 4), grid_values(3, 4, seed=1)
+    pos = grid_values(3, 4, seed=2, **GRID_POS)
+    st = grid_values(3, 4, seed=3, lo=0.1, hi=0.5)
+    clip = {"clip_gradient": 1.5, "wd": 0.01, "rescale_grad": 0.5}
+    scores = with_values(grid_values(2, 4, 3, seed=7, lo=0, hi=1), 0.9,
+                         0.9)
+    adj = np.array([[0, 3, 0], [1, 0, 2], [0, 4, 0]], "float32")
+    return [
+        ("sgd_update", "sgd_update", [w, g], dict(lr=0.1, **clip), "value"),
+        ("sgd_mom_update", "sgd_mom_update", [w, g, st],
+         dict(lr=0.1, momentum=0.9, **clip), "value"),
+        ("mp_sgd_update", "mp_sgd_update", [w.astype("float16"), g, w],
+         {"lr": 0.1, "wd": 0.01}, "value"),
+        ("mp_sgd_mom_update", "mp_sgd_mom_update",
+         [w.astype("float16"), g, st, w], {"lr": 0.1, "momentum": 0.9},
+         "value"),
+        ("adam_update", "adam_update", [w, g, st, pos],
+         dict(lr=0.01, **clip), "value"),
+        ("ftrl_update", "ftrl_update", [w, g, st, pos],
+         {"lr": 0.1, "lamda1": 0.2, "wd": 0.01, "clip_gradient": 1.0},
+         "value"),
+        ("ftml_update", "ftml_update", [w, g, pos, pos * 0.5, st],
+         {"lr": 0.1, "t": 3, "wd": 0.01, "clip_grad": 1.0}, "value"),
+        ("rmsprop_update", "rmsprop_update", [w, g, pos],
+         dict(lr=0.01, clip_weights=0.5, **clip), "value"),
+        ("rmspropalex_update", "rmspropalex_update",
+         [w, g, pos, st * 0.1, st], dict(lr=0.01, **clip), "value"),
+        ("signsgd_update", "signsgd_update", [w, g], dict(lr=0.1, **clip),
+         "value"),
+        ("signum_update", "signum_update", [w, g, st],
+         dict(lr=0.1, momentum=0.9, wd_lh=0.01, **clip), "value"),
+        ("adamw_update", "_contrib_adamw_update",
+         [w, g, st, pos, np.array([0.5], "float32")],
+         {"lr": 0.01, "wd": 0.1, "eta": 0.7, "clip_gradient": 1.0}, "value"),
+        ("group_adagrad_update", "group_adagrad_update",
+         [w, g, grid_values(3, 1, seed=4, **GRID_POS)], {"lr": 0.1},
+         "value"),
+        ("group_adagrad_1d", "_contrib_group_adagrad_update",
+         [w[0], g[0], pos[0]], {"lr": 0.1, "clip_gradient": 0.5}, "value"),
+        ("multi_sum_sq", "multi_sum_sq", [w, g[:2], pos[0]],
+         {"num_arrays": 3}, "value"),
+        ("crop_hw", "Crop", [grid_values(2, 3, 6, 7)],
+         {"offset": (1, 2), "h_w": (3, 4)}, "grad"),
+        ("crop_like_center", "Crop",
+         [grid_values(2, 3, 6, 7), grid_values(2, 3, 4, 3, seed=1)],
+         {"center_crop": True, "num_args": 2}, "grad"),
+        ("kl_sparse_reg", "IdentityAttachKLSparseReg", [grid_values(4, 5)],
+         {"sparseness_target": 0.2, "penalty": 0.01}, "grad"),
+        ("histogram", "_histogram", [grid_values(50, seed=5)],
+         {"bin_cnt": 7}, "exact_first"),
+        ("histogram_range", "histogram", [grid_values(50, seed=5)],
+         {"bin_cnt": 5, "range": (-1.0, 1.5)}, "exact_first"),
+        ("khatri_rao", "khatri_rao", [grid_values(2, 3),
+                                      grid_values(4, 3, seed=1)], {}, "grad"),
+        ("_slice_assign", "_slice_assign",
+         [grid_values(4, 5), grid_values(2, 2, seed=1)],
+         {"begin": (1, 0), "end": (3, 4), "step": (1, 2)}, "grad"),
+        ("_slice_assign_scalar", "_slice_assign_scalar", [grid_values(4, 5)],
+         {"scalar": 2.5, "begin": (0, 1), "end": (4, 3)}, "grad"),
+        ("_identity_with_attr_like_rhs", "_identity_with_attr_like_rhs",
+         [grid_values(3, 4), grid_values(3, 4, seed=1)], {}, "grad"),
+        ("_zeros_without_dtype", "_zeros_without_dtype", [],
+         {"shape": (2, 3)}, "exact"),
+        ("_rnn_param_concat", "_rnn_param_concat",
+         [grid_values(3, 4), grid_values(5, seed=1)], {}, "grad"),
+        ("_rnn_param_concat_dim1", "_rnn_param_concat",
+         [grid_values(3, 4), grid_values(3, 2, seed=1)], {"dim": 1}, "grad"),
+        ("_CrossDeviceCopy", "_CrossDeviceCopy", [grid_values(3, 4)], {},
+         "value"),
+        ("cast_storage", "cast_storage", [grid_values(3, 4)],
+         {"stype": "row_sparse"}, "grad"),
+        ("sparse_retain", "_sparse_retain",
+         [grid_values(5, 3), np.array([0, 3], "float32")], {}, "value"),
+        ("quadratic", "_contrib_quadratic", [grid_values(3, 4)],
+         {"a": 0.5, "b": -1.0, "c": 2.0}, "grad"),
+        ("index_copy", "index_copy",
+         [grid_values(5, 3), np.array([4, 0, 7], "float32"),
+          grid_values(3, 3, seed=1)], {}, "value"),
+        ("edge_id", "_contrib_edge_id",
+         [adj, np.array([0, 1, 2, 2], "float32"),
+          np.array([1, 1, 1, 0], "float32")], {}, "exact"),
+        ("getnnz", "getnnz", [adj], {}, "exact"),
+        ("getnnz_axis", "_contrib_getnnz", [adj], {"axis": 0}, "exact"),
+        ("bipartite_matching", "bipartite_matching", [scores[0]],
+         {"threshold": 0.1}, "exact"),
+        ("bipartite_matching_batch_ascend", "_contrib_bipartite_matching",
+         [scores], {"is_ascend": True, "threshold": 0.8, "topk": 2},
+         "exact"),
+    ]
+
+
+LIBRARY_OP_GROUPS = {"matrix_index": _grid_matrix_index,
+                     "spatial": _grid_spatial, "tail": _grid_tail,
+                     "linalg": _grid_linalg, "parity": _grid_parity}
+
+
+def canonical_signs(name, outs):
+    """``gelqf``'s (L, Q) with each column of L (row of Q) flipped so that
+    L's diagonal is not negative, and ``syevd``'s (U, w) with each row of
+    U flipped so that its largest |entry| is positive: a factor is unique
+    up to those signs, which the solvers choose."""
+    outs = [np.asarray(o, np.float64) for o in outs]
+    if name.endswith("gelqf"):
+        L, Q = outs
+        sign = np.where(np.diagonal(L, axis1=-2, axis2=-1) < 0, -1.0, 1.0)
+        return [L * sign[..., None, :], Q * sign[..., :, None]]
+    U, w = outs
+    big = np.take_along_axis(U, np.abs(U).argmax(-1)[..., None], -1)
+    return [U * np.where(big < 0, -1.0, 1.0), w]
+
+
+def library_case_errors(cid, name, how, got, want, tol):
+    """(failures, worst error) of one case's (outputs, gradients) ``got``
+    against ``want``: "exact" outputs (and the first of "exact_first")
+    equal in value and dtype, the rest within ``tol`` of the largest
+    |entry| (``grid_error``); gradients likewise, an input the op does not
+    read counting as a zero gradient."""
+    failed, worst = [], 0.0
+    g_outs, w_outs = got[0], want[0]
+    if how == "signs":
+        g_outs, w_outs = (canonical_signs(name, o) for o in (g_outs, w_outs))
+    if len(g_outs) != len(w_outs):
+        return [f"{cid}: {len(g_outs)} outputs, want {len(w_outs)}"], worst
+    for i, (g, w) in enumerate(zip(g_outs, w_outs)):
+        g, w = np.asarray(g), np.asarray(w)
+        if how == "exact" or (how == "exact_first" and i == 0):
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not np.array_equal(g, w, equal_nan=True):
+                failed.append(f"{cid}: output {i} differs ({g.dtype} "
+                              f"{g.shape} against {w.dtype} {w.shape})")
+            continue
+        err = grid_error(g, w)
+        worst = max(worst, err) if err == err else worst
+        if not err <= tol:
+            failed.append(f"{cid}: output {i} {err:.3e}")
+    for i, (g, w) in enumerate(zip(got[1], want[1])):
+        if g is None and w is not None and not np.any(w):
+            g = np.zeros_like(w)
+        err = grid_error(g, w) if g is not None and w is not None \
+            else (0.0 if g is w else float("nan"))
+        worst = max(worst, err) if err == err else worst
+        if not err <= tol:
+            failed.append(f"{cid} (grad {i}): {err:.3e}")
+    return failed, worst
+
+
+def library_tol(group):
+    return TOL_LINALG if group == "linalg" else TOL_GRID
+
+
+# The random ops: (case id, op name, numpy inputs, attrs), each drawing
+# ``n`` samples of every parameter row (``random_cases(n)``);
+# ``random_draw_sets`` splits a case's outputs into sets of iid draws.
+def random_cases(n):
+    half = n // 2
+    two = lambda *v: np.array(v, "float32")  # noqa: E731
+    like = np.zeros((n,), "float32")
+    return [
+        ("uniform", "_random_uniform", [],
+         {"low": -1.0, "high": 3.0, "shape": (n,)}),
+        ("normal", "random_normal", [],
+         {"loc": 1.0, "scale": 2.0, "shape": (n,)}),
+        ("gamma", "_random_gamma", [],
+         {"alpha": 2.5, "beta": 0.5, "shape": (n,)}),
+        ("gamma_small_alpha", "random_gamma", [],
+         {"alpha": 0.5, "beta": 2.0, "shape": (n,)}),
+        ("exponential", "_random_exponential", [],
+         {"lam": 2.0, "shape": (n,)}),
+        ("poisson", "_random_poisson", [], {"lam": 3.5, "shape": (n,)}),
+        ("poisson_large", "random_poisson", [], {"lam": 40.0,
+                                                 "shape": (n,)}),
+        ("negative_binomial", "_random_negative_binomial", [],
+         {"k": 3, "p": 0.4, "shape": (n,)}),
+        ("generalized_negative_binomial",
+         "_random_generalized_negative_binomial", [],
+         {"mu": 2.0, "alpha": 0.5, "shape": (n,)}),
+        ("randint", "_random_randint", [],
+         {"low": -3, "high": 7, "shape": (n,)}),
+        ("sample_uniform", "_sample_uniform",
+         [two(0.0, -2.0), two(1.0, 5.0)], {"shape": (half,)}),
+        ("sample_normal", "sample_normal", [two(0.0, 3.0), two(1.0, 0.5)],
+         {"shape": (half,)}),
+        ("sample_gamma", "_sample_gamma", [two(0.7, 4.0), two(1.0, 0.5)],
+         {"shape": (half,)}),
+        ("sample_exponential", "_sample_exponential", [two(0.5, 3.0)],
+         {"shape": (half,)}),
+        ("sample_poisson", "_sample_poisson", [two(1.5, 20.0)],
+         {"shape": (half,)}),
+        ("sample_negative_binomial", "_sample_negative_binomial",
+         [two(2.0, 5.0), two(0.3, 0.7)], {"shape": (half,)}),
+        ("sample_generalized_negative_binomial",
+         "_sample_generalized_negative_binomial",
+         [two(1.0, 4.0), two(0.3, 1.5)], {"shape": (half,)}),
+        ("uniform_like", "_random_uniform_like", [like],
+         {"low": 2.0, "high": 3.0}),
+        ("normal_like", "_random_normal_like", [like],
+         {"loc": -1.0, "scale": 0.5}),
+        ("gamma_like", "_random_gamma_like", [like],
+         {"alpha": 3.0, "beta": 2.0}),
+        ("exponential_like", "_random_exponential_like", [like],
+         {"lam": 0.5}),
+        ("poisson_like", "_random_poisson_like", [like], {"lam": 6.0}),
+        ("negative_binomial_like", "_random_negative_binomial_like", [like],
+         {"k": 2, "p": 0.5}),
+        ("generalized_negative_binomial_like",
+         "_random_generalized_negative_binomial_like", [like],
+         {"mu": 3.0, "alpha": 0.25}),
+        ("multinomial", "_sample_multinomial",
+         [np.array([[0.1, 0.2, 0.3, 0.4], [0.5, 0.0, 0.25, 0.25]],
+                   "float32")], {"shape": (half,), "get_prob": True}),
+        ("shuffle", "_shuffle",
+         [np.arange(3 * 1000, dtype="float32").reshape(1000, 3)], {}),
+        ("unique_zipfian", "_sample_unique_zipfian", [],
+         {"range_max": 1000, "shape": (max(n // 50, 1), 50)}),
+    ]
+
+
+def random_draw_sets(cid, inputs, outs):
+    """{label: 1-D float64 iid draws} of one random case's outputs (the
+    per-category indicators of a multinomial, each row's ids and tries of
+    the Zipfian sampler); None for ``shuffle``, which is checked as a
+    permutation."""
+    outs = [np.asarray(o, np.float64) for o in outs]
+    if cid == "shuffle":
+        return None
+    if cid == "multinomial":
+        samp = outs[0]
+        return {f"row{r} category {k}": (samp[r] == k).astype(np.float64)
+                for r in range(samp.shape[0]) for k in range(4)}
+    if cid == "unique_zipfian":
+        return {"ids": outs[0].reshape(-1), "tries": outs[1].reshape(-1)}
+    rows = outs[0].reshape(-1, outs[0].shape[-1])
+    return {f"row{r}": rows[r] for r in range(rows.shape[0])}
+
+
+def stats_z(a, b):
+    """(|Δmean|, |Δvariance|) of two iid samples in standard errors of the
+    difference (the variance's from each sample's fourth moment)."""
+    def moments(x):
+        m, v = x.mean(), x.var()
+        m4 = ((x - m) ** 4).mean()
+        return m, v, v / x.size, max(m4 - v * v, 0.0) / x.size
+    ma, va, sea, sva = moments(a)
+    mb, vb, seb, svb = moments(b)
+    zm = abs(ma - mb) / max(np.sqrt(sea + seb), 1e-300)
+    zv = abs(va - vb) / max(np.sqrt(sva + svb), 1e-300)
+    return zm, zv
+
+
+def random_case_failures(cid, inputs, got, want, z=6.0):
+    """Failures of one random case's draws ``got`` against ``want`` (each
+    the op's outputs): every set of draws within ``z`` standard errors in
+    mean and variance, ``shuffle`` a permutation of its input's rows,
+    the multinomial's log-probabilities those of its draws, the Zipfian
+    ids distinct in each row; and the worst z."""
+    failed, worst = [], 0.0
+    if cid == "shuffle":
+        rows, src = np.asarray(got[0]), inputs[0]
+        if not np.array_equal(np.sort(rows[:, 0]), src[:, 0]) or \
+                not np.array_equal(rows[:, 1:] - rows[:, :1],
+                                   src[:, 1:] - src[:, :1]) or \
+                np.array_equal(rows, src):
+            failed.append("shuffle: not a permutation of the rows")
+        return failed, worst
+    if cid == "multinomial":
+        samp, logp = np.asarray(got[0]), np.asarray(got[1])
+        probs = inputs[0] / inputs[0].sum(-1, keepdims=True)
+        want_logp = np.log(np.maximum(np.take_along_axis(
+            probs, samp.astype(int), -1), 1e-30))
+        if np.abs(logp - want_logp).max() > 1e-5:
+            failed.append("multinomial: log-probabilities")
+    if cid == "unique_zipfian":
+        ids = np.asarray(got[0])
+        if any(len(set(r)) != len(r) for r in ids) or ids.min() < 0 or \
+                ids.max() >= 1000:
+            failed.append("unique_zipfian: ids not distinct in range")
+    sets_got = random_draw_sets(cid, inputs, got)
+    sets_want = random_draw_sets(cid, inputs, want)
+    for label, draws in sets_got.items():
+        zm, zv = stats_z(draws, sets_want[label])
+        worst = max(worst, zm, zv)
+        if not (zm <= z and zv <= z):
+            failed.append(f"{cid} {label}: mean {zm:.1f} and variance "
+                          f"{zv:.1f} standard errors apart")
+    return failed, worst
+
+
+def run_random_case(name, inputs, attrs, gen, device):
+    """One random case through the port's registry op on ``device``,
+    drawing from the generator ``gen``: its outputs as numpy."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    fn = get_op(name).fn
+    kw = dict(attrs, rng=gen)
+    if "device" in fn.__code__.co_varnames:
+        kw["device"] = device
+    out = fn(*[torch.from_numpy(np.array(a)).to(device) for a in inputs],
+             **kw)
+    return [o.cpu().numpy() for o in (out if isinstance(out, tuple)
+                                       else (out,))]
+
+
+LIBRARY_DRAWS = 10 ** 6      # draws of every parameter row on the card
+
+
+def library_op_grid(dev, draws=LIBRARY_DRAWS):
+    """Phase 24 (and ``tests/test_torch_gpu.py``): every deterministic case
+    of ``LIBRARY_OP_GROUPS`` on the card against the same case on the CPU
+    (discrete outputs equal, linalg within ``TOL_LINALG``, the rest within
+    ``TOL_GRID`` of the case's largest entry, the factors of gelqf and
+    syevd up to their rows' signs); ``boolean_mask``; every random case at
+    ``draws`` draws a row on the card against the CPU's by mean and
+    variance (``random_case_failures``), and each again from the same seed
+    on the card, bitwise equal. Returns (worst error, worst z, number of
+    cases); raises naming every failing case."""
+    failed, worst, count = [], 0.0, 0
+    for group, cases in LIBRARY_OP_GROUPS.items():
+        for seed, (cid, name, inputs, attrs, how) in enumerate(cases()):
+            count += 1
+            want = run_grid_case(name, inputs, attrs, how, seed)
+            got = run_grid_case(name, inputs, attrs, how, seed, dev)
+            f, w = library_case_errors(cid, name, how, got, want,
+                                       library_tol(group))
+            failed += f
+            worst = max(worst, w)
+    data = grid_values(5, 3)
+    mask = np.array([1, 0, 0, 2, 1], "float32")
+    want = run_grid_case("boolean_mask", [data, mask], {}, "grad", 0)
+    got = run_grid_case("boolean_mask", [data, mask], {}, "grad", 0, dev)
+    failed += library_case_errors("boolean_mask", "boolean_mask", "grad",
+                                  got, want, TOL_GRID)[0]
+    worst_z = 0.0
+    cpu = torch.device("cpu")
+    for cid, name, inputs, attrs in random_cases(draws):
+        count += 1
+        want = run_random_case(name, inputs, attrs,
+                               torch.Generator(cpu).manual_seed(SEED), cpu)
+        got = run_random_case(name, inputs, attrs,
+                              torch.Generator(dev).manual_seed(SEED), dev)
+        again = run_random_case(name, inputs, attrs,
+                                torch.Generator(dev).manual_seed(SEED), dev)
+        if not all(np.array_equal(a, b) for a, b in zip(got, again)):
+            failed.append(f"{cid}: a seeded repeat on the card differs")
+        f, z = random_case_failures(cid, inputs, got, want)
+        failed += f
+        worst_z = max(worst_z, z)
+    if failed:
+        raise AssertionError("slice 12 op grid, card against CPU:\n"
+                             + "\n".join(failed))
+    return worst, worst_z, count
+
+
+def library_grid_phase(mx, dev):
+    """Phase 24's second half: every op slice 12 adds on the card against
+    the CPU, and the generator reaching a random op at inference: a bound
+    ``Dropout(mode="always")`` drops about half its entries at
+    ``is_train=False`` on the card."""
+    t0 = time.perf_counter()
+    worst, worst_z, count = library_op_grid(dev)
+    ctx = _ctx(mx, dev)
+    exe = mx.sym.Dropout(mx.sym.Variable("data"), p=0.5, mode="always") \
+        .simple_bind(ctx, data=(1000, 1000))
+    exe.arg_dict["data"][:] = 1.0
+    out = exe.forward(is_train=False)[0].asnumpy()
+    zeros = float((out == 0).mean())
+    if abs(zeros - 0.5) > 0.02 or not np.all((out == 0) | (out == 2.0)):
+        raise AssertionError(f"Dropout(mode='always') at inference on the "
+                             f"card: zero share {zeros}")
+    print(f"slice 12 op grid: {count} cases on the card against the CPU: "
+          f"discrete outputs equal, the rest within {worst:.2e} of the "
+          f"largest entry (tolerances {TOL_GRID}, linalg {TOL_LINALG}); "
+          f"random ops at {LIBRARY_DRAWS:,} draws a row within "
+          f"{worst_z:.2f} standard errors of the CPU's (bound 6), seeded "
+          f"repeats bitwise equal; Dropout(mode='always') at inference "
+          f"zeroes {zeros:.4f} of 10^6 entries; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------- slice 12: route J, CapsNet
+# Sabour, Frosst & Hinton, "Dynamic Routing Between Capsules"
+# (arXiv:1710.09829), at the paper's widths: Conv1 256 9x9 ReLU,
+# PrimaryCaps 32 types of 8-D capsules (9x9, stride 2: 6x6x32 = 1,152),
+# DigitCaps 10 x 16-D after 3 routing iterations, the margin loss and the
+# 512-1024-784 reconstruction decoder weighted 0.0005; Adam lr 1e-3, batch
+# 100, float32. Nothing is cut but the data (MNIST is not in the repo: the
+# synthetic idx files of ``mnist_files``) and the paper's 2-pixel shift
+# augmentation, which the JAX recipe does not have either.
+CAPSNET = dict(channels=256, kernel=9, stride=1, primary=32, pdim=8,
+               primary_kernel=9, primary_stride=2, capsules=1152,
+               classes=10, ddim=16, iters=3, decoder=(512, 1024, 784),
+               recon_weight=0.0005, batch=100, lr=1e-3)
+CAPSNET_PARAMS = 8215568
+CAPSNET_TIMED = 10           # iterations timed, after two warm-up ones
+# the gates, from the first run on the card (H100): margin 2.2e-7,
+# reconstruction 4.6e-9, lengths 1.8e-6, gradients up to 1.5e-6; the TF32
+# control read 4.3e-4 (lengths) and 1.3e-2 (decoder_dense0's gradient)
+TOL_CAPS_LOSS = 2e-6         # margin and reconstruction losses, relative
+TOL_CAPS_LENGTHS = 1e-5      # capsule lengths, of their largest
+TOL_CAPS_GRAD = 1e-5         # ||dg|| / ||g|| of every gradient
+
+
+def build_capsnet(mx, ctx, weights=None, dtype="float32"):
+    """Route J's model on ``ctx``: the capsnet twin's ``CapsNet`` at
+    ``CAPSNET``'s widths and the reconstruction decoder (Xavier from the
+    port's seed, or ``weights`` by name), cast to ``dtype``; with the twin
+    module and one Adam trainer over both."""
+    from mxnet_tpu_torch import gluon, interop
+    c = CAPSNET
+    twin = _load_example("example/capsnet/capsnet_torch.py",
+                         "capsnet_torch")
+    net = twin.CapsNet(
+        channels=c["channels"], kernel=c["kernel"], stride=c["stride"],
+        primary=c["primary"], pdim=c["pdim"],
+        primary_kernel=c["primary_kernel"],
+        primary_stride=c["primary_stride"], capsules=c["capsules"],
+        classes=c["classes"], ddim=c["ddim"], prefix="capsnet_")
+    decoder = gluon.nn.HybridSequential(prefix="decoder_")
+    with decoder.name_scope():
+        for units in c["decoder"][:-1]:
+            decoder.add(gluon.nn.Dense(units, activation="relu"))
+        decoder.add(gluon.nn.Dense(c["decoder"][-1], activation="sigmoid"))
+    mx.random.seed(SEED)
+    for block in (net, decoder):
+        block.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((2, 1, 28, 28), ctx=ctx))
+        decoder(mx.nd.zeros((2, c["classes"] * c["ddim"]), ctx=ctx))
+    if weights is not None:
+        for block, w in zip((net, decoder), weights):
+            interop.load_block_params(block, w)
+    params = {**net.collect_params(), **decoder.collect_params()}
+    if dtype != "float32":
+        for p in params.values():
+            p.cast(dtype)
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": c["lr"]})
+    return twin, net, decoder, trainer
+
+
+def capsnet_losses(mx, twin, net, decoder, x, y):
+    """(total, margin, reconstruction, capsule lengths) of a batch: the
+    twin's ``route`` and ``margin_loss``, and the decoder's sum of squared
+    errors over the image, fed the class capsules masked by
+    ``one_hot(label)``, averaged over the batch."""
+    import torch.profiler as tp
+    c = CAPSNET
+    with tp.record_function("capsnet.u_hat"):
+        u_hat = net(x)
+    with tp.record_function("capsnet.route"):
+        v = twin.route(u_hat, c["iters"])
+    with tp.record_function("capsnet.losses"):
+        margin = twin.margin_loss(v, y)
+        mask = mx.nd.one_hot(y, c["classes"], dtype=v.dtype)
+        masked = (v * mx.nd.expand_dims(mask, axis=2)).reshape(
+            (0, -1))
+        recon = decoder(masked)
+        err = mx.nd.sum(mx.nd.square(recon - x.reshape((0, -1))), axis=1)
+        recon_loss = mx.nd.mean(err)
+        total = margin + c["recon_weight"] * recon_loss
+        lengths = mx.nd.sqrt(mx.nd.sum(mx.nd.square(v), axis=2))
+    return total, margin, recon_loss, lengths
+
+
+def capsnet_step(mx, twin, net, decoder, trainer, x, y):
+    with mx.autograd.record():
+        out = capsnet_losses(mx, twin, net, decoder, x, y)
+    out[0].backward()
+    trainer.step(1)
+    return out
+
+
+def _caps_grads(net, decoder):
+    return {k: p.grad._data.detach().double().clone()
+            for block in (net, decoder)
+            for k, p in block.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def _capsnet_iteration_one(mx, ctx, weights, batch, dtype):
+    """Iteration 1 from ``weights`` in ``dtype``: (margin, reconstruction,
+    capsule lengths, {name: gradient})."""
+    twin, net, decoder, trainer = build_capsnet(mx, ctx, weights, dtype)
+    x, y = (a.astype(dtype) for a in batch)
+    _, margin, recon, lengths = capsnet_step(mx, twin, net, decoder,
+                                             trainer, x, y)
+    return (float(margin.asscalar()), float(recon.asscalar()),
+            lengths._data.detach().double(), _caps_grads(net, decoder))
+
+
+def _caps_errors(run, ref):
+    """(margin, reconstruction, lengths, worst gradient) errors of ``run``
+    against ``ref`` and {name: ||dg|| / ||g||}."""
+    per = {n: _norm_rel(g, ref[3][n]) for n, g in run[3].items()}
+    return ((abs(run[0] - ref[0]) / abs(ref[0]),
+             abs(run[1] - ref[1]) / abs(ref[1]),
+             ((run[2] - ref[2]).abs().max() / ref[2].abs().max()).item(),
+             max(per.values())), per)
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched under it (each launches at least one
+    kernel on the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def capsnet_phase(mx, hk, dev, workdir, profile=False):
+    """Route J (phase 27): CapsNet at the paper's widths trained through
+    ``MNISTIter``, gluon, ``autograd.record()`` and Adam on the card.
+    Iteration 1 against the same iteration in float64 on the card — the
+    margin and reconstruction losses, the capsule lengths, every gradient
+    — with a TF32 control that must miss; then ``CAPSNET_TIMED`` timed
+    iterations (wall ms, host dispatch, device ms, images/s, peak memory),
+    the ops dispatched by one iteration, the losses finite, and under
+    ``profile`` a ``torch.profiler`` breakdown. No Hopper kernel may
+    launch."""
+    from mxnet_tpu_torch import interop
+    c, ctx = CAPSNET, _ctx(mx, dev)
+    root = os.path.join(workdir, "mnist_caps")
+    n_train = c["batch"] * (CAPSNET_TIMED + 4)
+    t0 = time.perf_counter()
+    mnist_files(root, n_train, c["batch"])
+    with ctx:
+        it = mx.io.MNISTIter(
+            image=os.path.join(root, "train-images-idx3-ubyte"),
+            label=os.path.join(root, "train-labels-idx1-ubyte"),
+            batch_size=c["batch"], shuffle=False)
+        batches = [(b.data[0].as_in_context(ctx),
+                    b.label[0].as_in_context(ctx)) for b in it]
+    print(f"capsnet: {n_train} synthetic 28x28 idx images through "
+          f"MNISTIter in {time.perf_counter() - t0:.2f} s (set-up)")
+    twin, net, decoder, _ = build_capsnet(mx, ctx)
+    n = sum(p.data().size for b in (net, decoder)
+            for p in b.collect_params().values())
+    weights = [interop.block_params_to_numpy(b) for b in (net, decoder)]
+    del net, decoder
+    if n != CAPSNET_PARAMS:
+        raise AssertionError(f"capsnet: {n:,} parameters, the paper's "
+                             f"widths give {CAPSNET_PARAMS:,}")
+    k, cd = c["capsules"], c["classes"] * c["ddim"]
+    print(f"capsnet: {n:,} parameters (conv {c['channels']} "
+          f"{c['kernel']}x{c['kernel']}, primary caps {c['primary']}x"
+          f"{c['pdim']}-D = {k:,} capsules, u_hat batch_dot ({k}, B, "
+          f"{c['pdim']}) x ({k}, {c['pdim']}, {cd}), {c['iters']} routing "
+          f"iterations, digit caps {c['classes']}x{c['ddim']}-D, decoder "
+          f"{cd}-{'-'.join(str(u) for u in c['decoder'])}), batch "
+          f"{c['batch']}")
+    hk.reset_launch_counts()
+    run = _capsnet_iteration_one(mx, ctx, weights, batches[0], "float32")
+    ref = _capsnet_iteration_one(mx, ctx, weights, batches[0], "float64")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = _capsnet_iteration_one(mx, ctx, weights, batches[0],
+                                         "float32")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    (errs, per), (ctl, per_ctl) = _caps_errors(run, ref), \
+        _caps_errors(control, ref)
+    tols = (TOL_CAPS_LOSS, TOL_CAPS_LOSS, TOL_CAPS_LENGTHS, TOL_CAPS_GRAD)
+    print(f"capsnet: iteration 1 against float64 (margin loss, "
+          f"reconstruction loss, capsule lengths, worst ||dg||/||g||): "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tolerances {tols}); "
+          f"TF32 control {', '.join(f'{e:.2e}' for e in ctl)}; margin "
+          f"{run[0]:.6f} reconstruction {run[1]:.4f}")
+    for name, e in sorted(per.items(), key=lambda kv: -kv[1]):
+        print(f"capsnet: gradient {name}: ||dg||/||g|| {e:.2e} (TF32 "
+              f"{per_ctl[name]:.2e})")
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError("capsnet: iteration 1 is not within its "
+                             "tolerances of the float64 iteration")
+    if all(e <= t for e, t in zip(ctl, tols)):
+        raise AssertionError("capsnet: the TF32 control met every "
+                             "tolerance")
+    del run, ref, control
+    _free()
+
+    twin, net, decoder, trainer = build_capsnet(mx, ctx, weights)
+    losses, steps = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(CAPSNET_TIMED + 2):
+        x, y = batches[i]
+        out = {}
+
+        def step(x=x, y=y):
+            out["v"] = capsnet_step(mx, twin, net, decoder, trainer, x, y)
+        if i >= 2:
+            steps.append(_timed_step(step))
+        else:
+            step()
+        losses.append(out["v"][:3])
+    values = [[float(t.asscalar()) for t in l] for l in losses]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"capsnet: a loss is not finite: {values}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    host = 1e3 * float(np.median([h for h, _, _ in steps]))
+    devms = float(np.median([d for _, d, _ in steps]))
+    wall = 1e3 * float(np.median([w for _, _, w in steps]))
+    x, y = batches[CAPSNET_TIMED + 2]
+    with OpCount() as ops:
+        capsnet_step(mx, twin, net, decoder, trainer, x, y)
+    print(f"capsnet: {CAPSNET_TIMED} timed iterations: an iteration "
+          f"{wall:.2f} ms ({devms:.2f} ms on the card, host dispatch "
+          f"{host:.2f} ms), {1e3 * c['batch'] / wall:.1f} images/s; peak "
+          f"memory {peak:.2f} GB; {ops.count} aten ops dispatched by one "
+          f"iteration; loss {values[0][0]:.4f} -> {values[-1][0]:.4f} "
+          f"(margin {values[0][1]:.4f} -> {values[-1][1]:.4f}); card "
+          f"{_card_line()}")
+    if profile:
+        x, y = batches[CAPSNET_TIMED + 3]
+        profile_breakdown(
+            "capsnet iteration",
+            lambda: capsnet_step(mx, twin, net, decoder, trainer, x, y),
+            ranges=("capsnet.u_hat", "capsnet.route", "capsnet.losses"))
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route J launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served dispatch, one training "
                          "step, one custom-head step, one Module step, one "
-                         "fused step, one bf16 fused step and one route F "
-                         "step (torch.profiler)")
+                         "fused step, one bf16 fused step, one route F "
+                         "step and one route J iteration (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5862,6 +6678,15 @@ def main(argv=None) -> int:
     dcgan_phase(mx, hk, dev, args.profile)
     _free()
     ctc_phase(mx, hk, dev)
+    _free()
+    # slice 12: route J (CapsNet): no TPU kernel on its path (XLA lowered
+    # the JAX package's convolutions, batch_dot and routing; cuDNN, cuBLAS
+    # and plain torch run the port's)
+    hk.reset_launch_counts()
+    try:
+        capsnet_phase(mx, hk, dev, workdir, args.profile)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

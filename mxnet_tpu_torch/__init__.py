@@ -8,7 +8,8 @@ training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
 ``mx.io``, ``mx.metric``, ``mx.callback``, ``mx.model``,
 ``mx.kvstore`` and ``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
 symbolic recurrent cells, ``mx.recordio`` and ``mx.image`` for the image
-data pipeline, ``mx.AttrScope`` for symbol attributes) over plain
+data pipeline, ``mx.AttrScope`` for symbol attributes, ``mx.engine``,
+``mx.registry``, ``mx.util`` and ``mx.test_utils``) over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
 TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
@@ -63,13 +64,16 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model", "kvstore",
            "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
-           "recordio", "image", "kv", "serving", "interop"]
+           "recordio", "image", "kv", "serving", "interop", "engine",
+           "registry", "util", "test_utils"]
 
 
 def __getattr__(name):
-    """``mx.serving`` and ``mx.interop`` import on first use, as in the JAX
+    """``mx.serving``, ``mx.interop``, ``mx.engine``, ``mx.registry``,
+    ``mx.util`` and ``mx.test_utils`` import on first use, as in the JAX
     package."""
-    if name in ("serving", "interop"):
+    if name in ("serving", "interop", "engine", "registry", "util",
+                "test_utils"):
         import importlib
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod

@@ -161,8 +161,9 @@ class _GraphLowering:
             _op_signature_flags(opdef)
         if accepts_train:
             attrs.setdefault("is_train", is_train)
-        if accepts_rng and is_train and in_arrays:
-            attrs["rng"] = _random.generator(in_arrays[0].device)
+        if accepts_rng:
+            attrs["rng"] = _random.generator(
+                in_arrays[0].device if in_arrays else self._device)
         if accepts_device and not in_arrays:
             attrs["device"] = self._device
         out = opdef.fn(*in_arrays, **attrs)
@@ -179,11 +180,14 @@ class _GraphLowering:
 
     def lower(self, is_train: bool = False,
               segment: Callable = None) -> Callable:
-        """The graph as a function. Ops that take ``is_train`` get it; in
-        training a random op draws from the generator of its first input's
-        device and the aux-update rules give the new moving statistics
-        (computed without gradient); at inference random ops get no
-        generator (Dropout is the identity) and nothing is updated.
+        """The graph as a function. Ops that take ``is_train`` get it; a
+        random op draws from the generator of the device it runs on (its
+        first input's, else the graph inputs'), in training and at
+        inference alike, as the JAX executor gives every such op a key
+        (an op's own rule decides what inference means: ``Dropout`` is the
+        identity there unless ``mode="always"``). In training the
+        aux-update rules give the new moving statistics (computed without
+        gradient); at inference nothing is updated.
 
         With ``segment`` the n op nodes run in ⌈√n⌉ consecutive segments
         of about equal length, each as ``segment(run, *tensors)``: ``run``
@@ -224,8 +228,12 @@ class _GraphLowering:
 
         def fn(inputs: Dict[str, Any]):
             # an op without inputs creates its output beside the inputs
+            # (on the current context in a graph without tensor inputs)
             self._device = next((t.device for t in inputs.values()
                                  if isinstance(t, torch.Tensor)), None)
+            if self._device is None:
+                from .context import current_context
+                self._device = current_context().torch_device()
             vals: Dict[int, Any] = {id(node): (inputs[node.name],)
                                     for node in nodes if node.is_var}
             aux_updates: Dict[str, Any] = {}

@@ -23,7 +23,27 @@ from .base import MXNetError
 from .ndarray.ndarray import NDArray, array
 
 __all__ = ["params_from_numpy", "module_params_from_numpy",
-           "load_block_params", "block_params_to_numpy"]
+           "load_block_params", "block_params_to_numpy",
+           "load_reference_params", "save_reference_params",
+           "load_reference_checkpoint"]
+
+
+def _reference_format(what: str):
+    raise MXNetError(f"{what}: the reference's .params and graph-JSON "
+                     f"formats wait for the interop slice (ROADMAP A6)")
+
+
+def load_reference_params(fname: str):
+    """A reference-format ``.params`` file: ROADMAP A6, not yet ported."""
+    _reference_format("load_reference_params")
+
+
+def save_reference_params(fname: str, params) -> None:
+    _reference_format("save_reference_params")
+
+
+def load_reference_checkpoint(prefix: str, epoch: int):
+    _reference_format("load_reference_checkpoint")
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],

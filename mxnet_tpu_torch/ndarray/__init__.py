@@ -11,16 +11,21 @@ import numpy as np
 
 from .ndarray import NDArray, array, torch_dtype
 from .utils import (zeros, ones, full, empty, arange, save, load,
-                    load_frombuffer, concat, stack, split)
+                    load_frombuffer, concat, stack, split, one_hot,
+                    concatenate, moveaxis)
 from .._imperative import invoke
+from ..base import MXNetError
 from ..ops.registry import _REGISTRY, get_op, list_ops
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "save", "load", "load_frombuffer", "torch_dtype", "concat",
-           "stack", "split", "add", "subtract", "multiply", "divide",
-           "true_divide", "modulo", "maximum", "minimum", "power", "equal",
-           "not_equal", "greater", "greater_equal", "lesser", "lesser_equal",
-           "logical_and", "logical_or", "logical_xor"]
+           "stack", "split", "one_hot", "waitall", "onehot_encode",
+           "imdecode", "from_dlpack", "to_dlpack_for_read",
+           "to_dlpack_for_write", "concatenate", "moveaxis", "add",
+           "subtract", "multiply", "divide", "true_divide", "modulo",
+           "maximum", "minimum", "power", "equal", "not_equal", "greater",
+           "greater_equal", "lesser", "lesser_equal", "logical_and",
+           "logical_or", "logical_xor"]
 
 
 def _scalar_or_elemwise(elem_op, scalar_op, rscalar_op=None):
@@ -68,6 +73,60 @@ logical_xor = _scalar_or_elemwise("broadcast_logical_xor",
                                   "_logical_xor_scalar")
 
 
+def onehot_encode(indices, out):
+    """The legacy one-hot fill: ``indices``' one-hot rows written into
+    ``out`` (its dtype kept), which is returned."""
+    hot = invoke("one_hot", [indices], {"depth": int(out.shape[1])})
+    if tuple(hot.shape) != tuple(out.shape):
+        raise MXNetError(f"onehot_encode: output shape {tuple(out.shape)} "
+                         f"does not match the one-hot expansion "
+                         f"{tuple(hot.shape)} of the given indices")
+    out._set_data(hot._data.to(out._data.dtype))
+    return out
+
+
+def from_dlpack(ext_tensor) -> NDArray:
+    """An array over a DLPack provider's memory, without a copy (an object
+    with ``__dlpack__``: a torch tensor, a numpy array, or what
+    :func:`to_dlpack_for_read` returns). A raw capsule is refused, as in
+    the JAX package."""
+    import torch
+    if type(ext_tensor).__name__ == "PyCapsule":
+        raise MXNetError("from_dlpack takes a DLPack provider object (torch "
+                         "tensor, numpy array, ...), not a raw capsule; pass "
+                         "the tensor itself")
+    return NDArray(torch.from_dlpack(ext_tensor))
+
+
+def to_dlpack_for_read(arr: NDArray):
+    """A DLPack provider of the array, after its pending work (the tensor
+    itself: consumers call ``torch.from_dlpack``/``np.from_dlpack`` on
+    it)."""
+    arr.wait_to_read()
+    return arr._data.detach()
+
+
+def to_dlpack_for_write(arr: NDArray):
+    """A writable DLPack provider. As in the JAX package it is a fresh host
+    copy: writes land in the copy, never in ``arr`` (re-import it with
+    :func:`from_dlpack` or ``nd.array`` to see them)."""
+    arr.wait_to_read()
+    return arr._data.detach().cpu().numpy().copy()
+
+
+def imdecode(buf, **kwargs) -> NDArray:
+    """Decode an image buffer (``mx.image.imdecode``)."""
+    from .. import image as _image
+    return _image.imdecode(buf, **kwargs)
+
+
+def waitall() -> None:
+    """Block until all launched work is done and surface a deferred error
+    (``mx.engine.wait_all``)."""
+    from ..engine import wait_all
+    wait_all()
+
+
 def _make_op_func(name: str):
     """Positional NDArrays (and numpy arrays) are the op's inputs, in
     order; an array passed by keyword under one of the op's input names
@@ -90,7 +149,6 @@ def _make_op_func(name: str):
                 slots.pop()
             inputs = slots + queue
         kwargs.pop("name", None)
-        kwargs.pop("ctx", None)
         return invoke(name, inputs, kwargs, out=out)
 
     fn.__name__ = name
@@ -102,6 +160,9 @@ _func_cache = {}
 
 
 def __getattr__(name: str):
+    if name == "contrib":
+        import importlib
+        return importlib.import_module(__name__ + ".contrib")
     if name == "Custom":
         # the imperative, differentiable custom op (``mx.operator``); the
         # registry's ``Custom`` is the graph-mode, forward-only one

@@ -23,7 +23,8 @@ from ..context import Context, current_context
 from .ndarray import NDArray, array, torch_dtype
 
 __all__ = ["zeros", "ones", "full", "empty", "arange", "concat", "stack",
-           "split", "save", "load", "load_frombuffer"]
+           "split", "save", "load", "load_frombuffer", "concatenate",
+           "one_hot", "moveaxis"]
 
 _MAGIC = b"MXTPU001"
 
@@ -90,6 +91,26 @@ def split(ary, indices_or_sections, axis=0):
                       {"num_outputs": indices_or_sections, "axis": axis})
     return invoke("split_v2", [ary],
                   {"indices": tuple(indices_or_sections), "axis": axis})
+
+
+def concatenate(arrays, axis=0) -> NDArray:
+    return concat(*arrays, dim=axis)
+
+
+def one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+    from .._imperative import invoke
+    return invoke("one_hot", [indices], {
+        "depth": depth, "on_value": on_value, "off_value": off_value,
+        "dtype": dtype})
+
+
+def moveaxis(tensor, source, destination) -> NDArray:
+    """``tensor`` with axis ``source`` moved to ``destination`` (a
+    transpose)."""
+    ax = list(range(tensor.ndim))
+    ax.remove(source % tensor.ndim)
+    ax.insert(destination % tensor.ndim, source % tensor.ndim)
+    return tensor.transpose(*ax)
 
 
 def _raw(a) -> tuple:

@@ -4,8 +4,9 @@ Counterpart of the ``Reshape``/``reshape``, ``Flatten``, ``transpose``,
 ``SwapAxis``/``swapaxes``, ``expand_dims``, ``squeeze``, ``slice_axis``,
 ``slice_like``, ``reshape_like``, ``Concat``, ``stack``,
 ``SliceChannel``/``split``, ``split_v2``, ``flip``/``reverse``, ``Pad``,
-``depth_to_space``, ``space_to_depth`` and ``dot`` ops of
-``mxnet_tpu/ops/matrix.py``
+``depth_to_space``, ``space_to_depth``, ``dot``, ``batch_dot``,
+``slice``/``crop``, ``tile``, ``repeat``, ``diag``, ``shape_array`` and
+``size_array`` ops of ``mxnet_tpu/ops/matrix.py``
 (reference ``src/operator/tensor/matrix_op.cc``). Views are returned where
 PyTorch can give one; consumers that need contiguous memory make it so.
 """
@@ -235,3 +236,72 @@ def _space_to_depth(x, block_size=1):
     n, c, h, w = x.shape
     y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
     return y.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("batch_dot")
+def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False,
+               forward_stype=None):
+    """``matmul`` over the leading (batch) axes, the last two of an
+    operand swapped with ``transpose_*``."""
+    if transpose_a:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+def _axis_slice(x, axis, b, e, s):
+    """``x`` sliced along ``axis`` as numpy slices it (a negative step
+    gathers the indices, which torch's slicing does not take)."""
+    if s > 0:
+        idx = [slice(None)] * x.ndim
+        idx[axis] = slice(b, e, s)
+        return x[tuple(idx)]
+    rows = range(*slice(b, e, s).indices(x.shape[axis]))
+    return x.index_select(axis, torch.tensor(list(rows), dtype=torch.int64,
+                                             device=x.device))
+
+
+@register("slice", aliases=["crop"])
+def _slice(x, begin=(), end=(), step=None):
+    """``x[begin:end:step]`` over the leading ``len(begin)`` axes (None
+    keeps an end open; a step of None or 0 is 1)."""
+    step = tuple(step) if step else ()
+    for axis, (b, e) in enumerate(zip(begin, end)):
+        s = step[axis] if axis < len(step) and step[axis] not in (None, 0) \
+            else 1
+        x = _axis_slice(x, axis, b, e, int(s))
+    return x
+
+
+@register("tile")
+def _tile(x, reps=()):
+    return torch.tile(x, tuple(int(r) for r in reps))
+
+
+@register("repeat")
+def _repeat(x, repeats=1, axis=None):
+    """Each entry ``repeats`` times along ``axis`` (of the flattened input
+    without one)."""
+    return torch.repeat_interleave(x, int(repeats),
+                                   dim=None if axis is None else int(axis))
+
+
+@register("diag")
+def _diag(x, k=0, axis1=0, axis2=1):
+    """A 1-D input's diagonal matrix; else the ``k``-th diagonal of the
+    (``axis1``, ``axis2``) planes, as the last axis."""
+    if x.ndim == 1:
+        return torch.diag(x, int(k))
+    return torch.diagonal(x, offset=int(k), dim1=int(axis1), dim2=int(axis2))
+
+
+@register("shape_array", differentiable=False)
+def _shape_array(x):
+    """The shape as int64 (the JAX package runs with 64-bit types on)."""
+    return torch.tensor(tuple(x.shape), dtype=torch.int64, device=x.device)
+
+
+@register("size_array", differentiable=False)
+def _size_array(x):
+    return torch.tensor([x.numel()], dtype=torch.int64, device=x.device)

@@ -5,8 +5,10 @@ Counterpart of ``FullyConnected``, ``Convolution``, ``Deconvolution``,
 ``Pooling``, ``LayerNorm``, ``BatchNorm``, ``Activation``, ``Dropout``,
 ``InstanceNorm``, ``LRN``, ``LeakyReLU``, ``softmax``, ``log_softmax``,
 ``softmin``, ``SoftmaxActivation``, ``softmax_cross_entropy``,
-``SoftmaxOutput``, the regression outputs, ``SVMOutput``, ``UpSampling``
-and ``_contrib_flash_attention`` in ``mxnet_tpu/ops/nn.py``, and
+``SoftmaxOutput``, the regression outputs, ``SVMOutput``, ``UpSampling``,
+the spatial transformer (``GridGenerator``, ``BilinearSampler``,
+``SpatialTransformer``) and ``_contrib_flash_attention`` in
+``mxnet_tpu/ops/nn.py``, and
 ``MakeLoss`` in ``mxnet_tpu/ops/parity_ops.py``
 (reference ``src/operator/nn/``, ``src/operator/loss_binary_op.cc``,
 ``softmax_output.cc``, ``make_loss.cc``). Matrix products
@@ -337,6 +339,60 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     mask = torch.empty(shape, dtype=data.dtype, device=data.device)
     mask.bernoulli_(keep, generator=rng)
     return data * (mask / keep)
+
+
+@register("GridGenerator")
+def _grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    """An affine ``data`` (N, 6) maps the target's (x, y) grid, spaced
+    evenly over [-1, 1] (``F.affine_grid`` with ``align_corners=True``),
+    to source coordinates: (N, 2, H, W) with x in channel 0, y in 1. The
+    ``warp`` type returns ``data`` itself as the grid, as the JAX package
+    does."""
+    if transform_type != "affine":
+        return data
+    h, w = int(target_shape[0]), int(target_shape[1])
+    ys = torch.linspace(-1.0, 1.0, h, dtype=data.dtype, device=data.device)
+    xs = torch.linspace(-1.0, 1.0, w, dtype=data.dtype, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones_like(gx).reshape(-1)])
+    return torch.matmul(data.reshape(-1, 2, 3), base).reshape(-1, 2, h, w)
+
+
+@register("BilinearSampler")
+def _bilinear_sampler(data, grid, cudnn_off=False):
+    """``data`` (N, C, H, W) read at ``grid``'s (x, y) in [-1, 1]: the
+    four neighbours' bilinear mix, each neighbour's index clamped to the
+    image, and the whole sample zero where the point lies outside
+    [0, W-1] x [0, H-1] (``F.grid_sample`` would pad each neighbour with
+    zeros instead)."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    bidx = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def gather(yi, xi):
+        yi = yi.to(torch.int64).clamp(0, h - 1)
+        xi = xi.to(torch.int64).clamp(0, w - 1)
+        return data[bidx, :, yi, xi].permute(0, 3, 1, 2)
+
+    out = (((x1 - gx) * (y1 - gy)).unsqueeze(1) * gather(y0, x0)
+           + ((x1 - gx) * (gy - y0)).unsqueeze(1) * gather(y1, x0)
+           + ((gx - x0) * (y1 - gy)).unsqueeze(1) * gather(y0, x1)
+           + ((gx - x0) * (gy - y0)).unsqueeze(1) * gather(y1, x1))
+    inside = ((gx >= 0) & (gx <= w - 1) & (gy >= 0) & (gy <= h - 1))
+    return out * inside.to(data.dtype).unsqueeze(1)
+
+
+@register("SpatialTransformer")
+def _spatial_transformer(data, loc, target_shape=(0, 0),
+                         transform_type="affine", sampler_type="bilinear",
+                         cudnn_off=False):
+    """``BilinearSampler`` over the affine grid of ``loc``."""
+    return _bilinear_sampler(data, _grid_generator(
+        loc, transform_type="affine", target_shape=target_shape))
 
 
 @register("_contrib_flash_attention", aliases=["contrib_flash_attention"],

@@ -90,6 +90,9 @@ _func_cache: Dict[str, Any] = {}
 
 
 def __getattr__(name: str):
+    if name == "contrib":
+        import importlib
+        return importlib.import_module(__name__ + ".contrib")
     if name in _REGISTRY:
         if name not in _func_cache:
             _func_cache[name] = _make_sym_func(name)

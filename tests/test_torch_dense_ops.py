@@ -538,18 +538,34 @@ def _registered_in(modules):
                   if op.fn.__module__ in modules)
 
 
+# the ops of parity_ops.py that belong to later slices: the R-CNN family's
+# PSROI poolings and the int8 family's quantized ops
+LATER_SLICES = {"PSROIPooling", "_contrib_PSROIPooling",
+                "DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+                "_contrib_quantized_conv", "_contrib_quantized_pooling",
+                "_contrib_quantized_flatten", "_contrib_quantized_concat"}
+
+
 def test_every_op_of_the_jax_files_is_registered_and_the_namespaces_match():
-    """Every name that the JAX files register, and the ``ops/nn.py`` ops of
-    this slice, is in the port's registry, ``mx.nd`` and ``mx.sym``; the
-    NDArray methods and ``mx.nd``'s binary functions behave as the JAX
-    package's."""
+    """Every name that the JAX files register (slice 11's and slice 12's:
+    ``index``, ``matrix``, ``random_ops``, ``tail_ops``, ``linalg`` and
+    ``parity_ops`` but ``LATER_SLICES``), and the ``ops/nn.py`` ops of
+    both slices, is in the port's registry, ``mx.nd`` and ``mx.sym``,
+    aliases sharing one op; the NDArray methods and ``mx.nd``'s binary
+    functions behave as the JAX package's."""
     names = _registered_in({f"mxnet_tpu.ops.{m}" for m in (
-        "elemwise", "broadcast_reduce", "ctc", "order", "init_ops")})
+        "elemwise", "broadcast_reduce", "ctc", "order", "init_ops", "index",
+        "matrix", "random_ops", "tail_ops", "linalg", "parity_ops")})
+    assert LATER_SLICES <= set(names)
+    names = [n for n in names if n not in LATER_SLICES]
     names += ["LeakyReLU", "InstanceNorm", "LRN", "softmin",
               "SoftmaxActivation", "LinearRegressionOutput",
               "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
-              "UpSampling"]
-    assert len(names) > 150
+              "UpSampling", "GridGenerator", "BilinearSampler",
+              "SpatialTransformer", "BatchNorm_v1", "Convolution_v1",
+              "Pooling_v1", "CuDNNBatchNorm", "SyncBatchNorm",
+              "_contrib_SyncBatchNorm"]
+    assert len(names) > 340
     missing = [n for n in names if n not in PORT_REGISTRY
                or not hasattr(mx.nd, n) or not hasattr(mx.sym, n)]
     assert not missing, missing

@@ -21,11 +21,13 @@ inputs, no layout copy), the NHWC net against the NCHW net, and the
 small word LM through gluon (the recipe twin's ``train_step``) on the
 card against the CPU, no Hopper kernel launched. Slice 11: every dense
 op, activation layer and loss it adds, and an iteration of the 64x64
-DCGAN's nets, on the card against the CPU. The detection family:
+DCGAN's nets, on the card against the CPU; slice 12's op grid and an
+iteration of a narrow CapsNet, likewise. The detection family:
 the multibox ops and ``box_nms`` on the card against the CPU (discrete
 outputs equal), a ``Module`` step of the small SSD twin on records read
 by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
-page-locked batches. Marked ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a machine that
+page-locked batches. Each item loops over its cases and names the ones
+that fail. Marked ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -57,7 +59,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_kernels_refuse_what_they_do_not_take(cuda):
+def _kernels_refuse_what_they_do_not_take(cuda):
     """B1's, B3's and B2's wrappers on the card refuse other dtypes, head
     dims and devices (one item that names the failing kernel)."""
     for check in (_flash_attention_kernel_refuses,
@@ -83,7 +85,7 @@ def _flash_attention_kernel_refuses(cuda):
         hk.flash_attention(g, g.cpu(), g)
 
 
-def test_flash_attention_backward_runs_the_kernels(cuda):
+def _flash_attention_backward_runs_the_kernels(cuda):
     """Under autograd the forward saves (q, k, v, out, lse) and the
     backward launches the dK/dV and dQ kernels once each."""
     gen = torch.Generator(device=cuda)
@@ -135,7 +137,7 @@ def _qkvg(cuda, dtype, D, Tq, Tk, seed, bh=2):
             for t in (Tq, Tk, Tk, Tq)]
 
 
-def test_flash_kernels_match_plain_at_tile_edges(cuda, cs):
+def _flash_kernels_match_plain_at_tile_edges(cuda, cs):
     """B1 and B3 against their plain versions, with chip_smoke.py's
     tolerances, for each dtype, head dim and edge of ``TILE_EDGES`` (one
     item that names the failing case); rows that see no key get out 0, lse
@@ -183,7 +185,7 @@ def _check_tile_edge(cuda, cs, dtype, D, Tq, Tk, causal, q_offset,
         assert bool((grads[0][:, :blind] == 0).all())
 
 
-def test_flash_kernels_repeat_bitwise(cuda):
+def _flash_kernels_repeat_bitwise(cuda):
     """No atomics: the same inputs launched twice give bitwise-equal out
     and lse (B1) and dq, dk, dv (B3), in float32 and bf16 (one item that
     names the failing dtype)."""
@@ -199,7 +201,7 @@ def test_flash_kernels_repeat_bitwise(cuda):
         assert all(torch.equal(a, b) for a, b in zip(*bwd)), dtype
 
 
-def test_flash_kernels_take_unaligned_tensors(cuda):
+def _flash_kernels_take_unaligned_tensors(cuda):
     """Contiguous views whose data starts off a 16-byte boundary are staged
     with plain loads instead of cp.async: the same bits as aligned copies
     give."""
@@ -219,7 +221,7 @@ def test_flash_kernels_take_unaligned_tensors(cuda):
     assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
 
 
-def test_flash_kernels_run_on_tensor_cores(cuda):
+def _flash_kernels_run_on_tensor_cores(cuda):
     """Every kernel function of the flash libraries issues tensor-core
     MMAs: TF32 (the split product) and bf16 (one item that names the
     failing library)."""
@@ -269,7 +271,7 @@ def cs():
     return mod
 
 
-def test_rtc_on_card(cuda, cs):
+def _rtc_on_card(cuda, cs):
     """``mx.rtc`` on the card: the axpy exports, what a launch refuses, a
     launch from another thread, a launch above 48 KB of dynamic shared
     memory (one item that names the failing check)."""
@@ -349,7 +351,7 @@ def _rtc_large_dynamic_shared_memory(cuda, cs):
     assert (p - ref).abs().max().item() <= 1e-5 * ref.max().item()
 
 
-def test_custom_head_matches_plain(cuda, cs):
+def _custom_head_matches_plain(cuda, cs):
     """``mx.nd.Custom`` with the rtc head: forward probabilities and the
     logits' gradient against the plain versions, one launch of each
     kernel, at 7 and 8192 rows (one item that names the failing count)."""
@@ -442,7 +444,7 @@ def _module_step(cs, files, ctx):
             {n: g.asnumpy() for n, g in ex.grad_dict.items()})
 
 
-def test_module_step_on_card_matches_cpu(cuda, cs, small_lm):
+def _module_step_on_card_matches_cpu(cuda, cs, small_lm):
     """A Module step of the LM with the MakeLoss(softmax_cross_entropy)
     head launches B1 and B3's kernels once a layer and B2 once, and its
     loss and gradients match the CPU run."""
@@ -480,7 +482,7 @@ def _fused_step(files, ctx):
         for n, t in trainer._params.items()}
 
 
-def test_fused_step_on_card_matches_cpu(cuda, cs, small_lm):
+def _fused_step_on_card_matches_cpu(cuda, cs, small_lm):
     """A DataParallelTrainer step over the SymbolBlock of the same files
     (mesh=None: the current context) launches B1 and B3's kernels once a
     layer and B2 never, and its loss and weight steps match the CPU run."""
@@ -527,7 +529,7 @@ def _worst(steps, ref):
                / max(np.linalg.norm(ref[n]), 1e-30) for n in ref)
 
 
-def test_bf16_steps_with_remat_on_card(cuda, cs, small_lm):
+def _bf16_steps_with_remat_on_card(cuda, cs, small_lm):
     """The bf16 step on the card, under each remat mode: B1 once a layer
     (twice under remat: the recompute), B3 once, every launch on bf16
     inputs; the remat modes give the
@@ -558,7 +560,7 @@ def test_bf16_steps_with_remat_on_card(cuda, cs, small_lm):
     assert abs(runs[None][0] - cpu_f32_loss) <= 2e-2 * abs(cpu_f32_loss)
 
 
-def test_softmax_cross_entropy_label_cases_on_card(cuda):
+def _softmax_cross_entropy_label_cases_on_card(cuda):
     """B2 with negative labels (class C + label), out-of-range ones (NaN)
     and one label for every row, against its plain version."""
     x = torch.randn(6, 37, device=cuda) * 2
@@ -574,7 +576,7 @@ def test_softmax_cross_entropy_label_cases_on_card(cuda):
         assert (loss[ok] - ref[ok]).abs().max().item() <= 2e-5
 
 
-def test_float16_on_the_card_names_its_roadmap_item(cuda):
+def _float16_on_the_card_names_its_roadmap_item(cuda):
     from mxnet_tpu_torch import gluon, parallel
     net = gluon.nn.Dense(4, in_units=3)
     with pytest.raises(NotImplementedError, match="B5"):
@@ -599,7 +601,7 @@ def _images(n=8, size=64, layout="NHWC"):
     return x, rng.randint(0, 10, n).astype(np.float32)
 
 
-def test_resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs):
+def _resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs):
     """ResNet-18 v1 in NHWC through the fused trainer in bf16 on the card:
     finite losses, weights moved, and every convolution of a step, forward
     and backward, on bf16 ``channels_last`` inputs, with no copy that
@@ -625,7 +627,7 @@ def test_resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs):
     assert not census.relayouts, census.relayouts
 
 
-def test_nhwc_net_equals_nchw_net_on_card(cuda, cs):
+def _nhwc_net_equals_nchw_net_on_card(cuda, cs):
     """ResNet-18 v1 in NHWC with the NCHW net's weights transposed: one
     float32 gluon step on the card, logits, loss and every gradient within
     ``chip_smoke.py``'s route-B tolerances. cuDNN's TF32 is on by default
@@ -667,7 +669,7 @@ def _nhwc_against_nchw(cs, x, y):
         assert e <= tol, (n, e)
 
 
-def test_full_pooling_on_card_matches_cpu(cuda):
+def _full_pooling_on_card_matches_cpu(cuda):
     """The "full" convention with a window wholly in padding (size 5,
     kernel 2, stride 3, pad 1) on the card: the CPU's values, −inf and
     0/0 included, and the same input gradient, for max, avg (with and
@@ -708,7 +710,7 @@ def _check_full_pooling(cuda, pool_type, cip, layout):
     assert torch.allclose(grad, cpu_grad, rtol=1e-6, atol=1e-6)
 
 
-def test_rnn_op_on_card_matches_cpu(cuda):
+def _rnn_op_on_card_matches_cpu(cuda):
     """The ``RNN`` op, 2 bidirectional layers, its outputs and gradients
     on the card against the CPU (float32, TF32 off): the same code on
     both devices, cuBLAS against the CPU's products; every mode in one
@@ -740,7 +742,7 @@ def test_rnn_op_on_card_matches_cpu(cuda):
                                        msg=lambda m, mode=mode: f"{mode}: {m}")
 
 
-def test_word_lm_step_on_card_matches_cpu(cuda):
+def _word_lm_step_on_card_matches_cpu(cuda):
     """One step of the recipe twin's ``RNNModel`` (vocab 200, 32 x 32, 2
     layers, bptt 10, batch 4, dropout 0) through ``train_step`` on the
     card and on the CPU from the same weights: the loss and the weights
@@ -910,7 +912,7 @@ def _check_dataloader_pins_host_batches():
         assert data.context == mx.cpu()
 
 
-def test_slice_11_on_card_matches_cpu(cuda, cs):
+def test_slices_11_and_12_on_card_match_cpu(cuda, cs, tmp_path):
     """The dense ops, gluon's activations and losses of slice 11 on the
     card against the CPU (``chip_smoke.dense_op_grid`` and its layer and
     loss grid: discrete outputs equal, the rest within 1e-6 of the
@@ -918,10 +920,17 @@ def test_slice_11_on_card_matches_cpu(cuda, cs):
     batch 4, on the card against the CPU from the same weights (cuDNN's
     TF32 off: the losses and D's logits within 1e-5, the D step's
     gradients within ``TOL_GAN_GRAD_D`` and the G step's within
-    ``TOL_GAN_GRAD_G`` by ||dg||/||g||); no Hopper kernel launched."""
+    ``TOL_GAN_GRAD_G`` by ||dg||/||g||). Slice 12's op grid
+    (``chip_smoke.library_op_grid`` at 10^5 draws a row) and one
+    iteration of route J's CapsNet at narrow widths (16 channels, 4
+    capsule types, batch 4) on the card against the CPU from the same
+    weights (losses and capsule lengths within 1e-5, gradients within
+    1e-5 by ||dg||/||g||). No Hopper kernel launched."""
     hk.reset_launch_counts()
     cs.dense_op_grid(cuda)
     cs._layer_and_loss_grid(mx, cuda)
+    cs.library_op_grid(cuda, draws=10 ** 5)
+    _capsnet_on_card_matches_cpu(cuda, cs, tmp_path)
     saved = dict(cs.DCGAN)
     cs.DCGAN.update(ngf=8, ndf=8, batch=4)
     tf32 = torch.backends.cudnn.allow_tf32
@@ -950,3 +959,103 @@ def test_slice_11_on_card_matches_cpu(cuda, cs):
             err = (card[k][n].cpu() - g).norm() / g.norm().clamp_min(1e-30)
             assert err.item() <= tol, (n, err.item())
     assert not any(hk.launch_counts.values())
+
+
+def _capsnet_on_card_matches_cpu(cuda, cs, tmp_path):
+    saved = dict(cs.CAPSNET)
+    cs.CAPSNET.update(batch=4, channels=16, primary=4, capsules=4 * 36,
+                      decoder=(32, 64, 784))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        root = str(tmp_path / "mnist")
+        cs.mnist_files(root, 4, 4)
+        it = mx.io.MNISTIter(
+            image=os.path.join(root, "train-images-idx3-ubyte"),
+            label=os.path.join(root, "train-labels-idx1-ubyte"),
+            batch_size=4, shuffle=False)
+        batch = next(iter(it))
+        from mxnet_tpu_torch import interop
+        _, net, decoder, _ = cs.build_capsnet(mx, mx.cpu())
+        weights = [interop.block_params_to_numpy(b) for b in (net, decoder)]
+        runs = [cs._capsnet_iteration_one(
+            mx, ctx, weights, (batch.data[0].as_in_context(ctx),
+                               batch.label[0].as_in_context(ctx)), "float32")
+            for ctx in (mx.cpu(), mx.gpu(0))]
+    finally:
+        cs.CAPSNET.clear()
+        cs.CAPSNET.update(saved)
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu, card = runs
+    for i in (0, 1):
+        assert abs(card[i] - cpu[i]) <= 1e-5 * abs(cpu[i])
+    assert ((card[2].cpu() - cpu[2]).abs().max()
+            <= 1e-5 * cpu[2].abs().max())
+    for n, g in cpu[3].items():
+        err = (card[3][n].cpu() - g).norm() / g.norm().clamp_min(1e-30)
+        assert err.item() <= 1e-5, (n, err.item())
+
+
+def _each(checks):
+    """Run every (name, check) and raise once, naming each that failed
+    (the card's items loop over their cases, as the op grid does)."""
+    failed = []
+    for name, check in checks:
+        try:
+            check()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    assert not failed, "\n".join(failed)
+
+
+def test_hopper_kernels_on_card(cuda, cs):
+    """B1, B3 and B2 on the card: what their wrappers refuse, the flash
+    kernels under autograd, at the edges of their tiles, repeated bitwise,
+    on unaligned tensors and on the tensor cores, and B2's label cases."""
+    _each([
+        ("kernels_refuse_what_they_do_not_take", lambda: _kernels_refuse_what_they_do_not_take(cuda)),
+        ("flash_attention_backward_runs_the_kernels", lambda: _flash_attention_backward_runs_the_kernels(cuda)),
+        ("flash_kernels_match_plain_at_tile_edges", lambda: _flash_kernels_match_plain_at_tile_edges(cuda, cs)),
+        ("flash_kernels_repeat_bitwise", lambda: _flash_kernels_repeat_bitwise(cuda)),
+        ("flash_kernels_take_unaligned_tensors", lambda: _flash_kernels_take_unaligned_tensors(cuda)),
+        ("flash_kernels_run_on_tensor_cores", lambda: _flash_kernels_run_on_tensor_cores(cuda)),
+        ("softmax_cross_entropy_label_cases_on_card", lambda: _softmax_cross_entropy_label_cases_on_card(cuda)),
+    ])
+
+
+def test_rtc_and_custom_head_on_card(cuda, cs):
+    """``mx.rtc`` on the card and the CustomOp loss head against its plain
+    version."""
+    _each([
+        ("rtc_on_card", lambda: _rtc_on_card(cuda, cs)),
+        ("custom_head_matches_plain", lambda: _custom_head_matches_plain(cuda, cs)),
+    ])
+
+
+def test_lm_routes_on_card_match_cpu(cuda, cs, small_lm):
+    """One step of the small LM's symbolic and fused routes and its bf16
+    remat steps on the card against the CPU, and the float16 refusal."""
+    _each([
+        ("module_step_on_card_matches_cpu", lambda: _module_step_on_card_matches_cpu(cuda, cs, small_lm)),
+        ("fused_step_on_card_matches_cpu", lambda: _fused_step_on_card_matches_cpu(cuda, cs, small_lm)),
+        ("bf16_steps_with_remat_on_card", lambda: _bf16_steps_with_remat_on_card(cuda, cs, small_lm)),
+        ("float16_on_the_card_names_its_roadmap_item", lambda: _float16_on_the_card_names_its_roadmap_item(cuda)),
+    ])
+
+
+def test_conv_nets_on_card(cuda, cs):
+    """The ResNet-18 NHWC bf16 fused steps, the NHWC net against the NCHW
+    net and the "full" pooling convention, on the card."""
+    _each([
+        ("resnet18_nhwc_bf16_fused_steps_on_card", lambda: _resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs)),
+        ("nhwc_net_equals_nchw_net_on_card", lambda: _nhwc_net_equals_nchw_net_on_card(cuda, cs)),
+        ("full_pooling_on_card_matches_cpu", lambda: _full_pooling_on_card_matches_cpu(cuda)),
+    ])
+
+
+def test_recurrent_family_on_card_matches_cpu(cuda):
+    """The ``RNN`` op and a word-LM step on the card against the CPU."""
+    _each([
+        ("rnn_op_on_card_matches_cpu", lambda: _rnn_op_on_card_matches_cpu(cuda)),
+        ("word_lm_step_on_card_matches_cpu", lambda: _word_lm_step_on_card_matches_cpu(cuda)),
+    ])

@@ -1,8 +1,9 @@
 """PyTorch port, import hygiene: ``mxnet_tpu_torch``, ``chip_smoke.py`` and
 the recipe twins (``example/**/*_torch.py``) import neither JAX nor the JAX
 package — not even a module of it that does not import JAX; and the JAX
-package's public aliases are there (``mx.kv``, the lazy ``mx.serving`` and
-``mx.interop``, ``gluon.split_and_load``/``split_data``/
+package's public aliases are there (``mx.kv``, the lazy ``mx.serving``,
+``mx.interop``, ``mx.engine``, ``mx.registry``, ``mx.util`` and
+``mx.test_utils``, ``mx.nd.contrib`` and ``mx.sym.contrib``, ``gluon.split_and_load``/``split_data``/
 ``clip_global_norm``, ``autograd.set_recording``/``set_training``/
 ``get_symbol``)."""
 import ast
@@ -26,6 +27,10 @@ IMAGE_CLASSIFICATION = tuple(
 SLICE_11_TWINS = ("example/gluon/dcgan_torch.py",
                   "example/ctc/lstm_ocr_torch.py",
                   "example/speech_recognition/speech_ctc_torch.py")
+SLICE_12_TWINS = ("example/capsnet/capsnet_torch.py",
+                  "example/vae/vae_torch.py",
+                  "example/restricted-boltzmann-machine/rbm_torch.py",
+                  "example/bayesian-methods/bbb_torch.py")
 
 
 def _port_files():
@@ -36,7 +41,7 @@ def _port_files():
                  "example/ssd/dataset_torch.py",
                  "example/ssd/symbol_ssd_torch.py",
                  "example/ssd/train_torch.py") + IMAGE_CLASSIFICATION \
-            + SLICE_11_TWINS:
+            + SLICE_11_TWINS + SLICE_12_TWINS:
         yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
@@ -110,8 +115,18 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/ops/order.py", "mxnet_tpu_torch/ops/elemwise.py",
             "mxnet_tpu_torch/ops/broadcast_reduce.py",
             "mxnet_tpu_torch/gluon/loss.py",
-            "mxnet_tpu_torch/gluon/nn/activations.py"} \
-        | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) <= rel
+            "mxnet_tpu_torch/gluon/nn/activations.py",
+            "mxnet_tpu_torch/ops/random_ops.py",
+            "mxnet_tpu_torch/ops/tail_ops.py",
+            "mxnet_tpu_torch/ops/linalg.py",
+            "mxnet_tpu_torch/ops/parity_ops.py",
+            "mxnet_tpu_torch/ndarray/contrib.py",
+            "mxnet_tpu_torch/symbol/contrib.py",
+            "mxnet_tpu_torch/engine.py", "mxnet_tpu_torch/registry.py",
+            "mxnet_tpu_torch/util.py", "mxnet_tpu_torch/test_utils.py",
+            "mxnet_tpu_torch/native/__init__.py"} \
+        | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) \
+        | set(SLICE_12_TWINS) <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -147,18 +162,30 @@ def test_importing_the_port_loads_no_jax():
             "sys.path[:0] = ['example/gluon', 'example/ctc', "
             "'example/speech_recognition']; "
             "import dcgan_torch, lstm_ocr_torch, speech_ctc_torch; "
+            "import mxnet_tpu_torch.engine, mxnet_tpu_torch.util, "
+            "mxnet_tpu_torch.registry, mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib; "
+            "sys.path[:0] = ['example/capsnet', 'example/vae', "
+            "'example/restricted-boltzmann-machine', "
+            "'example/bayesian-methods']; "
+            "import capsnet_torch, vae_torch, rbm_torch, bbb_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
-    # the JAX package's public aliases: mx.kv, the lazy mx.serving and
-    # mx.interop, gluon's batch helpers, autograd's setters
+    # the JAX package's public aliases: mx.kv, the lazy mx.serving,
+    # mx.interop, mx.engine, mx.registry, mx.util and mx.test_utils,
+    # mx.nd.contrib and mx.sym.contrib, gluon's batch helpers, autograd's
+    # setters
     import mxnet_tpu_torch as mx
-    for name in ("serving", "interop"):
+    for name in ("serving", "interop", "engine", "registry", "util",
+                 "test_utils"):
         vars(mx).pop(name, None)
         assert getattr(mx, name) is sys.modules[f"mxnet_tpu_torch.{name}"]
+    assert mx.nd.contrib is sys.modules["mxnet_tpu_torch.ndarray.contrib"]
+    assert mx.sym.contrib is sys.modules["mxnet_tpu_torch.symbol.contrib"]
     assert mx.kv is mx.kvstore
     from mxnet_tpu_torch.gluon import utils
     assert (mx.gluon.split_and_load, mx.gluon.split_data,

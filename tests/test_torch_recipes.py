@@ -742,3 +742,89 @@ def test_ctc_twins_match_the_jax_recipes(monkeypatch):
     assert len(jseen) == 2
     np.testing.assert_allclose(pseen, jseen, rtol=TOL)
     assert got == want
+
+
+# ------------------------------------------- slice 12: four small recipes
+def _numpy_noise(monkeypatch, pkg, ctx, seed=5):
+    """``pkg.nd.random_normal``/``random_uniform`` replaced by draws from
+    one numpy stream (seeded ``seed``), the same values in both packages
+    when they draw in the same order."""
+    rs = np.random.RandomState(seed)
+
+    def draw(kind):
+        def fn(loc=0.0, scale=1.0, shape=(), dtype="float32", ctx=None,
+               low=None, high=None, **kw):
+            shape = (shape,) if isinstance(shape, int) else tuple(shape)
+            if kind == "normal":
+                v = rs.normal(loc, scale, shape)
+            else:
+                v = rs.uniform(0.0 if low is None else low,
+                               1.0 if high is None else high, shape)
+            return pkg.nd.array(v.astype(dtype), ctx=ctx)
+        return fn
+
+    monkeypatch.setattr(pkg.nd, "random_normal", draw("normal"),
+                        raising=False)
+    monkeypatch.setattr(pkg.nd, "random_uniform", draw("uniform"),
+                        raising=False)
+
+
+SLICE_12_TWINS = (
+    # (recipe, parity run's arguments, the JAX test's bar on train()'s
+    # defaults)
+    ("example/capsnet/capsnet", {"epochs": 1},
+     lambda r: r[1] > 0.9),
+    ("example/vae/vae", {"epochs": 2},
+     lambda r: r[1] < r[0] * 0.5),
+    ("example/restricted-boltzmann-machine/rbm", {"epochs": 2},
+     lambda r: r[1] < r[0] * 0.6),
+    ("example/bayesian-methods/bbb", {"epochs": 10},
+     lambda r: r[1] < r[0] * 0.4 and 0.005 < r[2] < 0.5),
+)
+
+
+def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
+    """``capsnet_torch``, ``vae_torch``, ``rbm_torch`` and ``bbb_torch``
+    against their JAX recipes at a few epochs, from the same name-seeded
+    ``Xavier`` weights (the RBM's are numpy's in both) and the same numpy
+    noise in place of ``random_normal``/``random_uniform``: ``train()``'s
+    returns and every step's loss where the recipe has one (CapsNet's
+    margin loss, the VAE's -ELBO). Then each twin alone, at ``train()``'s
+    defaults with the port's own random ops, meets its JAX test's bar
+    (``tests/test_examples.py``)."""
+    _seeded_xavier(monkeypatch)
+    failed = []
+    for rel, args, bar in SLICE_12_TWINS:
+        name = os.path.basename(rel)
+        results = []
+        for pkg, path in ((jmx, rel + ".py"), (mx, rel + "_torch.py")):
+            module = _load(path, f"{name}_{pkg.__name__}")
+            seen = []
+            for loss in ("margin_loss", "elbo_loss"):
+                if hasattr(module, loss):
+                    fn = getattr(module, loss)
+
+                    def recording(*a, _fn=fn):
+                        out = _fn(*a)
+                        seen.append(float(out.asnumpy()))
+                        return out
+                    setattr(module, loss, recording)
+            with monkeypatch.context() as m:
+                _numpy_noise(m, pkg, None)
+                kw = dict(args, verbose=False)
+                if pkg is mx:
+                    kw["ctx"] = mx.cpu()
+                results.append((module.train(**kw), seen))
+        (want, jseen), (got, pseen) = results
+        try:
+            assert len(pseen) == len(jseen) and \
+                bool(pseen) == (name in ("capsnet", "vae")), (pseen, jseen)
+            np.testing.assert_allclose(pseen, jseen, rtol=TOL)
+            np.testing.assert_allclose(got, want, rtol=TOL)
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+        twin = _load(rel + "_torch.py", f"{name}_bar")
+        result = twin.train(verbose=False, ctx=mx.cpu())
+        if not bar(result):
+            failed.append(f"{name}: {result} misses the JAX test's bar")
+    assert not failed, "\n".join(failed)
