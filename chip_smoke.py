@@ -209,17 +209,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    synthetic idx images: iteration 1 against float64 on the card with a
    TF32 control that must miss; ten timed iterations (wall ms, host
    dispatch, images/s, peak memory, the ops one iteration dispatches).
+28. route K: the reference's ``example/sparse/linear_classification`` at
+   avazu's widths (1,000,001 feature columns, batch 8192): a seeded
+   synthetic LibSVM file of 16 batches with one nonzero a field (15) read
+   by ``LibSVMIter`` onto the card as ``CSRNDArray`` batches; each step
+   ``sp.dot`` forward, the ``transpose_a`` gradient as a
+   ``RowSparseNDArray`` of the batch's feature ids, and the lazy SGD
+   ``Updater``. Step 1 against float64 on the card (loss, gradient rows,
+   updated rows), the rows outside every batch bitwise unchanged,
+   ``row_sparse_pull`` from a ``local`` store, an unmerged-duplicates
+   control that must miss; timed steps (rows/s, the iterator apart, host
+   dispatch, peak memory; a profile with ``--profile``).
+29. route L: the committed reference checkpoint ``tests/fixtures/refmlp``
+   through ``model.load_checkpoint``, ``Module`` and ``FeedForward`` on the
+   card against its pinned logits (1e-5); ResNet-50 v1 written with
+   ``save_reference_params`` and served through ``ModelServer`` from those
+   bytes, bitwise the ``MXTPU001`` bytes' logits; write and load times and
+   bytes of both formats.
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step,
-one bf16 fused step, one route F step and one route J iteration (route A's and route D's steps
+one bf16 fused step, one route F step, one route J iteration and one
+route K step (route A's and route D's steps
 are profiled in every run, and one route G1 step and one route H
 iteration). Apart from the ``transformer_lm`` twin, no phase from 12 on
 launches a Hopper kernel: the conv nets, the recurrent family, the
 detection family, the image-classification recipe, the dense ops, the GAN,
-CTC, the op library of slice 12 and CapsNet reach no TPU kernel (the JAX package
+CTC, the op library of slice 12, CapsNet, the sparse arrays and the
+reference's formats reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -6521,6 +6540,362 @@ def capsnet_phase(mx, hk, dev, workdir, profile=False):
                              f"{dict(hk.launch_counts)}")
 
 
+# ------------------------------------------------- slice 13: routes K and L
+# route K: the reference's example/sparse/linear_classification on avazu's
+# widths (1,000,001 feature columns, 0-based; batch 8192), a stand-in file
+# of ROUTE_K["batches"] seeded batches with one nonzero a categorical field
+ROUTE_K = dict(columns=1_000_001, batch=8192, fields=15, batches=16,
+               lr=1.0, init_std=0.01, zipf=1.3, bias0=-1.6)
+ROUTE_K_TIMED = 12           # steps timed, after the checked one
+# step 1 against float64: a popular feature's gradient row sums up to
+# 8192 float32 terms in the atomics' order, ~sqrt(8192)·eps ≈ 5e-6 of it;
+# the first run on the card (H100) read 1.2e-6 for both the rows and the
+# update (lr 1), and the unmerged control 5.7e-4
+TOL_K_LOSS = 1e-6            # step 1's loss, relative, float32 vs float64
+TOL_K_GRAD = 1e-5            # its gradient rows, of their largest entry
+TOL_K_WEIGHT = 1e-5          # the touched rows after it, of their largest
+REFMLP = os.path.join("tests", "fixtures", "refmlp")
+TOL_REFMLP = 1e-5            # the pinned logits of the reference checkpoint
+RN_REF_REQUESTS = 8
+
+
+def avazu_like_libsvm(path, seed=SEED):
+    """Write ``ROUTE_K``'s synthetic LibSVM file (0-based columns): each
+    row has one feature a field, drawn Zipf-skewed inside the field's block
+    of columns (a few ids carry most rows, as in avazu), value 1, and a
+    click label from a seeded logistic model (about a fifth positive).
+    Returns (rows, nonzeros)."""
+    c = ROUTE_K
+    rng = np.random.RandomState(seed)
+    n = c["batch"] * c["batches"]
+    width = c["columns"] // c["fields"]
+    starts = np.arange(c["fields"]) * width
+    sizes = np.full(c["fields"], width)
+    sizes[-1] = c["columns"] - starts[-1]
+    ranks = (rng.zipf(c["zipf"], (n, c["fields"])) - 1) % sizes
+    cols = starts + ranks
+    w_true = rng.randn(c["columns"]).astype(np.float32) * 0.5
+    z = w_true[cols].sum(1) + c["bias0"]
+    labels = (rng.rand(n) < 1 / (1 + np.exp(-z))).astype(np.int64)
+    with open(path, "w") as f:
+        for y, row in zip(labels, cols):
+            f.write(f"{y} " + " ".join(f"{k}:1" for k in row) + "\n")
+    return n, n * c["fields"]
+
+
+def logreg_step(mx, sp, x, y, w, b, updater):
+    """One step of the reference recipe: ``sigmoid(sp.dot(x, w) + b)``, the
+    gradient ``sp.dot(x, err, transpose_a=True)`` restricted to the batch's
+    feature ids as a ``RowSparseNDArray``, and the lazy SGD ``Updater``
+    (weight: index 0, bias: index 1). Returns (loss, gradient, ids)."""
+    import torch.profiler as tp
+    n = x.shape[0]
+    with tp.record_function("logreg.forward"):
+        z = sp.dot(x, w) + b
+        p = mx.nd.sigmoid(z)
+        zt, yt = z._data[:, 0], y._data.to(z._data.dtype)
+        loss = (torch.nn.functional.softplus(zt) - yt * zt).mean()
+        err = (p - y.reshape((-1, 1)).astype(p.dtype)) / float(n)
+    with tp.record_function("logreg.backward"):
+        full = sp.dot(x, err, transpose_a=True)
+        ids = torch.unique(x.indices._data).long()
+        grad = sp.RowSparseNDArray(full._data[ids], ids, w.shape)
+    with tp.record_function("logreg.update"):
+        updater(0, grad, w)
+        updater(1, err.sum().reshape((1,)), b)
+    return loss, grad, ids
+
+
+def _logreg_model(mx, ctx, dtype):
+    """(w, b, updater) from the seed, in ``dtype``: w ~ N(0, init_std²),
+    b = 0, plain SGD (the lazy path)."""
+    c = ROUTE_K
+    gen = torch.Generator().manual_seed(SEED)
+    w0 = torch.randn(c["columns"], 1, generator=gen) * c["init_std"]
+    w = mx.nd.array(w0, ctx=ctx, dtype=dtype)
+    b = mx.nd.zeros((1,), ctx=ctx, dtype=dtype)
+    opt = mx.optimizer.SGD(learning_rate=c["lr"], rescale_grad=1.0)
+    return w, b, mx.optimizer.get_updater(opt)
+
+
+def _as_float64(sp, x):
+    return sp.CSRNDArray(x.data._data.double(), x.indices._data,
+                         x.indptr._data, x.shape)
+
+
+def sparse_logreg_phase(mx, hk, dev, workdir, profile=False):
+    """Route K (phase 28): sparse logistic regression at avazu's widths on
+    the card. The synthetic file goes through ``LibSVMIter`` onto the card
+    as ``CSRNDArray`` batches; each step is ``logreg_step`` (nothing is
+    densified but the (1,000,001, 1) gradient of ``transpose_a``). Step 1's
+    loss, gradient rows and updated rows against the same step in float64
+    on the card; the rows outside each batch bitwise unchanged by every
+    update; ``row_sparse_pull`` of a batch's rows from a ``local`` store;
+    the unmerged per-entry gradient through the updater within the
+    tolerance, and written without merging (a control) beyond it; the
+    dot's repeats; then timed steps with the iterator's share apart. No
+    Hopper kernel may launch."""
+    import tempfile
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    c, ctx = ROUTE_K, _ctx(mx, dev)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        path = os.path.join(tmp, "avazu_like.libsvm")
+        t0 = time.perf_counter()
+        rows, nnz = avazu_like_libsvm(path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(c["columns"],),
+                              batch_size=c["batch"], indexing_mode=0,
+                              ctx=ctx)
+        t_parse = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    print(f"route K: {rows:,} rows x {c['columns']:,} columns, {nnz:,} "
+          f"nonzeros ({size / 1e6:.1f} MB of LibSVM text) written in "
+          f"{t_write:.2f} s, parsed by LibSVMIter in {t_parse:.2f} s "
+          f"(set-up); batch {c['batch']}, lr {c['lr']}")
+    batches, iter_ms = [], []
+    for _ in range(c["batches"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = it.next()
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        batches.append(batch)
+    x, y = batches[0].data[0], batches[0].label[0]
+    if not (x.stype == "csr" and x.context == ctx and x.nnz ==
+            c["batch"] * c["fields"] and x.shape == (c["batch"],
+                                                     c["columns"])):
+        raise AssertionError(f"route K: batch {x.stype} {x.shape} nnz "
+                             f"{x.nnz} on {x.context}")
+
+    # step 1 against float64, with its checks
+    hk.reset_launch_counts()
+    w, b, updater = _logreg_model(mx, ctx, "float32")
+    w0 = w._data.clone()
+    loss, grad, ids = logreg_step(mx, sp, x, y, w, b, updater)
+    w64, b64, upd64 = _logreg_model(mx, ctx, "float64")
+    loss64, grad64, _ = logreg_step(mx, sp, _as_float64(sp, x), y, w64,
+                                    b64, upd64)
+    e_loss = abs(loss.item() - loss64.item()) / abs(loss64.item())
+    g64 = grad64.data._data
+    e_grad = ((grad.data._data.double() - g64).abs().max()
+              / g64.abs().max()).item()
+    rows64 = w64._data[ids]
+    e_w = ((w._data[ids].double() - rows64).abs().max()
+           / rows64.abs().max()).item()
+    outside = torch.ones(c["columns"], dtype=torch.bool, device=dev)
+    outside[ids] = False
+    untouched = torch.equal(w._data[outside], w0[outside])
+    # the per-entry gradient (one row an entry, duplicates unmerged):
+    # through the updater, which merges first, and written without merging
+    # (b is 0 at step 1)
+    rid, cols = x._row_ids(), x.indices._data.long()
+    err = (torch.sigmoid(x.dot(mx.nd.NDArray(w0))._data)
+           - y._data.view(-1, 1)) / c["batch"]
+    contrib = x.data._data.view(-1, 1) * err[rid]
+    w_merge = mx.nd.array(w0, ctx=ctx)
+    mx.optimizer.get_updater(mx.optimizer.SGD(learning_rate=c["lr"]))(
+        0, sp.RowSparseNDArray(contrib, cols, w0.shape), w_merge)
+    e_merge = ((w_merge._data[ids].double() - rows64).abs().max()
+               / rows64.abs().max()).item()
+    w_ctl = w0.clone().index_copy_(0, cols, w0[cols] - c["lr"] * contrib)
+    e_ctl = ((w_ctl[ids].double() - rows64).abs().max()
+             / rows64.abs().max()).item()
+    dups = cols.numel() - ids.numel()
+    print(f"route K: step 1 against float64 on the card: loss "
+          f"{loss.item():.6f} rel {e_loss:.2e} (tol {TOL_K_LOSS}); "
+          f"gradient rows ({ids.numel():,} of {cols.numel():,} entries, "
+          f"{dups:,} repeats) {e_grad:.2e} (tol {TOL_K_GRAD}); updated rows "
+          f"{e_w:.2e} (tol {TOL_K_WEIGHT}); rows outside the batch "
+          f"unchanged bitwise: {untouched}; the unmerged per-entry gradient "
+          f"through the updater {e_merge:.2e}; control, written without "
+          f"merging: {e_ctl:.2e} (must miss {TOL_K_WEIGHT})")
+    if not (e_loss <= TOL_K_LOSS and e_grad <= TOL_K_GRAD
+            and e_w <= TOL_K_WEIGHT and e_merge <= TOL_K_WEIGHT
+            and untouched):
+        raise AssertionError("route K: step 1 is not within its tolerances "
+                             "of the float64 step")
+    if e_ctl <= TOL_K_WEIGHT:
+        raise AssertionError("route K: the unmerged control met the "
+                             "tolerance")
+    del w64, b64, upd64, grad64, w_merge, w_ctl
+
+    # row_sparse_pull of the batch's rows from a local store
+    kv = mx.kv.create("local")
+    kv.init(0, w)
+    pulled = mx.nd.zeros(w.shape, ctx=ctx)
+    kv.row_sparse_pull(0, out=pulled, row_ids=mx.nd.array(ids, ctx=ctx))
+    pull_ok = torch.equal(pulled._data[ids], w._data[ids]) and \
+        not pulled._data[outside].any().item()
+    print(f"route K: row_sparse_pull of {ids.numel():,} rows: the rows "
+          f"equal and every other row zero: {pull_ok}")
+    if not pull_ok:
+        raise AssertionError("route K: row_sparse_pull")
+    del kv, pulled
+
+    # the dot's repeats (cuSPARSE forward; gather + atomic index_add_)
+    fwd = [x.dot(w)._data for _ in range(2)]
+    bwd = [x.dot(mx.nd.array(err, ctx=ctx), transpose_a=True)._data
+           for _ in range(2)]
+    print(f"route K: dot repeats bitwise: csr·w {torch.equal(*fwd)}, "
+          f"csrᵀ·err {torch.equal(*bwd)}")
+    ms_fwd = _time_ms(lambda: x.dot(w), 20)
+    ms_bwd = _time_ms(lambda: x.dot(mx.nd.array(err, ctx=ctx),
+                                    transpose_a=True), 20)
+    print(f"route K: csr·w ({c['batch']}x{c['columns']:,}, nnz {x.nnz:,}) "
+          f"{ms_fwd:.4f} ms, csrᵀ·err {ms_bwd:.4f} ms; card {_card_line()}")
+    del fwd, bwd
+
+    # the timed steps (batches 2.. reread: the iterator's share apart)
+    losses, steps, untouched_all = [loss.item()], [], True
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(1, 1 + ROUTE_K_TIMED):
+        xb, yb = batches[k % len(batches)].data[0], \
+            batches[k % len(batches)].label[0]
+        before = w._data.clone()
+        out = {}
+
+        def step(xb=xb, yb=yb):
+            out["v"] = logreg_step(mx, sp, xb, yb, w, b, updater)
+        steps.append(_timed_step(step))
+        keep = torch.ones(c["columns"], dtype=torch.bool, device=dev)
+        keep[out["v"][2]] = False
+        untouched_all &= torch.equal(w._data[keep], before[keep])
+        losses.append(out["v"][0].item())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    host = 1e3 * float(np.median([h for h, _, _ in steps]))
+    devms = float(np.median([d for _, d, _ in steps]))
+    wall = 1e3 * float(np.median([s for _, _, s in steps]))
+    it_ms = float(np.median(iter_ms[1:]))
+    print(f"route K: {ROUTE_K_TIMED} timed steps: a step {wall:.3f} ms "
+          f"({devms:.3f} ms between its events on the card, host dispatch "
+          f"{host:.3f} ms) plus the iterator's batch {it_ms:.3f} ms (next() "
+          f"with its copy to the card; first {iter_ms[0]:.3f} ms); "
+          f"{1e3 * c['batch'] / (wall + it_ms):,.0f} rows/s end to end, "
+          f"{1e3 * c['batch'] / wall:,.0f} rows/s the step alone; peak "
+          f"memory {peak:.3f} GB; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"rows outside every batch unchanged bitwise: {untouched_all}; "
+          f"card {_card_line()}")
+    if not (untouched_all and np.isfinite(losses).all()):
+        raise AssertionError("route K: an update wrote rows outside its "
+                             "batch, or a loss is not finite")
+    if profile:
+        xb, yb = batches[-1].data[0], batches[-1].label[0]
+        profile_breakdown(
+            "route K step",
+            lambda: logreg_step(mx, sp, xb, yb, w, b, updater),
+            ranges=("logreg.forward", "logreg.backward", "logreg.update"))
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route K launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
+def reference_formats_phase(mx, hk, dev, workdir):
+    """Route L (phase 29): the committed reference checkpoint ``refmlp``
+    (its graph JSON and NDARRAY_V2 params) through ``model.load_checkpoint``
+    and ``Module`` and through ``FeedForward.load(...).predict`` on the
+    card, against its pinned logits; then ResNet-50 v1 (route C's net, f32)
+    written with ``save_reference_params`` and served through
+    ``ModelServer`` from those bytes, bitwise against the same weights
+    served from ``MXTPU001`` bytes. No Hopper kernel may launch."""
+    from mxnet_tpu_torch import interop
+    from mxnet_tpu_torch.serving import ModelConfig, ModelServer
+    ctx = _ctx(mx, dev)
+    hk.reset_launch_counts()
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(root, REFMLP)
+    x = np.load(os.path.join(root, REFMLP + "_input.npy"))
+    want = np.load(os.path.join(root, REFMLP + "_output.npy"))
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)], for_training=False)
+    mod.set_params(arg, aux)
+    mod.forward(mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)]),
+                is_train=False)
+    out = mod.get_outputs()[0]
+    ff = mx.model.FeedForward.load(prefix, 0, ctx=ctx).predict(x)
+    e_mod = float(np.abs(out.asnumpy() - want).max())
+    e_ff = float(np.abs(ff - want).max())
+    print(f"route L: refmlp (reference graph JSON + NDARRAY_V2 params) on "
+          f"{out.context}: Module logits max|d| {e_mod:.2e}, "
+          f"FeedForward.predict {e_ff:.2e} against the pinned logits (tol "
+          f"{TOL_REFMLP})")
+    if not (e_mod <= TOL_REFMLP and e_ff <= TOL_REFMLP
+            and out.context == ctx):
+        raise AssertionError("route L: the reference checkpoint's logits")
+
+    net = seeded_resnet(mx)
+    xs, _ = resnet_batch(RN_REF_REQUESTS)
+    net.hybridize()
+    net(mx.nd.array(xs[:1]))
+    os.makedirs(workdir, exist_ok=True)
+    sym_file, own_file = net.export(os.path.join(workdir, "resnet50_ref"))
+    del net
+    _free()
+    with open(sym_file) as f:
+        sym_json = f.read()
+    params = mx.nd.load(own_file, ctx=mx.cpu())
+    ref_file = os.path.join(workdir, "resnet50_ref-reference.params")
+    writers = {"reference": lambda: interop.save_reference_params(
+                   ref_file, params),
+               "MXTPU001": lambda: mx.nd.save(own_file, params)}
+    files = {"reference": ref_file, "MXTPU001": own_file}
+    # each format written, then read onto the card, twice, in turns (the
+    # first pass pays the allocations and the page cache's first touch)
+    writes, loads, blobs = {}, {}, {}
+    for name in ("reference", "MXTPU001") * 2:
+        t0 = time.perf_counter()
+        writers[name]()
+        writes[name] = (time.perf_counter() - t0) * 1e3
+        with open(files[name], "rb") as f:
+            blobs[name] = f.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = mx.nd.load_frombuffer(blobs[name], ctx=ctx)
+        torch.cuda.synchronize()
+        loads[name] = (time.perf_counter() - t0) * 1e3
+        if sorted(loaded) != sorted(params):
+            raise AssertionError(f"route L: {name} keys")
+        del loaded
+    back = interop.load_reference_params(ref_file)
+    same = sorted(back) == sorted(params) and all(
+        torch.equal(back[k]._data, v._data) for k, v in params.items())
+    served = {}
+    for name, blob in blobs.items():
+        server = ModelServer([ModelConfig(
+            "resnet50", sym_json, blob,
+            feature_shape=(RESNET_IMAGE, RESNET_IMAGE, 3),
+            buckets=RN_SERVE_BUCKETS, deadline_ms=0,
+            dev_type=2 if dev.type == "cuda" else 1)])
+        server.start()
+        try:
+            served[name] = np.stack([server.submit("resnet50", xs[i])
+                                     .result(timeout=300)
+                                     for i in range(RN_REF_REQUESTS)])
+        finally:
+            server.close()
+        _free()
+    bitwise = np.array_equal(served["reference"], served["MXTPU001"])
+    print(f"route L: ResNet-50 v1 ({len(params)} arrays), the second of "
+          f"two passes in turns: reference .params "
+          f"{len(blobs['reference']):,} bytes written in "
+          f"{writes['reference']:.1f} ms, loaded onto the card in "
+          f"{loads['reference']:.1f} ms; MXTPU001 "
+          f"{len(blobs['MXTPU001']):,} bytes written in "
+          f"{writes['MXTPU001']:.1f} ms, loaded in "
+          f"{loads['MXTPU001']:.1f} ms (writes warm in the page cache); "
+          f"read back bitwise: {same}; "
+          f"{RN_REF_REQUESTS} requests served from each: logits bitwise "
+          f"equal: {bitwise}; card {_card_line()}")
+    if not (same and bitwise and np.isfinite(served["reference"]).all()):
+        raise AssertionError("route L: the reference-format ResNet-50 "
+                             "differs from the MXTPU001 one")
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route L launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6528,7 +6903,8 @@ def main(argv=None) -> int:
                     help="also profile one served dispatch, one training "
                          "step, one custom-head step, one Module step, one "
                          "fused step, one bf16 fused step, one route F "
-                         "step and one route J iteration (torch.profiler)")
+                         "step, one route J iteration and one route K step "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6685,6 +7061,18 @@ def main(argv=None) -> int:
     hk.reset_launch_counts()
     try:
         capsnet_phase(mx, hk, dev, workdir, args.profile)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    _free()
+    # slice 13: route K (sparse logistic regression) and route L (the
+    # reference's formats): no TPU kernel on their paths (XLA lowered the
+    # JAX package's BCOO products and scatters; cuSPARSE and plain torch
+    # run the port's); each phase fails if one of B1-B4 launches
+    try:
+        os.makedirs(workdir, exist_ok=True)
+        sparse_logreg_phase(mx, hk, dev, workdir, args.profile)
+        _free()
+        reference_formats_phase(mx, hk, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for rec in records:

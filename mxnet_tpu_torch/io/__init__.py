@@ -1,9 +1,8 @@
 """``mx.io`` — data iterators (counterpart of ``mxnet_tpu/io``): the
-in-memory, CSV, MNIST and record iterators, ``ResizeIter`` and
+in-memory, CSV, MNIST, LibSVM and record iterators, ``ResizeIter`` and
 ``PrefetchingIter`` with the state protocol, and the device feed
-(``DeviceFeedIter``, ``prefetch_to_device``). ``LibSVMIter`` waits for
-the sparse arrays (ROADMAP A3), ``ResilientDataIter`` for the operational
-layers (A9)."""
+(``DeviceFeedIter``, ``prefetch_to_device``). ``ResilientDataIter``
+waits for the operational layers (ROADMAP A9)."""
 from .io import (CSVIter, DataBatch, DataDesc, DataIter, ImageDetRecordIter,
                  ImageRecordIter, LibSVMIter, MNISTIter, NDArrayIter,
                  PrefetchingIter, ResizeIter, has_state)

@@ -1,14 +1,16 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter``,
 ``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``CSVIter``,
-``MNISTIter``, ``ImageRecordIter`` and ``ImageDetRecordIter``, with the
+``MNISTIter``, ``LibSVMIter``, ``ImageRecordIter`` and
+``ImageDetRecordIter``, with the
 state protocol (``has_state``; ``state()``/``set_state()``: epoch, cursor
 and shuffle seed, so that a resumed epoch neither skips nor repeats a
 batch).
 
 Counterpart of the same names in ``mxnet_tpu/io/io.py`` (reference
 ``python/mxnet/io/io.py`` and ``src/io/iter_image_recordio_2.cc``,
-``iter_image_det_recordio.cc``, ``iter_csv.cc``, ``iter_mnist.cc``).
-``LibSVMIter`` waits for the sparse arrays (ROADMAP A3). ``NDArrayIter``'s batches are NDArrays
+``iter_image_det_recordio.cc``, ``iter_csv.cc``, ``iter_mnist.cc``,
+``iter_libsvm.cc``). ``LibSVMIter`` gives ``CSRNDArray`` batches on its
+``ctx``. ``NDArrayIter``'s batches are NDArrays
 on the host (``cpu()``), as the reference's iterators give them;
 ``Module.forward`` copies them onto its card. The record iterators decode
 on host threads and copy each batch to their ``ctx`` (the card by
@@ -566,13 +568,119 @@ class MNISTIter(_Delegating):
                                shuffle=shuffle, last_batch_handle="discard"))
 
 
-class LibSVMIter(DataIter):
-    """LibSVM files give ``CSRNDArray`` batches: waits for the port's
-    sparse arrays (ROADMAP A3)."""
+def _read_libsvm(path):
+    """A LibSVM text file, ``label idx:val idx:val ...`` a line (blank
+    lines skipped): (labels, indptr, raw indices, values)."""
+    labels, indptr, indices, values = [], [0], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            for tok in parts[1:]:
+                i, v = tok.split(":")
+                indices.append(int(i))
+                values.append(float(v))
+            indptr.append(len(indices))
+    return (np.asarray(labels, "float32"), np.asarray(indptr, np.int64),
+            np.asarray(indices, np.int64), np.asarray(values, "float32"))
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("LibSVMIter: the port has no sparse "
-                                  "arrays yet (ROADMAP A3)")
+
+class LibSVMIter(DataIter):
+    """A LibSVM text file as ``CSRNDArray`` batches (reference
+    ``src/io/iter_libsvm.cc``), data and labels on ``ctx`` (the current
+    context by default).
+
+    ``indexing_mode``: 0 (features numbered 0..ncol-1), 1 (the canonical
+    1..ncol numbering), or ``"auto"``: 1-based iff the largest index is at
+    least ncol, so a 1-based file that never uses feature ncol reads as
+    0-based, as in the JAX package (pass the mode when that matters).
+    An index out of range after decoding raises. ``label_libsvm`` gives
+    the labels from a file of its own (``label_shape`` values a line).
+    With ``round_batch`` the last batch is padded with copies of its own
+    first row, as the JAX package pads (the reference wraps to the
+    file's start); without it the last batch is short."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 data_name="data", label_name="softmax_label",
+                 indexing_mode="auto", ctx=None, **kwargs):
+        super().__init__(batch_size)
+        self.data_name, self.label_name = data_name, label_name
+        self.data_shape = tuple(data_shape)
+        self.ctx = ctx or current_context()
+        self._ncol = ncol = int(np.prod(self.data_shape))
+        self._labels, self._indptr, indices, self._values = \
+            _read_libsvm(data_libsvm)
+        if indexing_mode == "auto":
+            indexing_mode = 1 if indices.size and indices.max() >= ncol \
+                else 0
+        if int(indexing_mode) == 1:
+            indices = indices - 1
+        if indices.size and (indices.min() < 0 or indices.max() >= ncol):
+            raise MXNetError(
+                f"libsvm feature index out of range for data_shape "
+                f"{self.data_shape} with indexing_mode={indexing_mode}: "
+                f"[{indices.min()}, {indices.max()}]")
+        self._indices = indices
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                ext = [[float(t) for t in line.split()[
+                    :1 if tuple(label_shape) == (1,) else None]]
+                    for line in f if line.split()]
+            self._labels = np.asarray(ext, "float32").reshape(
+                (-1,) + tuple(label_shape))
+            if self._labels.shape[-1] == 1:
+                self._labels = self._labels.reshape(self._labels.shape[:-1])
+        self._nrows = len(self._indptr) - 1
+        self._round = round_batch
+        self._pos = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name,
+                         (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self.label_name,
+                         (self.batch_size,) + self._labels.shape[1:])]
+
+    def reset(self):
+        self._pos = 0
+
+    def state(self) -> Dict:
+        return {"iter": "LibSVMIter", "pos": int(self._pos),
+                "nrows": int(self._nrows)}
+
+    def set_state(self, state: Dict) -> None:
+        if int(state["nrows"]) != self._nrows:
+            raise MXNetError("LibSVMIter.set_state: row count mismatch")
+        self._pos = int(state["pos"])
+
+    def next(self) -> DataBatch:
+        from ..ndarray import sparse as sp
+        if self._pos >= self._nrows:
+            raise StopIteration
+        end = min(self._pos + self.batch_size, self._nrows)
+        rows = np.arange(self._pos, end)
+        pad = self.batch_size - len(rows)
+        if pad and self._round:
+            rows = np.concatenate([rows, np.full(pad, self._pos)])
+        else:
+            pad = 0
+        starts = self._indptr[rows]
+        counts = self._indptr[rows + 1] - starts
+        ptr = np.concatenate([[0], np.cumsum(counts)])
+        take = np.repeat(starts - ptr[:-1], counts) + np.arange(ptr[-1])
+        self._pos = end
+        data = sp.csr_matrix(
+            (self._values[take], self._indices[take], ptr),
+            shape=(len(rows), self._ncol), ctx=self.ctx)
+        return DataBatch(data=[data],
+                         label=[array(self._labels[rows], ctx=self.ctx)],
+                         pad=pad)
 
 
 class ImageRecordIter(DataIter):

@@ -17,14 +17,18 @@ runs on the copy, and ``pull`` copies it into the caller's array (one
 device copy an array, counted in ``comm_stats["pull_copies"]``). So a
 weight written after ``init`` (``Module.set_params`` after
 ``init_optimizer``) is overwritten by the next pull, as in the JAX
-package. Stores across processes (``dist_*``) and gradient compression
-wait for ROADMAP A8, ``row_sparse_pull`` for the sparse arrays (A3).
+package. ``row_sparse_pull`` writes the requested rows of a value into a
+dense out array and zeroes the others, as the JAX package does; a sparse
+array is refused as a value. Stores across processes (``dist_*``, their
+``row_sparse_pull`` among them) and gradient compression wait for ROADMAP
+A8.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -56,6 +60,11 @@ def _as_list(v) -> list:
 
 
 def _tensor(v) -> torch.Tensor:
+    from .ndarray.sparse import BaseSparseNDArray
+    if isinstance(v, BaseSparseNDArray):
+        raise MXNetError(f"kvstore: a {v.stype} value is refused; the store "
+                         f"holds dense arrays (pull rows with "
+                         f"row_sparse_pull)")
     return v._data if isinstance(v, NDArray) else v
 
 
@@ -147,8 +156,27 @@ class KVStore:
         self.pull(key, out if out is not None else value, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError("row_sparse_pull: the port has no sparse "
-                                  "arrays yet (ROADMAP A3)")
+        """Write the rows ``row_ids`` of each key's value into its out
+        array (a dense array of the value's shape, or a list of them with
+        a list of ``row_ids``), every other row zero (reference
+        ``kvstore.h`` PullRowSparse). Queued pushes are applied first."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        self._flush()
+        keys, outs = _key_value(key, out)
+        rid_list = row_ids if isinstance(row_ids, list) else [row_ids]
+        for k, olist in zip(keys, outs):
+            if k not in self._store:
+                raise MXNetError(f"key {k} was not init'd")
+            src = self._store[k]._data
+            for o, rid in zip(_as_list(olist), rid_list):
+                idx = (rid._data if isinstance(rid, NDArray)
+                       else torch.as_tensor(np.asarray(rid))).to(
+                           src.device, torch.int64).reshape(-1)
+                with torch.no_grad():
+                    full = torch.zeros_like(src).index_copy_(
+                        0, idx, src.index_select(0, idx))
+                    _tensor(o).copy_(full)
 
     # ------------------------------------------------------------- control
     def set_updater(self, updater: Callable) -> None:

@@ -24,9 +24,11 @@ Params = Union[bytes, Mapping[str, NDArray]]
 
 def _load_param_bytes(param_bytes: Params, ctx: Context):
     """-> (arg_params, aux_params) on ``ctx``, from the bytes of an
-    ``MXTPU001`` file or from an already-loaded dict (e.g.
+    ``MXTPU001`` file or of the reference's ``.params`` file, or from an
+    already-loaded dict (e.g.
     :func:`~mxnet_tpu_torch.interop.params_from_numpy`). Keys carry
-    ``arg:``/``aux:`` prefixes or are bare argument names."""
+    ``arg:``/``aux:`` prefixes or are bare argument names; an unnamed
+    list's arrays are ``ndarray_{i}``, as the JAX bridge names them."""
     arg, aux = {}, {}
     if not param_bytes:
         return arg, aux
@@ -34,6 +36,8 @@ def _load_param_bytes(param_bytes: Params, ctx: Context):
         loaded = {k: v.as_in_context(ctx) for k, v in param_bytes.items()}
     else:
         loaded = nd_utils.load_frombuffer(param_bytes, ctx=ctx)
+        if isinstance(loaded, list):
+            loaded = {f"ndarray_{i}": v for i, v in enumerate(loaded)}
     for k, v in loaded.items():
         if k.startswith("arg:"):
             arg[k[4:]] = v

@@ -1,7 +1,8 @@
 """``mx.nd`` — imperative array namespace.
 
 Every registered operator is exposed here as a function, generated on
-first access from the registry (counterpart of ``mxnet_tpu/ndarray``).
+first access from the registry (counterpart of ``mxnet_tpu/ndarray``);
+``mx.nd.sparse`` holds the sparse arrays.
 NDArray positional arguments are op inputs; keyword arguments are attrs;
 ``out=`` writes into an existing array.
 """
@@ -13,6 +14,7 @@ from .ndarray import NDArray, array, torch_dtype
 from .utils import (zeros, ones, full, empty, arange, save, load,
                     load_frombuffer, concat, stack, split, one_hot,
                     concatenate, moveaxis)
+from . import sparse
 from .._imperative import invoke
 from ..base import MXNetError
 from ..ops.registry import _REGISTRY, get_op, list_ops

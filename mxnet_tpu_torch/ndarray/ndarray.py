@@ -93,6 +93,12 @@ class NDArray:
         return self._data.ndim
 
     @property
+    def stype(self) -> str:
+        """The storage type: ``"default"`` (dense; the sparse classes of
+        :mod:`.sparse` say ``"row_sparse"`` or ``"csr"``)."""
+        return "default"
+
+    @property
     def context(self) -> Context:
         return Context.from_torch(self._data.device)
 

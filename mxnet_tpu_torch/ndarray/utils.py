@@ -6,7 +6,9 @@ Counterpart of ``mxnet_tpu/ndarray/utils.py`` (``zeros``, ``ones``,
 ``{"keys": [...] | null, "metas": [{"shape", "dtype"}, ...]}``, then per
 array a u64 byte length and the raw little-endian buffer. The port keeps
 its own reader and writer, so it opens files that ``mxnet_tpu`` wrote, and
-the reverse. The reference's ``.params`` format waits for its interop slice.
+the reverse. :func:`load` and :func:`load_frombuffer` also read the
+reference's ``.params`` format (the dmlc list container, found by its
+magic), through :mod:`mxnet_tpu_torch.interop`.
 """
 from __future__ import annotations
 
@@ -147,9 +149,16 @@ def save(fname: str, data) -> None:
 def _load_stream(f, label: str, ctx: Optional[Context]):
     magic = f.read(8)
     if magic != _MAGIC:
-        raise MXNetError(f"{label}: not an MXTPU001 NDArray file (magic "
-                         f"{magic!r}); the reference .params format waits "
-                         f"for the interop slice")
+        from .. import interop
+        if not interop._is_reference_head(magic):
+            raise MXNetError(f"{label}: not an MXTPU001 NDArray file (magic "
+                             f"{magic!r}) and not a reference .params file "
+                             f"either")
+        f.seek(0)
+        data = f.getvalue() if isinstance(f, io.BytesIO) else f.read()
+        arrays, names = interop._ndarrays_from_bytes(
+            data, label, ctx or current_context())
+        return dict(zip(names, arrays)) if names else arrays
     (hlen,) = struct.unpack("<Q", f.read(8))
     header = json.loads(f.read(hlen).decode())
     arrays = []
@@ -168,8 +177,9 @@ def _load_stream(f, label: str, ctx: Optional[Context]):
 
 
 def load(fname: str, ctx: Optional[Context] = None):
-    """Load arrays saved by :func:`save` (or by ``mxnet_tpu``'s) onto
-    ``ctx`` (default: the current context); returns a list or dict."""
+    """Load arrays saved by :func:`save` (or by ``mxnet_tpu``'s, or by the
+    reference's ``mx.nd.save``) onto ``ctx`` (default: the current
+    context); a dict where the file names its arrays, else a list."""
     with open(fname, "rb") as f:
         return _load_stream(f, fname, ctx)
 

@@ -35,7 +35,9 @@ load here.
 
 Updates run in place under ``torch.no_grad()``: the weight tensor is the
 autograd leaf that the next ``backward`` reaches, so it must not be
-rebound. The JAX package rebinds immutable arrays instead.
+rebound. The JAX package rebinds immutable arrays instead. A row_sparse
+gradient takes ``Updater``'s lazy path under plain SGD (only its rows
+are written) and is densified for every other rule.
 """
 from __future__ import annotations
 
@@ -197,6 +199,7 @@ class SGD(Optimizer):
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -612,6 +615,11 @@ class Updater:
         self.states_synced: Dict[Any, bool] = {}
 
     def __call__(self, index, grad, weight):
+        from .ndarray.sparse import RowSparseNDArray
+        if isinstance(grad, RowSparseNDArray):
+            if self._lazy_row_sparse_update(index, grad, weight):
+                return
+            grad = grad.todense()       # every other rule: the dense update
         if index not in self.states:
             self.states[index] = self.optimizer.create_state_multi_precision(
                 index, weight)
@@ -622,6 +630,37 @@ class Updater:
             self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def _lazy_row_sparse_update(self, index, grad, weight) -> bool:
+        """The lazy update of a row_sparse gradient (reference SGD
+        ``lazy_update=True``, ``optimizer_op.cc`` SGDUpdateEx): only the
+        gradient's rows are written, in place, every other row keeps its
+        bits. Taken for momentum-free ``SGD`` with ``lazy_update`` and no
+        ``multi_precision`` only (a state that must decay every step, or
+        ``lazy_update=False``'s weight decay on every row, needs the dense
+        update); returns whether it was taken. Duplicate indices are summed
+        first; weight decay falls on the touched rows; the update count
+        and the schedule advance once a call."""
+        opt = self.optimizer
+        if not (type(opt).__name__ == "SGD"
+                and getattr(opt, "momentum", 0) == 0
+                and getattr(opt, "lazy_update", True)
+                and not getattr(opt, "multi_precision", False)):
+            return False
+        opt._update_count(index)
+        lr, wd = opt._get_lr(index), opt._get_wd(index)
+        w = weight._data
+        with torch.no_grad():
+            vals = grad._values.to(w.device)
+            uniq, inv = torch.unique(grad._indices.to(w.device), sorted=True,
+                                     return_inverse=True)
+            g = vals.new_zeros((uniq.numel(),) + vals.shape[1:])
+            g = g.index_add_(0, inv, vals) * opt.rescale_grad
+            if opt.clip_gradient:
+                g.clamp_(-opt.clip_gradient, opt.clip_gradient)
+            rows = w.index_select(0, uniq)
+            w.index_copy_(0, uniq, rows - lr * (g + wd * rows))
+        return True
 
     def dump_states(self, f, dump_optimizer: bool = False) -> None:
         """Pickle the states (numpy arrays), with the optimizer if asked,

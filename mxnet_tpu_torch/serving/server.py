@@ -140,8 +140,8 @@ class ModelConfig:
     serves on the card unless the caller asks for the CPU with
     ``dev_type=1``. Asking for the card without CUDA raises when the
     server binds the model. ``param_bytes`` is the bytes of an ``MXTPU001``
-    params file, or the dict :func:`~mxnet_tpu_torch.interop.
-    params_from_numpy` returns.
+    params file or of the reference's ``.params`` file, or the dict
+    :func:`~mxnet_tpu_torch.interop.params_from_numpy` returns.
     """
 
     def __init__(self, name: str, symbol_json: str, param_bytes=b"", *,

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/symbol/symbol.py`` (reference ``nnvm::Symbol``
 and ``python/mxnet/symbol/symbol.py``): composition, argument/output
-listing, JSON in the JAX package's format, shape inference, ``bind`` and
+listing, JSON in the JAX package's format (and the reference's, read
+through :mod:`~mxnet_tpu_torch.interop`), shape inference, ``bind`` and
 ``simple_bind``. The bound graph runs through
 :class:`~mxnet_tpu_torch.executor.Executor`, an eager interpreter over the
 port's op registry, forward and backward.
@@ -302,13 +303,13 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
 
 
 def load_json(json_str: str) -> Symbol:
-    """Parse the JAX package's graph JSON. Graphs in the reference's own
-    JSON (``nnvm`` attrs) and control-flow subgraphs wait for later
-    slices."""
+    """Parse the JAX package's graph JSON, or the reference's own (nnvm
+    attrs, every era, through ``interop.symbol_from_reference_json``).
+    Control-flow subgraphs wait for a later slice."""
     data = json.loads(json_str)
-    if "mxnet_tpu_version" not in data:
-        raise MXNetError("load_json: not an mxnet_tpu graph (reference "
-                         "MXNet JSON waits for the interop slice)")
+    from ..interop import is_reference_symbol_json, symbol_from_reference_json
+    if is_reference_symbol_json(data):
+        return symbol_from_reference_json(data)
     nodes: List[_Node] = []
     for jn in data["nodes"]:
         op = None if jn["op"] == "null" else jn["op"]
@@ -328,6 +329,7 @@ def load_json(json_str: str) -> Symbol:
 
 
 def load(fname: str) -> Symbol:
-    """Read a graph JSON file (:meth:`Symbol.save` of either package)."""
+    """Read a graph JSON file (:meth:`Symbol.save` of either package, or
+    the reference's ``-symbol.json``)."""
     with open(fname) as f:
         return load_json(f.read())

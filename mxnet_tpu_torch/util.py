@@ -21,8 +21,8 @@ __all__ = ["is_np_shape", "set_np_shape", "np_shape", "use_np_shape",
 
 
 def load_reference_params(fname: str):
-    """A reference-format binary ``.params`` file as a name->NDArray dict
-    (see :mod:`mxnet_tpu_torch.interop`)."""
+    """A reference-format binary ``.params`` file as a name->NDArray dict,
+    on the host (see :mod:`mxnet_tpu_torch.interop`)."""
     from .interop import load_reference_params as _impl
     return _impl(fname)
 

@@ -22,7 +22,9 @@ small word LM through gluon (the recipe twin's ``train_step``) on the
 card against the CPU, no Hopper kernel launched. Slice 11: every dense
 op, activation layer and loss it adds, and an iteration of the 64x64
 DCGAN's nets, on the card against the CPU; slice 12's op grid and an
-iteration of a narrow CapsNet, likewise. The detection family:
+iteration of a narrow CapsNet, likewise; slice 13's sparse arrays, lazy
+update, ``row_sparse_pull``, ``LibSVMIter`` and reference ``.params``
+files, likewise. The detection family:
 the multibox ops and ``box_nms`` on the card against the CPU (discrete
 outputs equal), a ``Module`` step of the small SSD twin on records read
 by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
@@ -925,8 +927,12 @@ def test_slices_11_and_12_on_card_match_cpu(cuda, cs, tmp_path):
     iteration of route J's CapsNet at narrow widths (16 channels, 4
     capsule types, batch 4) on the card against the CPU from the same
     weights (losses and capsule lengths within 1e-5, gradients within
-    1e-5 by ||dg||/||g||). No Hopper kernel launched."""
+    1e-5 by ||dg||/||g||). Slice 13 (``_slice_13_on_card_matches_cpu``):
+    the sparse arrays, the lazy update, ``row_sparse_pull``,
+    ``LibSVMIter`` and the reference's ``.params`` files on the card
+    against the CPU. No Hopper kernel launched."""
     hk.reset_launch_counts()
+    _slice_13_on_card_matches_cpu(cuda, tmp_path)
     cs.dense_op_grid(cuda)
     cs._layer_and_loss_grid(mx, cuda)
     cs.library_op_grid(cuda, draws=10 ** 5)
@@ -959,6 +965,94 @@ def test_slices_11_and_12_on_card_match_cpu(cuda, cs, tmp_path):
             err = (card[k][n].cpu() - g).norm() / g.norm().clamp_min(1e-30)
             assert err.item() <= tol, (n, err.item())
     assert not any(hk.launch_counts.values())
+
+
+def _sparse_results(ctx, dense, w, err):
+    """{name: result} of the sparse arrays' operations on ``ctx``."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    c = sp.csr_matrix(dense, ctx=ctx)
+    d = sp.csr_matrix(dense[::-1].copy(), ctx=ctx)
+    rs = sp.row_sparse_array((w[:5], [7, 2, 9, 2, 0]), shape=w.shape,
+                             ctx=ctx)
+    return {"csr": c, "add": c + d, "sub": c - c, "mul": c * d,
+            "mul_dense": c * mx.nd.array(dense, ctx=ctx), "slice": c[3:40],
+            "sum0": c.sum(axis=0), "sum1": c.sum(axis=1),
+            "dot": c.dot(mx.nd.array(w, ctx=ctx)),
+            "dot_t": c.dot(mx.nd.array(err, ctx=ctx), transpose_a=True),
+            "rs_add": rs + rs, "retain": rs.retain(mx.nd.array(
+                [9, 1, 2], ctx=ctx)), "todense": rs.todense()}
+
+
+def _slice_13_on_card_matches_cpu(cuda, tmp_path):
+    from mxnet_tpu_torch import interop
+    rng = np.random.RandomState(13)
+    dense = np.where(rng.rand(64, 500) < 0.05, rng.randn(64, 500),
+                     0).astype("f4")
+    w = rng.randn(500, 3).astype("f4")
+    err = rng.randn(64, 3).astype("f4")
+    cpu, card = (_sparse_results(ctx, dense, w, err)
+                 for ctx in (mx.cpu(), mx.gpu(0)))
+    for name, want in cpu.items():
+        got = card[name]
+        assert got.context == mx.gpu(0), name
+        for part in ("indices", "indptr"):
+            if hasattr(want, part):
+                g, v = getattr(got, part).asnumpy(), getattr(want,
+                                                             part).asnumpy()
+                assert g.dtype == v.dtype and np.array_equal(g, v), (name,
+                                                                     part)
+        g, v = got.asnumpy(), want.asnumpy()
+        assert np.abs(g - v).max() <= 1e-5 * max(np.abs(v).max(), 1e-30), \
+            name
+    # the lazy update writes only the gradient's rows, in place
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    weights = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        wt = mx.nd.array(w, ctx=ctx)
+        w0 = wt._data.clone()
+        upd = mx.optimizer.get_updater(mx.optimizer.SGD(
+            learning_rate=0.5, wd=0.1, rescale_grad=0.5))
+        upd(0, sp.row_sparse_array((err[:4], [3, 99, 3, 250]), shape=w.shape,
+                                   ctx=ctx), wt)
+        keep = torch.ones(500, dtype=torch.bool, device=w0.device)
+        keep[[3, 99, 250]] = False
+        assert torch.equal(wt._data[keep], w0[keep]), ctx
+        weights.append(wt.asnumpy())
+    assert np.abs(weights[1] - weights[0]).max() <= 1e-6
+    # row_sparse_pull from a store on the card
+    kv = mx.kv.create("local")
+    kv.init(0, mx.nd.array(w, ctx=mx.gpu(0)))
+    out = mx.nd.zeros(w.shape, ctx=mx.gpu(0))
+    kv.row_sparse_pull(0, out=out, row_ids=mx.nd.array([4, 1],
+                                                       ctx=mx.gpu(0)))
+    want = np.zeros_like(w)
+    want[[4, 1]] = w[[4, 1]]
+    assert np.array_equal(out.asnumpy(), want)
+    # LibSVMIter straight onto the card, and the reference .params files
+    path = str(tmp_path / "d.svm")
+    with open(path, "w") as f:
+        for k, row in enumerate(dense[:10]):
+            nz = np.nonzero(row)[0]
+            f.write(f"{k % 2} " + " ".join(
+                f"{j}:{float(row[j])!r}" for j in nz) + "\n")
+    batches = [list(mx.io.LibSVMIter(data_libsvm=path, data_shape=(500,),
+                                     batch_size=4, indexing_mode=0,
+                                     ctx=ctx)) for ctx in (mx.cpu(),
+                                                           mx.gpu(0))]
+    for b_cpu, b_card in zip(*batches):
+        assert b_card.data[0].context == mx.gpu(0)
+        assert b_card.label[0].context == mx.gpu(0)
+        assert np.array_equal(b_card.data[0].asnumpy(),
+                              b_cpu.data[0].asnumpy())
+        assert b_card.pad == b_cpu.pad
+    params = {"arg:w": mx.nd.array(w, ctx=mx.gpu(0)),
+              "aux:c": card["csr"]}
+    fname = str(tmp_path / "card.params")
+    interop.save_reference_params(fname, params)
+    back = mx.nd.load(fname, ctx=mx.gpu(0))
+    assert back["arg:w"].context == mx.gpu(0)
+    assert np.array_equal(back["arg:w"].asnumpy(), w)
+    assert np.array_equal(back["aux:c"].asnumpy(), cpu["csr"].asnumpy())
 
 
 def _capsnet_on_card_matches_cpu(cuda, cs, tmp_path):

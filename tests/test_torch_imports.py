@@ -1,7 +1,8 @@
 """PyTorch port, import hygiene: ``mxnet_tpu_torch``, ``chip_smoke.py`` and
 the recipe twins (``example/**/*_torch.py``) import neither JAX nor the JAX
 package — not even a module of it that does not import JAX; and the JAX
-package's public aliases are there (``mx.kv``, the lazy ``mx.serving``,
+package's public aliases are there (``mx.kv``, ``mx.nd.sparse``, the lazy
+``mx.serving``,
 ``mx.interop``, ``mx.engine``, ``mx.registry``, ``mx.util`` and
 ``mx.test_utils``, ``mx.nd.contrib`` and ``mx.sym.contrib``, ``gluon.split_and_load``/``split_data``/
 ``clip_global_norm``, ``autograd.set_recording``/``set_training``/
@@ -31,6 +32,7 @@ SLICE_12_TWINS = ("example/capsnet/capsnet_torch.py",
                   "example/vae/vae_torch.py",
                   "example/restricted-boltzmann-machine/rbm_torch.py",
                   "example/bayesian-methods/bbb_torch.py")
+SLICE_13_TWINS = ("example/sparse/linear_classification_torch.py",)
 
 
 def _port_files():
@@ -41,7 +43,7 @@ def _port_files():
                  "example/ssd/dataset_torch.py",
                  "example/ssd/symbol_ssd_torch.py",
                  "example/ssd/train_torch.py") + IMAGE_CLASSIFICATION \
-            + SLICE_11_TWINS + SLICE_12_TWINS:
+            + SLICE_11_TWINS + SLICE_12_TWINS + SLICE_13_TWINS:
         yield os.path.join(ROOT, twin)
     for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
         for n in names:
@@ -124,9 +126,11 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/symbol/contrib.py",
             "mxnet_tpu_torch/engine.py", "mxnet_tpu_torch/registry.py",
             "mxnet_tpu_torch/util.py", "mxnet_tpu_torch/test_utils.py",
-            "mxnet_tpu_torch/native/__init__.py"} \
+            "mxnet_tpu_torch/native/__init__.py",
+            "mxnet_tpu_torch/ndarray/sparse.py", "mxnet_tpu_torch/interop.py",
+            "mxnet_tpu_torch/model.py", "mxnet_tpu_torch/io/io.py"} \
         | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) \
-        | set(SLICE_12_TWINS) <= rel
+        | set(SLICE_12_TWINS) | set(SLICE_13_TWINS) <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -169,13 +173,17 @@ def test_importing_the_port_loads_no_jax():
             "'example/restricted-boltzmann-machine', "
             "'example/bayesian-methods']; "
             "import capsnet_torch, vae_torch, rbm_torch, bbb_torch; "
+            "import mxnet_tpu_torch.ndarray.sparse; "
+            "sys.path[:0] = ['example/sparse']; "
+            "import linear_classification_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
-    # the JAX package's public aliases: mx.kv, the lazy mx.serving,
+    # the JAX package's public aliases: mx.kv, mx.nd.sparse, the lazy
+    # mx.serving,
     # mx.interop, mx.engine, mx.registry, mx.util and mx.test_utils,
     # mx.nd.contrib and mx.sym.contrib, gluon's batch helpers, autograd's
     # setters
@@ -186,6 +194,8 @@ def test_importing_the_port_loads_no_jax():
         assert getattr(mx, name) is sys.modules[f"mxnet_tpu_torch.{name}"]
     assert mx.nd.contrib is sys.modules["mxnet_tpu_torch.ndarray.contrib"]
     assert mx.sym.contrib is sys.modules["mxnet_tpu_torch.symbol.contrib"]
+    assert mx.nd.sparse is sys.modules["mxnet_tpu_torch.ndarray.sparse"]
+    assert mx.model.FeedForward.load is not None
     assert mx.kv is mx.kvstore
     from mxnet_tpu_torch.gluon import utils
     assert (mx.gluon.split_and_load, mx.gluon.split_data,

@@ -87,6 +87,8 @@ def _iterators(tmp_path):
                                 label=f"{prefix}-labels{suffix}",
                                 batch_size=8, **kw)
 
+    svm1, svm0, svm_labels = _libsvm_files(tmp_path, rs)
+
     return [
         ("ndarray-pad-shuffle", lambda pkg: pkg.io.NDArrayIter(
             x, y, 5, shuffle=True)),
@@ -103,13 +105,87 @@ def _iterators(tmp_path):
         ("mnist-gz-flat-seed", lambda pkg: mnist(
             pkg, ".gz", flat=True, seed=12345)),
         ("mnist-no-shuffle", lambda pkg: mnist(pkg, shuffle=False)),
+        ("libsvm-auto-1based-pad", lambda pkg: pkg.io.LibSVMIter(
+            data_libsvm=svm1, data_shape=(6,), batch_size=4)),
+        ("libsvm-0based-short", lambda pkg: pkg.io.LibSVMIter(
+            data_libsvm=svm0, data_shape=(2, 3), batch_size=4,
+            round_batch=False, indexing_mode=0)),
+        ("libsvm-label-file", lambda pkg: pkg.io.LibSVMIter(
+            data_libsvm=svm0, data_shape=(6,), label_libsvm=svm_labels,
+            label_shape=(2,), batch_size=3, indexing_mode=0)),
     ]
+
+
+def _libsvm_line(rs, label, ncol, base):
+    cols = np.sort(rs.choice(ncol, rs.randint(0, 4), replace=False))
+    return f"{label} " + " ".join(f"{c + base}:{rs.randn():.6g}"
+                                  for c in cols)
+
+
+def _libsvm_files(tmp_path, rs):
+    """A 1-based file that uses column ncol (11 rows, "auto" reads it
+    1-based), a 0-based one with a blank line (10 rows) and a label file
+    of two values a row."""
+    paths = [str(tmp_path / n) for n in ("one.svm", "zero.svm", "lab.txt")]
+    lines = [_libsvm_line(rs, k % 2, 6, 1) for k in range(10)] + ["1 6:2.5"]
+    with open(paths[0], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    lines = [_libsvm_line(rs, k % 3, 6, 0) for k in range(10)]
+    with open(paths[1], "w") as f:
+        f.write("\n".join(lines[:4] + [""] + lines[4:]) + "\n")
+    with open(paths[2], "w") as f:
+        f.write("\n".join(f"{k} {-k}" for k in range(10)) + "\n")
+    return paths
+
+
+def _csr_parts(batch):
+    d = batch.data[0]
+    return (d.stype, d.shape, d.data.asnumpy(), d.indices.asnumpy(),
+            d.indptr.asnumpy(), batch.label[0].asnumpy(), batch.pad)
+
+
+def _libsvm_behaviours(tmp_path):
+    """CSR structure and dtypes against the JAX package's batches; the JAX
+    package's quirks the port keeps: the last batch padded with its own
+    first row, and "auto" reading a 1-based file that never uses column
+    ncol as 0-based; out-of-range indices raise in every mode."""
+    rs = np.random.RandomState(8)
+    svm1, svm0, _ = _libsvm_files(tmp_path, rs)
+    for kw in ({"data_libsvm": svm1, "data_shape": (6,), "batch_size": 4},
+               {"data_libsvm": svm0, "data_shape": (6,), "batch_size": 3,
+                "indexing_mode": 0}):
+        for b, jb in zip(mx.io.LibSVMIter(**kw), jmx.io.LibSVMIter(**kw)):
+            got, want = _csr_parts(b), _csr_parts(jb)
+            assert got[:2] == want[:2] and got[-1] == want[-1]
+            for g, w in zip(got[2:-1], want[2:-1]):
+                assert g.dtype == w.dtype and np.array_equal(g, w)
+    last = list(mx.io.LibSVMIter(data_libsvm=svm1, data_shape=(6,),
+                                 batch_size=4))[-1]
+    dense = last.data[0].asnumpy()
+    assert last.pad == 1 and np.array_equal(dense[3], dense[0])
+    assert last.data[0].context == mx.cpu()
+    # a 1-based file whose largest index is below ncol reads 0-based
+    path = str(tmp_path / "ambiguous.svm")
+    with open(path, "w") as f:
+        f.write("1 1:1.0 3:2.0\n0 2:3.0\n")
+    for pkg in (mx, jmx):
+        b = next(iter(pkg.io.LibSVMIter(data_libsvm=path, data_shape=(5,),
+                                        batch_size=2)))
+        assert b.data[0].indices.asnumpy().tolist() == [1, 3, 2], pkg
+        b = next(iter(pkg.io.LibSVMIter(data_libsvm=path, data_shape=(5,),
+                                        batch_size=2, indexing_mode=1)))
+        assert b.data[0].indices.asnumpy().tolist() == [0, 2, 1], pkg
+        for mode, shape in ((0, (3,)), (1, (2,)), ("auto", (2,))):
+            with pytest.raises(Exception, match="out of range"):
+                pkg.io.LibSVMIter(data_libsvm=path, data_shape=shape,
+                                  indexing_mode=mode)
 
 
 def test_iterators_state_and_metrics_match_jax(tmp_path, caplog):
     """Every iterator's batches, over two epochs, and a state taken after
     two batches and set on a fresh iterator; ``MNISTIter(seed=)`` draws
-    no differently; the metrics and callbacks ``fit`` reads."""
+    no differently; ``LibSVMIter``'s CSR batches and its quirks; the
+    metrics and callbacks ``fit`` reads."""
     with mx.cpu():
         for case, make in _iterators(tmp_path):
             got = {}
@@ -142,8 +218,7 @@ def test_iterators_state_and_metrics_match_jax(tmp_path, caplog):
                 label=str(tmp_path / "mnist-labels.gz"), batch_size=8,
                 flat=True, seed=1)
             _same(_drain(it), a, "MNISTIter(seed=)")
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            mx.io.LibSVMIter(data_libsvm="x", data_shape=(3,))
+        _libsvm_behaviours(tmp_path)
 
     rs = np.random.RandomState(4)
     probs = rs.dirichlet(np.ones(3), 16).astype("float32")

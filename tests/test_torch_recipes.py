@@ -791,7 +791,8 @@ def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
     returns and every step's loss where the recipe has one (CapsNet's
     margin loss, the VAE's -ELBO). Then each twin alone, at ``train()``'s
     defaults with the port's own random ops, meets its JAX test's bar
-    (``tests/test_examples.py``)."""
+    (``tests/test_examples.py``). And slice 13's sparse twin against its
+    JAX recipe (``_sparse_twin_matches_the_jax_recipe``)."""
     _seeded_xavier(monkeypatch)
     failed = []
     for rel, args, bar in SLICE_12_TWINS:
@@ -827,4 +828,45 @@ def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
         result = twin.train(verbose=False, ctx=mx.cpu())
         if not bar(result):
             failed.append(f"{name}: {result} misses the JAX test's bar")
+    try:
+        _sparse_twin_matches_the_jax_recipe(monkeypatch)
+    except AssertionError as e:
+        failed.append(f"linear_classification: {e}")
     assert not failed, "\n".join(failed)
+
+
+def _sparse_twin_matches_the_jax_recipe(monkeypatch):
+    """``example/sparse/linear_classification_torch.py`` (slice 13: CSR
+    batches, ``sp.dot``, the row_sparse gradient, the lazy updater)
+    against the JAX recipe at one epoch (the JAX recipe compiles for each
+    batch's count of touched features: its default fifteen take a minute
+    here): ``train()``'s accuracies equal, the trained weight and bias
+    within 1e-5 of the JAX recipe's. Then the twin alone at its defaults
+    meets the JAX test's bar (above 0.9)."""
+    runs = []
+    for pkg, path in ((jmx, "example/sparse/linear_classification.py"),
+                      (mx, "example/sparse/linear_classification_torch.py")):
+        module = _load(path, f"linear_classification_{pkg.__name__}")
+        trained = {}
+
+        def recording(opt, _real=pkg.optimizer.get_updater, _seen=trained):
+            updater = _real(opt)
+
+            def call(index, grad, weight):
+                _seen[index] = weight
+                updater(index, grad, weight)
+            return call
+
+        kw = {"verbose": False, "epochs": 1}
+        if pkg is mx:
+            kw["ctx"] = mx.cpu()
+        with monkeypatch.context() as m:
+            m.setattr(module.opt_mod, "get_updater", recording)
+            result = module.train(**kw)
+        runs.append((result, [trained[i].asnumpy() for i in (0, 1)]))
+    (want, jw), (got, pw) = runs
+    assert got == want, (got, want)
+    for g, w in zip(pw, jw):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+    result = module.train(verbose=False, ctx=mx.cpu())
+    assert result[1] > 0.9, result
