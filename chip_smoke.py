@@ -226,19 +226,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``save_reference_params`` and served through ``ModelServer`` from those
    bytes, bitwise the ``MXTPU001`` bytes' logits; write and load times and
    bytes of both formats.
+30. route M: Faster R-CNN with the VGG16 body (``RCNN``: Ren et al.'s
+   recipe as the reference ``example/rcnn`` trains it end to end with
+   py-faster-rcnn's defaults; random weights, synthetic images, no
+   dropout) on one 600x1000 image a step through gluon, ``MultiProposal``
+   (12,000 -> 2,000), sampling as ``mx.nd`` ops on the card, ``ROIPooling``
+   and SGD: MultiProposal on the card keeps the CPU's anchors and
+   ROIPooling is bitwise the CPU's (each with a control that must miss);
+   step 1 against float64 on the card fed the step's proposals and
+   samples; timed steps (ms, images/s, host dispatch, peak memory), the
+   two ops' times and the NMS's steps; the test-time detection forward
+   (6,000 -> 300, per-class ``box_nms``).
+31. route N: the contrib ops at the shapes of the models that use them
+   (``route_n_cases``: Mask R-CNN's ROIAlign, R-FCN's PSROI poolings,
+   Deformable ConvNets' res5 convolution, FlowNetC's correlation, compact
+   bilinear pooling's count sketch and FFTs, PSPNet's pyramid pooling and
+   resize) and a ``Conv2DLSTMCell`` unroll, forward and gradients on the
+   card against the CPU within 1e-5 of the largest entry, each timed.
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one serving dispatch,
 one training step, one custom-head step, one Module step, one fused step,
-one bf16 fused step, one route F step, one route J iteration and one
-route K step (route A's and route D's steps
+one bf16 fused step, one route F step, one route J iteration, one
+route K step and one route M step (route A's and route D's steps
 are profiled in every run, and one route G1 step and one route H
 iteration). Apart from the ``transformer_lm`` twin, no phase from 12 on
 launches a Hopper kernel: the conv nets, the recurrent family, the
 detection family, the image-classification recipe, the dense ops, the GAN,
-CTC, the op library of slice 12, CapsNet, the sparse arrays and the
-reference's formats reach no TPU kernel (the JAX package
+CTC, the op library of slice 12, CapsNet, the sparse arrays, the
+reference's formats, Faster R-CNN and the contrib ops reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -5161,8 +5178,9 @@ def grid_cotangents(outs, seed):
 
 
 def grid_grad_inputs(inputs, how):
-    """Indices of the float inputs a case takes gradients for."""
-    if how != "grad":
+    """Indices of the float inputs a case takes gradients for ("grad", and
+    "exact_grad": outputs compared exactly, gradients by tolerance)."""
+    if how not in ("grad", "exact_grad"):
         return []
     return [i for i, a in enumerate(inputs) if a.dtype == np.float32]
 
@@ -6041,7 +6059,8 @@ def library_case_errors(cid, name, how, got, want, tol):
         return [f"{cid}: {len(g_outs)} outputs, want {len(w_outs)}"], worst
     for i, (g, w) in enumerate(zip(g_outs, w_outs)):
         g, w = np.asarray(g), np.asarray(w)
-        if how == "exact" or (how == "exact_first" and i == 0):
+        if how in ("exact", "exact_grad") or (how == "exact_first"
+                                              and i == 0):
             if g.dtype != w.dtype or g.shape != w.shape or \
                     not np.array_equal(g, w, equal_nan=True):
                 failed.append(f"{cid}: output {i} differs ({g.dtype} "
@@ -6896,6 +6915,853 @@ def reference_formats_phase(mx, hk, dev, workdir):
                              f"{dict(hk.launch_counts)}")
 
 
+# ------------------------------------------ slice 14: the contrib op grid
+# The contrib ops (``ops/contrib_ops.py``, the PSROI poolings of
+# ``ops/parity_ops.py``) at small shapes: ``tests/test_torch_contrib_ops.py``
+# holds the port to the JAX package on them, and ``tests/test_torch_gpu.py``
+# the card to the CPU. "exact_grad": outputs equal, gradients within the
+# tolerance (ROIPooling's maxima are selected, not computed).
+TOL_CONTRIB_CARD = 1e-5      # of the case's largest |value|, card vs CPU
+
+
+def roi_boxes(n, batch, height, width, scale=1.0, seed=0):
+    """Seeded ROIs ``[batch, x1, y1, x2, y2]`` in the coordinates of an
+    image ``1/scale`` times a height x width map, a few reaching past its
+    edges and one wholly outside it."""
+    rs = np.random.RandomState(seed)
+    x1 = rs.uniform(-0.15, 0.8, n) * width
+    y1 = rs.uniform(-0.15, 0.8, n) * height
+    x2 = x1 + rs.uniform(0.05, 0.7, n) * width
+    y2 = y1 + rs.uniform(0.05, 0.7, n) * height
+    rois = np.stack([rs.randint(0, batch, n), x1, y1, x2, y2], 1) / \
+        np.array([1, scale, scale, scale, scale])
+    rois[-1, 1:] = np.array([width + 3, height + 2, width + 9, height + 7]) \
+        / scale
+    return rois.astype(np.float32)
+
+
+def rpn_maps(batch, anchors, height, width, seed=0):
+    """Seeded RPN outputs for ``Proposal``: scores (N, 2A, H, W) with a tied
+    row, deltas (N, 4A, H, W)."""
+    rs = np.random.RandomState(seed)
+    cls = rs.uniform(0, 1, (batch, 2 * anchors, height, width))
+    cls[:, anchors:, 1] = 0.5
+    deltas = rs.randn(batch, 4 * anchors, height, width) * 0.3
+    return cls.astype(np.float32), deltas.astype(np.float32)
+
+
+def _grid_roi():
+    data = grid_values(2, 3, 8, 10, seed=1)
+    rois = roi_boxes(6, 2, 8, 10, seed=2)
+    ps_data = grid_values(2, 2 * 9, 8, 10, seed=3)
+    trans = grid_values(6, 4, 3, 3, seed=4)
+    return [
+        ("roi_pool", "ROIPooling", [data, rois],
+         {"pooled_size": (3, 2), "spatial_scale": 1.0}, "exact_grad"),
+        ("roi_pool_scaled_ties", "ROIPooling",
+         [np.round(data), roi_boxes(6, 2, 8, 10, scale=0.5, seed=2)],
+         {"pooled_size": (2, 2), "spatial_scale": 0.5}, "exact_grad"),
+        ("roi_pool_all_tied", "ROIPooling",
+         [np.zeros((1, 2, 4, 4), np.float32),
+          np.array([[0, 0, 0, 3, 3]], np.float32)],
+         {"pooled_size": (3, 3), "spatial_scale": 1.0}, "exact_grad"),
+        ("roi_align", "_contrib_ROIAlign", [data, rois],
+         {"pooled_size": (3, 2), "spatial_scale": 1.0, "sample_ratio": 2},
+         "grad"),
+        ("roi_align_adaptive_aligned", "ROIAlign",
+         [data, roi_boxes(6, 2, 8, 10, scale=0.5, seed=2)],
+         {"pooled_size": (2, 2), "spatial_scale": 0.5, "sample_ratio": -1,
+          "aligned": True}, "grad"),
+        ("psroi", "_contrib_PSROIPooling", [ps_data, rois],
+         {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 3},
+         "grad"),
+        ("deformable_psroi", "DeformablePSROIPooling",
+         [ps_data, rois, trans],
+         {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 3,
+          "group_size": 3, "trans_std": 0.1, "sample_per_part": 3},
+         "grad"),
+        ("deformable_psroi_no_trans", "_contrib_DeformablePSROIPooling",
+         [ps_data, rois],
+         {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 3,
+          "no_trans": True}, "grad"),
+    ]
+
+
+def _grid_proposal():
+    cls, deltas = rpn_maps(2, 9, 5, 7)
+    info = np.array([[80, 112, 1.0], [70, 100, 1.5]], np.float32)
+    common = {"scales": (2, 4, 8), "ratios": (0.5, 1, 2),
+              "feature_stride": 16}
+    loose = dict(common, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=40,
+                 threshold=0.7, rpn_min_size=16, output_score=True)
+    # rpn_min_size 30 grows boxes and ties their scores at -1; 60 slots
+    # for 50 boxes pads and fills the last slot from the suppressed ones
+    tied = dict(common, scales=(1, 2, 4), rpn_pre_nms_top_n=50,
+                rpn_post_nms_top_n=60, threshold=0.5, rpn_min_size=30,
+                output_score=True)
+    return [
+        ("multi_proposal", "_contrib_MultiProposal", [cls, deltas, info],
+         loose, "value"),
+        ("multi_proposal_tied_padded", "MultiProposal",
+         [cls, deltas, info], tied, "value"),
+        ("proposal", "_contrib_Proposal", [cls, deltas, info], loose,
+         "value"),
+        ("proposal_tied_padded", "Proposal", [cls, deltas, info],
+         dict(tied, output_score=False), "value"),
+    ]
+
+
+def _grid_contrib_other():
+    data = grid_values(2, 3, 8, 10, seed=1)
+    a, b = grid_values(2, 3, 9, 11, seed=5), grid_values(2, 3, 9, 11, seed=6)
+    x = grid_values(3, 8, seed=7)
+    return [
+        ("deformable_conv", "_contrib_DeformableConvolution",
+         [data, grid_values(2, 18, 8, 10, seed=8) * 0.75,
+          grid_values(4, 3, 3, 3, seed=9), grid_values(4, seed=10)],
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 4}, "grad"),
+        ("deformable_conv_groups", "DeformableConvolution",
+         [grid_values(1, 4, 6, 6, seed=11),
+          with_values(np.zeros((1, 16, 3, 3), np.float32), 0.5, -1.25),
+          grid_values(4, 2, 2, 2, seed=12)],
+         {"kernel": (2, 2), "stride": (2, 2), "num_filter": 4,
+          "num_group": 2, "num_deformable_group": 2, "no_bias": True},
+         "grad"),
+        ("correlation_multiply", "Correlation", [a, b],
+         {"kernel_size": 1, "max_displacement": 4, "stride2": 2,
+          "pad_size": 4}, "grad"),
+        ("correlation_absdiff", "Correlation", [a, b],
+         {"kernel_size": 3, "max_displacement": 2, "stride1": 2,
+          "pad_size": 1, "is_multiply": False}, "grad"),
+        ("fft", "_contrib_fft", [x], {}, "grad"),
+        ("ifft", "ifft", [grid_values(3, 16, seed=13)], {}, "grad"),
+        ("count_sketch", "_contrib_count_sketch",
+         [x, np.array([0, -1, 5, 2, 2, 9, -9, 1], np.float32),
+          np.array([1, -1, 1, 1, -1, 1, -1, -1], np.float32)],
+         {"out_dim": 5}, "grad"),
+        ("adaptive_avg_pool", "_contrib_AdaptiveAvgPooling2D", [a],
+         {"output_size": (4, 3)}, "grad"),
+        ("adaptive_avg_pool_int", "AdaptiveAvgPooling2D", [a],
+         {"output_size": 2}, "grad"),
+        ("bilinear_resize", "_contrib_BilinearResize2D", [a],
+         {"height": 13, "width": 5}, "grad"),
+        ("bilinear_resize_scale", "BilinearResize2D", [a],
+         {"scale_height": 2.0, "scale_width": 0.5}, "grad"),
+    ]
+
+
+CONTRIB_OP_GROUPS = {"roi": _grid_roi, "proposal": _grid_proposal,
+                     "other": _grid_contrib_other}
+
+
+def contrib_op_grid(dev, tol=TOL_CONTRIB_CARD):
+    """Every case of ``CONTRIB_OP_GROUPS`` on the card against the same
+    case on the CPU (``library_case_errors``). Returns (worst error, case
+    count); raises naming every failing case."""
+    failed, worst, count = [], 0.0, 0
+    for group, cases in CONTRIB_OP_GROUPS.items():
+        for seed, (cid, name, inputs, attrs, how) in enumerate(cases()):
+            count += 1
+            want = run_grid_case(name, inputs, attrs, how, seed)
+            got = run_grid_case(name, inputs, attrs, how, seed, dev)
+            f, w = library_case_errors(cid, name, how, got, want, tol)
+            failed += f
+            worst = max(worst, w)
+    if failed:
+        raise AssertionError("contrib op grid, card against CPU:\n"
+                             + "\n".join(failed))
+    return worst, count
+
+
+# --------------------------- slice 14: route N, the contrib op grid at
+# the shapes of the models that use each op (batch 1 where the model runs
+# the op per image), card against CPU within TOL_ROUTE_N of the largest
+# entry in float32 with TF32 off; the forward's ms on the card
+TOL_ROUTE_N = 1e-5
+ROUTE_N_TIMED = 5
+
+
+def route_n_cases():
+    """(case id, op, numpy inputs, attrs, what to compare, the model)."""
+    rs = np.random.RandomState(SEED)
+
+    def normal(*shape, std=1.0):
+        return (rs.randn(*shape) * std).astype(np.float32)
+
+    rfcn = normal(1, 21 * 49, 38, 63)
+    rfcn_rois = roi_boxes(300, 1, 38, 63, scale=1 / 16, seed=3)
+    sketch = normal(196, 512)
+    return [
+        ("roi_align_mask_rcnn", "_contrib_ROIAlign",
+         [normal(1, 256, 50, 84), roi_boxes(512, 1, 50, 84, scale=1 / 16,
+                                             seed=1)],
+         {"pooled_size": (14, 14), "spatial_scale": 1 / 16,
+          "sample_ratio": 2}, "grad",
+         "Mask R-CNN's mask head (He et al. 2017): 512 ROIs, 14x14, "
+         "sample_ratio 2, a 256-channel 800x1333 map at 1/16"),
+        ("psroi_rfcn", "_contrib_PSROIPooling", [rfcn, rfcn_rois],
+         {"spatial_scale": 1 / 16, "output_dim": 21, "pooled_size": 7,
+          "group_size": 7}, "grad",
+         "R-FCN (Dai et al. 2016): 300 ROIs, 21 classes, 7x7 groups over "
+         "1,029 channels at 1/16 of 600x1000"),
+        ("deformable_psroi_rfcn", "_contrib_DeformablePSROIPooling",
+         [rfcn, rfcn_rois, normal(300, 2, 7, 7)],
+         {"spatial_scale": 1 / 16, "output_dim": 21, "pooled_size": 7,
+          "group_size": 7, "part_size": 7, "sample_per_part": 4,
+          "trans_std": 0.1}, "grad",
+         "Deformable R-FCN (Dai et al. 2017): the same, trans_std 0.1, "
+         "sample_per_part 4"),
+        ("deformable_conv_res5", "_contrib_DeformableConvolution",
+         [normal(1, 512, 37, 62), normal(1, 18, 37, 62, std=2.0),
+          normal(512, 512, 3, 3, std=0.02), normal(512, std=0.1)],
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 512}, "grad",
+         "Deformable ConvNets (Dai et al. 2017): res5's 3x3, 512->512, "
+         "on a 37x62 map"),
+        ("correlation_flownetc", "Correlation",
+         [normal(1, 256, 48, 64), normal(1, 256, 48, 64)],
+         {"kernel_size": 1, "max_displacement": 20, "stride1": 1,
+          "stride2": 2, "pad_size": 20}, "grad",
+         "FlowNetC (Dosovitskiy et al. 2015): k 1, max displacement 20, "
+         "stride2 2, pad 20, 256 channels at 48x64 (441 displacements)"),
+        ("count_sketch_cbp", "_contrib_count_sketch",
+         [sketch, rs.randint(0, 8192, 512).astype(np.float32),
+          (rs.randint(0, 2, 512) * 2 - 1).astype(np.float32)],
+         {"out_dim": 8192}, "grad",
+         "compact bilinear pooling (Gao et al. 2016): 512 -> 8,192 at "
+         "14x14 positions"),
+        ("fft_cbp", "_contrib_fft", [normal(196, 8192)], {}, "grad",
+         "compact bilinear pooling's FFT of the 8,192-d sketches"),
+        ("ifft_cbp", "_contrib_ifft", [normal(196, 16384)], {}, "grad",
+         "its inverse FFT"),
+        ("adaptive_pool_psp", "_contrib_AdaptiveAvgPooling2D",
+         [normal(1, 2048, 60, 60)], {"output_size": 6}, "grad",
+         "PSPNet (Zhao et al. 2017): bin 6 over 2,048 channels at 60x60"),
+        ("bilinear_resize_psp", "_contrib_BilinearResize2D",
+         [normal(1, 512, 6, 6)], {"height": 60, "width": 60}, "grad",
+         "PSPNet: a bin's 512 channels back to 60x60"),
+    ] + [(f"adaptive_pool_psp_bin{b}", "AdaptiveAvgPooling2D",
+          [normal(1, 2048, 60, 60)], {"output_size": b}, "grad",
+          f"PSPNet: bin {b}") for b in (1, 2, 3)]
+
+
+# ConvLSTM of Shi et al. 2015 on Moving MNIST: 64x64 frames as 16x16
+# patches of 16, 64 hidden channels, 5x5 kernels, ten steps
+CONVLSTM = dict(batch=8, channels=16, size=16, hidden=64, kernel=5,
+                steps=10)
+
+
+def _convlstm_run(mx, ctx, values, x):
+    """Ten steps of ``Conv2DLSTMCell.unroll`` under ``autograd.record()``
+    with the given weights: (outputs, final states, weight gradients)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.contrib.rnn import Conv2DLSTMCell
+    c = CONVLSTM
+    cell = Conv2DLSTMCell((c["channels"], c["size"], c["size"]), c["hidden"],
+                          c["kernel"], c["kernel"], i2h_pad=c["kernel"] // 2,
+                          prefix="convlstm_")
+    cell.initialize(ctx=ctx)
+    params = cell.collect_params()
+    for name, p in params.items():
+        p.set_data(mx.nd.array(values[name], ctx=ctx))
+    data = mx.nd.array(x, ctx=ctx)
+    with autograd.record():
+        out, states = cell.unroll(c["steps"], data, layout="NTC",
+                                  merge_outputs=True)
+        loss = (out * out).sum() + states[1].sum()
+    loss.backward()
+    return ([out.asnumpy()] + [s.asnumpy() for s in states],
+            {n: p.grad.asnumpy() for n, p in params.items()})
+
+
+def convlstm_case(mx, dev):
+    """One ``Conv2DLSTMCell`` unroll (forward and weight gradients) on the
+    card against the CPU: (worst error, card ms of the unroll with its
+    backward)."""
+    c = CONVLSTM
+    rs = np.random.RandomState(SEED)
+    g, k, h = 4 * c["hidden"], c["kernel"], c["hidden"]
+    values = {
+        "convlstm_i2h_weight": rs.randn(g, c["channels"], k, k) * 0.05,
+        "convlstm_h2h_weight": rs.randn(g, h, k, k) * 0.02,
+        "convlstm_i2h_bias": rs.randn(g) * 0.1,
+        "convlstm_h2h_bias": rs.randn(g) * 0.1}
+    values = {n: v.astype(np.float32) for n, v in values.items()}
+    x = rs.randn(c["batch"], c["steps"], c["channels"], c["size"],
+                 c["size"]).astype(np.float32)
+    want = _convlstm_run(mx, mx.cpu(), values, x)
+    got = _convlstm_run(mx, _ctx(mx, dev), values, x)
+    errs = [grid_error(a, b) for a, b in zip(got[0], want[0])]
+    errs += [grid_error(got[1][n], w) for n, w in want[1].items()]
+    ms = _time_ms(lambda: _convlstm_run(mx, _ctx(mx, dev), values, x), 3)
+    return max(errs), ms
+
+
+def route_n_phase(mx, hk, dev):
+    """Route N (phase 31): every case of ``route_n_cases`` and one
+    ``Conv2DLSTMCell`` unroll on the card against the CPU (discrete
+    outputs equal, the rest and the gradients within ``TOL_ROUTE_N`` of
+    the largest entry), each forward timed on the card. No Hopper kernel
+    may launch."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    failed, rows = [], []
+    for seed, (cid, name, inputs, attrs, how, model) in enumerate(
+            route_n_cases()):
+        want = run_grid_case(name, inputs, attrs, how, seed)
+        got = run_grid_case(name, inputs, attrs, how, seed, dev)
+        f, worst = library_case_errors(cid, name, how, got, want,
+                                       TOL_ROUTE_N)
+        failed += f
+        ts = [torch.from_numpy(a).to(dev) for a in inputs]
+        fn = get_op(name).fn
+        ms = _time_ms(lambda: fn(*ts, **attrs), ROUTE_N_TIMED)
+        rows.append(f"  {cid}: {worst:.2e}, forward {ms:.3f} ms ({model})")
+        del want, got, ts
+    worst, ms = convlstm_case(mx, dev)
+    if not worst <= TOL_ROUTE_N:
+        failed.append(f"conv2d_lstm_unroll: {worst:.3e}")
+    c = CONVLSTM
+    rows.append(f"  conv2d_lstm_unroll: {worst:.2e}, {c['steps']} steps "
+                f"with the backward {ms:.3f} ms (ConvLSTM, Shi et al. 2015: "
+                f"batch {c['batch']}, {c['channels']}x{c['size']}x"
+                f"{c['size']} in, {c['hidden']} hidden, {c['kernel']}x"
+                f"{c['kernel']})")
+    print(f"route N: the contrib ops at their models' shapes on the card "
+          f"against the CPU (tolerance {TOL_ROUTE_N} of the largest entry; "
+          f"ms on the card {_card_line()}); "
+          f"{time.perf_counter() - t0:.1f} s:\n" + "\n".join(rows))
+    if failed:
+        raise AssertionError("route N, card against CPU:\n"
+                             + "\n".join(failed))
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route N launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
+# ---------------------------- slice 14: route M, Faster R-CNN with VGG16
+# Ren, He, Girshick & Sun, "Faster R-CNN" (arXiv:1506.01497) as the
+# reference example/rcnn trains it end to end with py-faster-rcnn's
+# defaults (faster_rcnn_end2end.yml): one 600x1000 image a step, the VGG16
+# body to conv5_3 (the zoo's vgg16 features, 37x62 at stride 16), a 3x3
+# RPN conv of 512 with 18 scores and 36 deltas over 9 anchors a place
+# (scales 8, 16, 32; ratios 0.5, 1, 2: 20,646 anchors), 256 RPN samples
+# (at most half foreground at IoU 0.7, background below 0.3), MultiProposal
+# 12,000 -> 2,000 at NMS 0.7 and min size 16, 128 ROIs (at most 25 %
+# foreground at IoU 0.5, background below 0.5) from the proposals and the
+# ground truth, ROIPooling 7x7 at 1/16, fc6 25088->4096, fc7 4096->4096, 21
+# class scores and 84 deltas (targets over stds 0.1, 0.1, 0.2, 0.2), SGD
+# lr 1e-3, momentum 0.9, wd 5e-4, float32. Cut: random weights from the
+# seed (no ImageNet VGG16), seeded synthetic images with 1-5 drawn boxes
+# of VOC's 20 classes (VOC is not in the repo), and no dropout after fc6
+# and fc7 (so that step 1 can be repeated in float64).
+RCNN = dict(image=(600, 1000), classes=21, stride=16, scales=(8, 16, 32),
+            ratios=(0.5, 1, 2), rpn_pre=12000, rpn_post=2000, rpn_nms=0.7,
+            rpn_min=16, rpn_batch=256, rpn_fg=0.5, rpn_pos=0.7, rpn_neg=0.3,
+            rois=128, fg_fraction=0.25, fg_iou=0.5, pooled=7, lr=1e-3,
+            momentum=0.9, wd=5e-4, test_pre=6000, test_post=300,
+            test_nms=0.3, test_thresh=0.05, images=4)
+RCNN_BODY = 30               # the zoo vgg16's features up to conv5_3's ReLU
+RCNN_STDS = (0.1, 0.1, 0.2, 0.2)
+RCNN_TIMED = 10              # steps timed, after the checked one
+# step 1 against float64, bounds set before the first run: the loss sums
+# log-probabilities of float32 logits each of whose products is a dot of
+# up to 25,088 terms (~sqrt(K)·eps ≈ 1e-5 of it, relative, through 15
+# layers), so 1e-5 relative; the heads' and the RPN's gradients are sums
+# over 128 ROIs or 2,294 places of such products: 1e-4 by ||dg||/||g||;
+# the body's gradients pass ReLUs and ROIPooling's maxima whose float32
+# and float64 choices differ near ties (route F's body measured 1e-2):
+# 2e-2 by ||dg||/||g||
+TOL_RCNN_LOSS = 1e-5
+TOL_RCNN_GRAD_HEAD = 1e-4
+TOL_RCNN_GRAD = 2e-2
+TOL_RCNN_PROPOSAL = 1e-5     # MultiProposal's boxes, card against CPU
+
+
+def rcnn_images(mx, ctx, n=None, seed=SEED):
+    """``n`` seeded synthetic 600x1000 images (noise, with 1-5 boxes of
+    random colours drawn on it) as NDArrays (1, 3, H, W), and their
+    ground truth (G, 5) rows ``[x1, y1, x2, y2, class]`` on ``ctx``."""
+    rs = np.random.RandomState(seed)
+    h, w = RCNN["image"]
+    out = []
+    for _ in range(n or RCNN["images"]):
+        img = rs.uniform(-0.3, 0.3, (1, 3, h, w)).astype(np.float32)
+        gt = []
+        for _ in range(rs.randint(1, 6)):
+            bw, bh = rs.randint(w // 20, w * 12 // 25), \
+                rs.randint(h // 12, h * 3 // 5)
+            x1, y1 = rs.randint(0, w - bw), rs.randint(0, h - bh)
+            img[0, :, y1:y1 + bh, x1:x1 + bw] += rs.uniform(
+                -1, 1, (3, 1, 1)).astype(np.float32)
+            gt.append([x1, y1, x1 + bw - 1, y1 + bh - 1,
+                       rs.randint(1, RCNN["classes"])])
+        out.append((mx.nd.array(img, ctx=ctx),
+                    mx.nd.array(np.array(gt, np.float32), ctx=ctx)))
+    return out
+
+
+def build_faster_rcnn(mx):
+    """The net: ``features(x)`` gives (conv5_3, RPN scores, RPN deltas),
+    ``head(pooled)`` (class scores, deltas)."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    a = len(RCNN["scales"]) * len(RCNN["ratios"])
+
+    class FasterRCNN(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                vgg = vision.vgg16()
+                self.body = nn.HybridSequential()
+                for i in range(RCNN_BODY):
+                    self.body.add(vgg.features[i])
+                self.rpn_conv = nn.Conv2D(512, 3, padding=1,
+                                          activation="relu")
+                self.rpn_cls = nn.Conv2D(2 * a, 1)
+                self.rpn_reg = nn.Conv2D(4 * a, 1)
+                self.fc6 = nn.Dense(4096, activation="relu")
+                self.fc7 = nn.Dense(4096, activation="relu")
+                self.cls_score = nn.Dense(
+                    RCNN["classes"], weight_initializer=mx.init.Normal(0.01))
+                self.bbox_pred = nn.Dense(
+                    4 * RCNN["classes"],
+                    weight_initializer=mx.init.Normal(0.001))
+
+        def features(self, x):
+            f = self.body(x)
+            r = self.rpn_conv(f)
+            return f, self.rpn_cls(r), self.rpn_reg(r)
+
+        def head(self, pooled):
+            h = self.fc7(self.fc6(pooled))
+            return self.cls_score(h), self.bbox_pred(h)
+
+    return FasterRCNN(prefix="rcnn_")
+
+
+def rcnn_net(mx, ctx, weights=None, dtype="float32"):
+    """The net on ``ctx``: seeded (Xavier with a Gaussian of fan-in scale
+    2 for the body, py-faster-rcnn's N(0, 0.01) and N(0, 0.001) for the
+    heads), or ``weights`` (name -> tensor), in ``dtype``."""
+    mx.random.seed(SEED)
+    net = build_faster_rcnn(mx)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    h, w = RCNN["image"]
+    net.features(mx.nd.zeros((1, 3, h, w), ctx=ctx))
+    net.head(mx.nd.zeros((1, 512, RCNN["pooled"], RCNN["pooled"]), ctx=ctx))
+    params = net.collect_params()
+    for name, p in params.items():
+        if dtype != "float32":
+            p.cast(dtype)
+        if weights is not None:
+            p.set_data(mx.nd.NDArray(weights[name]))
+    return net
+
+
+def rcnn_anchors(mx, ctx, h, w):
+    """The anchors of an h x w map at the route's stride, (h·w·A, 4) in
+    the order of MultiProposal and the RPN's outputs."""
+    from mxnet_tpu_torch.ops.contrib_ops import _make_anchors
+    base = _make_anchors(RCNN["stride"], RCNN["scales"],
+                         RCNN["ratios"]).numpy()
+    sx, sy = np.meshgrid(np.arange(w) * RCNN["stride"],
+                         np.arange(h) * RCNN["stride"])
+    shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], 1)
+    return mx.nd.array((base[None] + shifts[:, None]).reshape(-1, 4),
+                       ctx=ctx)
+
+
+def rcnn_iou(mx, a, b):
+    """(n, m) IoU of inclusive-pixel boxes a (n, 4) and b (m, 4)."""
+    ax1, ay1, ax2, ay2 = mx.nd.split(a, 4, axis=1)
+    bx1, by1, bx2, by2 = mx.nd.split(mx.nd.transpose(b), 4, axis=0)
+    iw = mx.nd.relu(mx.nd.broadcast_minimum(ax2, bx2)
+                    - mx.nd.broadcast_maximum(ax1, bx1) + 1)
+    ih = mx.nd.relu(mx.nd.broadcast_minimum(ay2, by2)
+                    - mx.nd.broadcast_maximum(ay1, by1) + 1)
+    inter = iw * ih
+    area = mx.nd.broadcast_add((ax2 - ax1 + 1) * (ay2 - ay1 + 1),
+                               (bx2 - bx1 + 1) * (by2 - by1 + 1))
+    return inter / (area - inter)
+
+
+def rcnn_deltas(mx, src, gt):
+    """The (dx, dy, dw, dh) of boxes gt (n, 4) against src (n, 4)."""
+    sx1, sy1, sx2, sy2 = mx.nd.split(src, 4, axis=1)
+    gx1, gy1, gx2, gy2 = mx.nd.split(gt, 4, axis=1)
+    sw, sh = sx2 - sx1 + 1, sy2 - sy1 + 1
+    gw, gh = gx2 - gx1 + 1, gy2 - gy1 + 1
+    return mx.nd.concat(((gx1 + 0.5 * (gw - 1)) - (sx1 + 0.5 * (sw - 1)))
+                        / sw,
+                        ((gy1 + 0.5 * (gh - 1)) - (sy1 + 0.5 * (sh - 1)))
+                        / sh,
+                        mx.nd.log(gw / sw), mx.nd.log(gh / sh), dim=1)
+
+
+def _rank_desc(mx, key):
+    """Each entry's position in a descending sort of key (n, 1)."""
+    order = mx.nd.argsort(-key.reshape((-1,)))
+    return mx.nd.argsort(order).reshape((-1, 1))
+
+
+def rcnn_sample(mx, anchors, rois, gt, im_h, im_w, ctx):
+    """py-faster-rcnn's AnchorTargetLayer and ProposalTargetLayer as
+    ``mx.nd`` ops on ``ctx`` (no host loop over anchors or ROIs), random
+    choices from the context's seeded generator. Returns the RPN's labels
+    (K, 1) (1 foreground, 0 background, -1 ignored), its box targets
+    (K, 4) and foreground mask (K, 1); the heads' ROIs (128, 5), labels
+    (128,), class-specific targets and their mask (128, 84)."""
+    c = RCNN
+    boxes = gt[:, :4]
+    # the RPN's 256 anchors
+    ax1, ay1, ax2, ay2 = mx.nd.split(anchors, 4, axis=1)
+    inside = (ax1 >= 0) * (ay1 >= 0) * (ax2 < im_w) * (ay2 < im_h)
+    iou = mx.nd.broadcast_mul(rcnn_iou(mx, anchors, boxes), inside)
+    best = iou.max(axis=1, keepdims=True)
+    best_gt = iou.argmax(axis=1)
+    top = mx.nd.broadcast_equal(iou, iou.max(axis=0, keepdims=True)) * \
+        (iou > 0)
+    fg = mx.nd.maximum(top.max(axis=1, keepdims=True),
+                       best >= c["rpn_pos"]) * inside
+    bg = (best < c["rpn_neg"]) * inside * (1 - fg)
+    keys = mx.nd.random_uniform(shape=best.shape, ctx=ctx)
+    n_fg = int(c["rpn_batch"] * c["rpn_fg"])
+    fg = fg * (_rank_desc(mx, mx.nd.where(fg, keys, keys - 2)) < n_fg)
+    room = c["rpn_batch"] - fg.sum()
+    bg = bg * mx.nd.broadcast_lesser(
+        _rank_desc(mx, mx.nd.where(bg, keys, keys - 2)), room.reshape((1, 1)))
+    rpn_label = fg - (1 - fg - bg)
+    rpn_target = rcnn_deltas(mx, anchors, mx.nd.take(boxes, best_gt))
+    # the heads' 128 ROIs from the proposals and the ground truth
+    cand = mx.nd.concat(rois, boxes, dim=0)
+    iou = rcnn_iou(mx, cand, boxes)
+    best = iou.max(axis=1, keepdims=True)
+    best_gt = iou.argmax(axis=1)
+    is_fg = best >= c["fg_iou"]
+    keys = mx.nd.random_uniform(shape=best.shape, ctx=ctx)
+    fg_keep = is_fg * (_rank_desc(mx, mx.nd.where(is_fg, keys, keys - 2))
+                       < int(c["rois"] * c["fg_fraction"]))
+    # kept foreground first, then background, then the surplus foreground
+    prio = (fg_keep * 2 + (1 - is_fg) + keys).reshape((-1,))
+    sel = mx.nd.topk(prio, k=c["rois"], ret_typ="indices")
+    head_rois = mx.nd.take(cand, sel)
+    fg_sel = mx.nd.take(fg_keep, sel).reshape((-1,))
+    gt_sel = mx.nd.take(best_gt, sel)
+    label = mx.nd.take(gt[:, 4], gt_sel) * fg_sel
+    target = rcnn_deltas(mx, head_rois, mx.nd.take(boxes, gt_sel)) / \
+        mx.nd.array(RCNN_STDS, ctx=ctx).reshape((1, 4))
+    mask = mx.nd.repeat(mx.nd.one_hot(label, c["classes"])
+                        * fg_sel.reshape((-1, 1)), repeats=4, axis=1)
+    head_rois = mx.nd.concat(mx.nd.zeros((c["rois"], 1), ctx=ctx),
+                             head_rois, dim=1)
+    return dict(rpn_label=rpn_label, rpn_target=rpn_target, rpn_fg=fg,
+                rois=head_rois, label=label,
+                target=mx.nd.tile(target, reps=(1, c["classes"])) * mask,
+                mask=mask)
+
+
+def _rpn_prob(mx, rpn_cls):
+    """The RPN's scores as MultiProposal takes them: a softmax over each
+    anchor's (background, foreground) pair, (1, 2A, H, W)."""
+    n, a2, h, w = rpn_cls.shape
+    return mx.nd.softmax(rpn_cls.reshape((n, 2, a2 // 2 * h, w)),
+                         axis=1).reshape((n, a2, h, w))
+
+
+def rcnn_proposals(mx, rpn_cls, rpn_reg, im_info, pre, post):
+    return mx.nd.contrib.MultiProposal(
+        _rpn_prob(mx, rpn_cls), rpn_reg, im_info, rpn_pre_nms_top_n=pre,
+        rpn_post_nms_top_n=post, threshold=RCNN["rpn_nms"],
+        rpn_min_size=RCNN["rpn_min"], scales=RCNN["scales"],
+        ratios=RCNN["ratios"], feature_stride=RCNN["stride"])
+
+
+def rcnn_losses(mx, net, feat, rpn_cls, rpn_reg, s):
+    """The four losses of a step over the samples ``s``: the RPN's
+    softmax and smooth-L1 (sigma 3) over its sampled anchors, the heads'
+    softmax over the 128 ROIs and smooth-L1 (sigma 1) over the foreground
+    ROIs' class-specific deltas."""
+    a = rpn_cls.shape[1] // 2
+    pairs = rpn_cls.reshape((2, a, -1)).transpose((2, 1, 0)).reshape((-1, 2))
+    label = s["rpn_label"].reshape((-1,))
+    valid = label >= 0
+    nll = -mx.nd.pick(mx.nd.log_softmax(pairs, axis=1),
+                      mx.nd.maximum(label, 0), axis=1)
+    count = valid.sum()
+    rpn_cls_loss = (nll * valid).sum() / count
+    deltas = rpn_reg.reshape((a, 4, -1)).transpose((2, 0, 1)) \
+        .reshape((-1, 4))
+    rpn_box_loss = (mx.nd.smooth_l1(deltas - s["rpn_target"], scalar=3.0)
+                    * s["rpn_fg"]).sum() / count
+    pooled = mx.nd.ROIPooling(feat, s["rois"],
+                              pooled_size=(RCNN["pooled"], RCNN["pooled"]),
+                              spatial_scale=1.0 / RCNN["stride"])
+    score, bbox = net.head(pooled)
+    cls_loss = -mx.nd.pick(mx.nd.log_softmax(score, axis=1), s["label"],
+                           axis=1).mean()
+    box_loss = (mx.nd.smooth_l1(bbox - s["target"], scalar=1.0)
+                * s["mask"]).sum() / RCNN["rois"]
+    return rpn_cls_loss + rpn_box_loss + cls_loss + box_loss, \
+        (rpn_cls_loss, rpn_box_loss, cls_loss, box_loss)
+
+
+def rcnn_step(mx, net, trainer, x, gt, anchors, ctx, samples=None):
+    """One training step (``trainer`` None: forward and backward only):
+    the body and the RPN, MultiProposal, the sampling (or ``samples``, as
+    data), ROIPooling, the heads and the losses under
+    ``autograd.record()``. Returns (loss, the step's proposals and
+    samples)."""
+    import torch.profiler as tp
+    from mxnet_tpu_torch import autograd
+    h, w = x.shape[2], x.shape[3]
+    im_info = mx.nd.array([[h, w, 1.0]], ctx=ctx)
+    with autograd.record():
+        with tp.record_function("rcnn.body_rpn"):
+            feat, rpn_cls, rpn_reg = net.features(x)
+        if samples is None:
+            with autograd.pause(), tp.record_function("rcnn.proposal"):
+                rois = rcnn_proposals(mx, rpn_cls, rpn_reg, im_info,
+                                      RCNN["rpn_pre"], RCNN["rpn_post"])
+            with autograd.pause(), tp.record_function("rcnn.sample"):
+                samples = rcnn_sample(mx, anchors, rois[:, 1:], gt, h, w,
+                                      ctx)
+                samples["proposals"] = rois
+        with tp.record_function("rcnn.heads_loss"):
+            loss, _ = rcnn_losses(mx, net, feat, rpn_cls, rpn_reg, samples)
+    with tp.record_function("rcnn.backward"):
+        loss.backward()
+    if trainer is not None:
+        with tp.record_function("rcnn.update"):
+            trainer.step(1)
+    return loss, samples
+
+
+def rcnn_detect(mx, net, x):
+    """The test-time forward (py-faster-rcnn's test setting): 6,000 ->
+    300 proposals, ROIPooling, the heads, the class-specific boxes decoded
+    and clipped, per-class ``box_nms`` at 0.3. Returns (1, 6000, 6) rows
+    ``[class - 1, score, x1, y1, x2, y2]``, a suppressed row all -1."""
+    c = RCNN
+    h, w = x.shape[2], x.shape[3]
+    ctx = x.context
+    im_info = mx.nd.array([[h, w, 1.0]], ctx=ctx)
+    feat, rpn_cls, rpn_reg = net.features(x)
+    rois = rcnn_proposals(mx, rpn_cls, rpn_reg, im_info, c["test_pre"],
+                          c["test_post"])
+    pooled = mx.nd.ROIPooling(feat, rois, pooled_size=(c["pooled"],) * 2,
+                              spatial_scale=1.0 / c["stride"])
+    score, bbox = net.head(pooled)
+    prob = mx.nd.softmax(score, axis=1)
+    n, k = rois.shape[0], c["classes"]
+    d = bbox.reshape((n, k, 4)) * mx.nd.array(RCNN_STDS, ctx=ctx) \
+        .reshape((1, 1, 4))
+    x1, y1, x2, y2 = mx.nd.split(rois[:, 1:], 4, axis=1)
+    bw, bh = x2 - x1 + 1, y2 - y1 + 1
+    cx, cy = x1 + 0.5 * (bw - 1), y1 + 0.5 * (bh - 1)
+    dx, dy, dw, dh = mx.nd.split(d, 4, axis=2)
+    pcx = dx.reshape((n, k)) * bw + cx
+    pcy = dy.reshape((n, k)) * bh + cy
+    pw = mx.nd.exp(dw.reshape((n, k))) * bw
+    ph = mx.nd.exp(dh.reshape((n, k))) * bh
+    boxes = mx.nd.stack(
+        mx.nd.clip(pcx - 0.5 * (pw - 1), 0, w - 1),
+        mx.nd.clip(pcy - 0.5 * (ph - 1), 0, h - 1),
+        mx.nd.clip(pcx + 0.5 * (pw - 1), 0, w - 1),
+        mx.nd.clip(pcy + 0.5 * (ph - 1), 0, h - 1), axis=2)
+    cls_id = mx.nd.broadcast_mul(mx.nd.ones((n, 1), ctx=ctx),
+                                 mx.nd.arange(k, ctx=ctx).reshape((1, k)))
+    rows = mx.nd.concat(cls_id.reshape((n, k, 1)) - 1,
+                        prob.reshape((n, k, 1)), boxes, dim=2)[:, 1:]
+    return mx.nd.contrib.box_nms(rows.reshape((1, -1, 6)),
+                                 overlap_thresh=c["test_nms"],
+                                 valid_thresh=0.0, coord_start=2,
+                                 score_index=1, id_index=0)
+
+
+def _rcnn_grads(net):
+    return {n: p.grad._data.detach().clone()
+            for n, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def faster_rcnn_phase(mx, hk, dev, profile=False):
+    """Route M (phase 30): Faster R-CNN with VGG16 at 600x1000 trained on
+    the card (``RCNN``). Step 1: MultiProposal on the card keeps the CPU's
+    anchors for the same inputs (boxes within ``TOL_RCNN_PROPOSAL``; a
+    control at NMS 0.69 must keep others), ROIPooling's forward bitwise the
+    CPU's on the step's conv5_3 and ROIs (a control at 1.01x the scale must
+    differ), and the step against the same step in float64 on the card fed
+    the step's proposals and samples (loss, the heads' and the body's
+    gradients). Then timed steps, MultiProposal's and ROIPooling's times,
+    and the test-time detection forward. No Hopper kernel may launch."""
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    c = RCNN
+    ctx = _ctx(mx, dev)
+    hk.reset_launch_counts()
+    t_phase = time.perf_counter()
+    images = rcnn_images(mx, ctx)
+    h, w = c["image"]
+    net = rcnn_net(mx, ctx)
+    n_params = sum(p.data()._data.numel()
+                   for p in net.collect_params().values())
+    w0 = {n: p.data()._data.detach().clone()
+          for n, p in net.collect_params().items()}
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": c["lr"], "momentum": c["momentum"], "wd": c["wd"]})
+    fh, fw = (h // 16, w // 16)
+    anchors = rcnn_anchors(mx, ctx, fh, fw)
+    x, gt = images[0]
+    loss, samples = rcnn_step(mx, net, None, x, gt, anchors, ctx)
+    g32 = _rcnn_grads(net)
+    trainer.step(1)
+    n_fg = int(samples["rpn_fg"].sum().asscalar())
+    n_rpn = int((samples["rpn_label"] >= 0).sum().asscalar())
+    n_head_fg = int((samples["label"] > 0).sum().asscalar())
+    print(f"route M: Faster R-CNN, VGG16 body to conv5_3, {n_params:,} "
+          f"parameters, one {h}x{w} image a step ({gt.shape[0]} boxes), "
+          f"conv5_3 {fh}x{fw}, {anchors.shape[0]:,} anchors; step 1 loss "
+          f"{loss.asscalar():.6f}; RPN samples {n_rpn} ({n_fg} foreground), "
+          f"head ROIs {c['rois']} ({n_head_fg} foreground)")
+
+    # MultiProposal and ROIPooling on the card against the CPU
+    feat, rpn_cls, rpn_reg = net.features(x)
+    prob = _rpn_prob(mx, rpn_cls)._data
+    info = torch.tensor([[h, w, 1.0]], device=dev)
+    args = dict(anchors=co._make_anchors(c["stride"], c["scales"],
+                                         c["ratios"]),
+                feature_stride=c["stride"], pre_nms=c["rpn_pre"],
+                post_nms=c["rpn_post"], min_size=float(c["rpn_min"]))
+    card = co._proposals(prob, rpn_reg._data, info, threshold=c["rpn_nms"],
+                         **args)
+    host = co._proposals(prob.cpu(), rpn_reg._data.cpu(), info.cpu(),
+                         threshold=c["rpn_nms"], **args)
+    ctrl = co._proposals(prob, rpn_reg._data, info, threshold=0.69, **args)
+    same_idx = torch.equal(card[2].cpu(), host[2])
+    e_box = grid_error(card[0].cpu().numpy(), host[0].numpy())
+    ctrl_same = torch.equal(ctrl[2].cpu(), host[2])
+    ms_prop = _time_ms(lambda: rcnn_proposals(
+        mx, rpn_cls, rpn_reg, mx.nd.NDArray(info), c["rpn_pre"],
+        c["rpn_post"]), 5)
+    rois = samples["rois"]
+    pool = dict(pooled_size=(c["pooled"], c["pooled"]),
+                spatial_scale=1.0 / c["stride"])
+    p_card = co._roi_pooling(feat._data, rois._data, **pool)
+    p_host = co._roi_pooling(feat._data.cpu(), rois._data.cpu(), **pool)
+    p_ctrl = co._roi_pooling(feat._data, rois._data, pooled_size=pool[
+        "pooled_size"], spatial_scale=1.01 / c["stride"])
+    pool_bitwise = torch.equal(p_card.cpu(), p_host)
+    ctrl_bitwise = torch.equal(p_ctrl.cpu(), p_host)
+    leaf = feat._data.detach().requires_grad_()
+    out = co._roi_pooling(leaf, rois._data, **pool)
+    g_out = torch.ones_like(out)
+    ms_pool = _time_ms(lambda: co._roi_pooling(feat._data, rois._data,
+                                               **pool), 10)
+    ms_pool_b = _time_ms(lambda: torch.autograd.grad(
+        out, leaf, g_out, retain_graph=True), 10)
+    print(f"route M: MultiProposal ({c['rpn_pre']:,} -> {c['rpn_post']:,} "
+          f"at NMS {c['rpn_nms']}) on the card keeps the CPU's anchors: "
+          f"{same_idx}, boxes within {e_box:.2e} (tol {TOL_RCNN_PROPOSAL}); "
+          f"NMS fixed point in {card[3]} batched steps; control at NMS "
+          f"0.69 keeps the same: {ctrl_same} (must not); {ms_prop:.3f} ms. "
+          f"ROIPooling ({c['rois']} ROIs, 512x{fh}x{fw}, 7x7) bitwise the "
+          f"CPU's: {pool_bitwise}; control at 1.01x the scale bitwise: "
+          f"{ctrl_bitwise} (must not); forward {ms_pool:.3f} ms, backward "
+          f"{ms_pool_b:.3f} ms; card {_card_line()}")
+    if not (same_idx and e_box <= TOL_RCNN_PROPOSAL and pool_bitwise):
+        raise AssertionError("route M: MultiProposal or ROIPooling on the "
+                             "card differs from the CPU")
+    if ctrl_same or ctrl_bitwise:
+        raise AssertionError("route M: a control met its check")
+    del feat, rpn_cls, rpn_reg, prob, card, host, ctrl, p_card, p_host, \
+        p_ctrl, leaf, out, g_out
+
+    # step 1 against float64 on the card, fed the step's samples
+    net64 = rcnn_net(mx, ctx, weights=w0, dtype="float64")
+    s64 = {k: v.astype("float64") for k, v in samples.items()}
+    loss64, _ = rcnn_step(mx, net64, None, x.astype("float64"),
+                          gt.astype("float64"), anchors.astype("float64"),
+                          ctx, samples=s64)
+    g64 = _rcnn_grads(net64)
+    e_loss = abs(loss.asscalar() - loss64.asscalar()) / abs(
+        loss64.asscalar())
+    heads = set()
+    for block in (net.rpn_conv, net.rpn_cls, net.rpn_reg, net.fc6, net.fc7,
+                  net.cls_score, net.bbox_pred):
+        heads |= set(block.collect_params().keys())
+    worst_head, worst_body = 0.0, 0.0
+    for name, g in g64.items():
+        err = ((g32[name].double() - g).norm()
+               / g.norm().clamp_min(1e-300)).item()
+        if name in heads:
+            worst_head = max(worst_head, err)
+        else:
+            worst_body = max(worst_body, err)
+    print(f"route M: step 1 against float64 on the card: loss rel "
+          f"{e_loss:.2e} "
+          f"(tol {TOL_RCNN_LOSS}); the RPN's and heads' gradients "
+          f"{worst_head:.2e} (tol {TOL_RCNN_GRAD_HEAD}); the body's "
+          f"{worst_body:.2e} (tol {TOL_RCNN_GRAD}), by ||dg||/||g||")
+    if not (e_loss <= TOL_RCNN_LOSS and worst_head <= TOL_RCNN_GRAD_HEAD
+            and worst_body <= TOL_RCNN_GRAD):
+        raise AssertionError("route M: step 1 is not within its float64 "
+                             "gates")
+    del net64, s64, g64, g32
+    _free()
+
+    # timed steps
+    losses, steps = [loss.asscalar()], []
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(1, 1 + RCNN_TIMED):
+        xb, gb = images[k % len(images)]
+        out = {}
+
+        def step(xb=xb, gb=gb):
+            out["loss"] = rcnn_step(mx, net, trainer, xb, gb, anchors,
+                                    ctx)[0]
+        steps.append(_timed_step(step))
+        losses.append(out["loss"].asscalar())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    host = 1e3 * float(np.median([s[0] for s in steps]))
+    devms = float(np.median([s[1] for s in steps]))
+    wall = 1e3 * float(np.median([s[2] for s in steps]))
+    print(f"route M: {RCNN_TIMED} timed steps: {wall:.2f} ms a step "
+          f"({devms:.2f} ms between its events on the card, host dispatch "
+          f"{host:.2f} ms), {1e3 / wall:.2f} images/s; peak memory "
+          f"{peak:.2f} GB; loss {losses[0]:.5f} -> {losses[-1]:.5f}; card "
+          f"{_card_line()}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("route M: a loss is not finite")
+    if profile:
+        xb, gb = images[0]
+        profile_breakdown(
+            "route M step",
+            lambda: rcnn_step(mx, net, trainer, xb, gb, anchors, ctx),
+            ranges=("rcnn.body_rpn", "rcnn.proposal", "rcnn.sample",
+                    "rcnn.heads_loss", "rcnn.backward", "rcnn.update"))
+
+    # the test-time detection forward
+    from mxnet_tpu_torch import autograd
+    with autograd.predict_mode():
+        dets = rcnn_detect(mx, net, images[0][0])
+        ms_det = _time_ms(lambda: rcnn_detect(mx, net, images[0][0]), 3)
+    d = dets.asnumpy()[0]
+    kept = d[:, 0] >= 0
+    shown = int((d[kept, 1] >= c["test_thresh"]).sum())
+    print(f"route M: detection ({c['test_pre']:,} -> {c['test_post']} "
+          f"proposals, per-class box_nms at {c['test_nms']}): "
+          f"{ms_det:.2f} ms an image; {int(kept.sum())} of {d.shape[0]} "
+          f"rows kept, {shown} scoring at least {c['test_thresh']}; "
+          f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    if not (d.shape == (c["test_post"] * (c["classes"] - 1), 6)
+            and np.isfinite(d).all() and kept.any()):
+        raise AssertionError(f"route M: detections {d.shape}")
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route M launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6903,8 +7769,8 @@ def main(argv=None) -> int:
                     help="also profile one served dispatch, one training "
                          "step, one custom-head step, one Module step, one "
                          "fused step, one bf16 fused step, one route F "
-                         "step, one route J iteration and one route K step "
-                         "(torch.profiler)")
+                         "step, one route J iteration, one route K step "
+                         "and one route M step (torch.profiler)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7075,6 +7941,14 @@ def main(argv=None) -> int:
         reference_formats_phase(mx, hk, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    _free()
+    # slice 14: route M (Faster R-CNN) and route N (the contrib op grid):
+    # no TPU kernel on their paths (XLA lowered the JAX package's ROI ops,
+    # proposals and convolutions; cuDNN, cuBLAS and plain torch run the
+    # port's); each phase fails if one of B1-B4 launches
+    faster_rcnn_phase(mx, hk, dev, args.profile)
+    _free()
+    route_n_phase(mx, hk, dev)
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

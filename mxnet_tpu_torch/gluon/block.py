@@ -5,13 +5,14 @@ Counterpart of ``mxnet_tpu/gluon/block.py`` (reference
 package's names, parameter collection and initialization, and the
 hybridize/export contract.
 
-PyTorch runs eagerly, so there is no ``CachedOp``: a hybridized block runs
-the same ``hybrid_forward`` with ``F = mx.nd``, op by op, and torch
-autograd records it under ``autograd.record()``. The first call after
-``hybridize()`` also traces ``hybrid_forward`` once with ``F = mx.sym`` to
-a :class:`~mxnet_tpu_torch.symbol.Symbol` (only the outermost hybridized
+PyTorch runs eagerly: a hybridized block runs the same ``hybrid_forward``
+with ``F = mx.nd``, op by op, and torch autograd records it under
+``autograd.record()``. The first call after ``hybridize()`` also traces
+``hybrid_forward`` once with ``F = mx.sym`` to a
+:class:`~mxnet_tpu_torch.symbol.Symbol` (only the outermost hybridized
 block of a call traces), which :meth:`HybridBlock.export` writes.
-:class:`SymbolBlock` goes the other way: it wraps a Symbol graph (an
+:class:`CachedOp` runs a Symbol graph with a map of parameters through the
+executor's graph interpreter, and :class:`SymbolBlock` wraps one (an
 exported file, through :meth:`SymbolBlock.imports`) as a block.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..base import MXNetError
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp"]
 
 
 class _BlockScope:
@@ -180,6 +181,53 @@ class Block:
             child.hybridize(active, **kwargs)
 
 
+class CachedOp:
+    """A Symbol graph as a callable on NDArrays (the JAX package's
+    ``block.py:266-345``; reference ``src/imperative/cached_op.cc``).
+    ``param_map`` maps graph input names to :class:`Parameter` s; the other
+    inputs are ``data_names`` (by default in the graph's order), given
+    positionally in that order. A call runs the graph through the
+    executor's interpreter, lowered once for training and once for
+    inference (``autograd.is_training()`` picks), recorded by torch
+    autograd under ``autograd.record()``; in training the moving statistics
+    it computes are written into their parameters. ``flags`` are accepted
+    (an eager runtime has nothing to cache)."""
+
+    def __init__(self, sym, param_map: Dict[str, Parameter], flags=None,
+                 data_names=None):
+        self._sym = sym
+        self._param_map = dict(param_map)
+        if data_names is not None:
+            self._data_names = list(data_names)
+        else:
+            self._data_names = [n.name for n in sym.topo_nodes()
+                                if n.is_var and n.name not in param_map]
+        self._lowerings: Dict[bool, object] = {}
+
+    def __call__(self, *args):
+        """``args``: the data arrays in ``data_names`` order."""
+        import torch
+        from ..executor import _GraphLowering
+        if len(args) != len(self._data_names):
+            raise MXNetError(f"CachedOp expects {len(self._data_names)} "
+                             f"inputs ({self._data_names}), got {len(args)}")
+        is_train = autograd.is_training()
+        if is_train not in self._lowerings:
+            self._lowerings[is_train] = _GraphLowering(self._sym).lower(
+                is_train)
+        feed = {n: a._data for n, a in zip(self._data_names, args)}
+        feed.update({n: p.data()._data for n, p in self._param_map.items()})
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs, aux_updates = self._lowerings[is_train](feed)
+        with torch.no_grad():
+            for name, val in aux_updates.items():
+                p = self._param_map.get(name)
+                if p is not None:
+                    p.data()._data.copy_(val)
+        outs = [NDArray(o) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+
 # set while an outer hybridized block runs, so inner ones do not trace
 _tracing = threading.local()
 
@@ -292,9 +340,9 @@ class SymbolBlock(HybridBlock):
     the JAX package's ``block.py:482-541``). Every input of ``outputs``
     that is not one of ``inputs`` becomes a parameter under its graph name
     (no prefix); auxiliary states take ``grad_req="null"``, as in the
-    reference. Called on NDArrays it runs the graph through the executor's
-    interpreter, recorded under ``autograd.record()`` and updating the
-    moving statistics in training; called on Symbols it returns the graph
+    reference. Called on NDArrays it runs the graph as a :class:`CachedOp`
+    (recorded under ``autograd.record()``, updating the moving statistics
+    in training); called on Symbols it returns the graph
     with its inputs replaced by them, which is how
     ``parallel.DataParallelTrainer`` traces it."""
 
@@ -307,7 +355,6 @@ class SymbolBlock(HybridBlock):
             inputs = [inputs]
         self._sym_outputs = outputs
         self._input_names_ordered = [s.name for s in inputs]
-        self._lowerings: Dict[bool, object] = {}
         aux = set(outputs.list_auxiliary_states())
         for name in outputs.list_inputs():
             if name not in self._input_names_ordered:
@@ -315,6 +362,8 @@ class SymbolBlock(HybridBlock):
                     name, allow_deferred_init=True,
                     grad_req="null" if name in aux else "write")
         self._set_values(params or {}, None)
+        self._cached_op = CachedOp(outputs, self._reg_params,
+                                   data_names=self._input_names_ordered)
 
     def _set_values(self, values, ctx) -> None:
         """Give each parameter named in ``values`` that value, on ``ctx``
@@ -356,23 +405,4 @@ class SymbolBlock(HybridBlock):
                  zip(self._input_names_ordered, inputs)})
         if any(p._data is None for p in self._reg_params.values()):
             self._deferred_infer_shape(inputs)
-        return self._run(inputs)
-
-    def _run(self, inputs):
-        import torch
-        from ..executor import _GraphLowering
-        is_train = autograd.is_training()
-        if is_train not in self._lowerings:
-            self._lowerings[is_train] = \
-                _GraphLowering(self._sym_outputs).lower(is_train)
-        feed = {n: a._data for n, a in zip(self._input_names_ordered,
-                                            inputs)}
-        feed.update({n: p.data()._data
-                     for n, p in self._reg_params.items()})
-        with torch.set_grad_enabled(autograd.is_recording()):
-            outs, aux_updates = self._lowerings[is_train](feed)
-        with torch.no_grad():
-            for name, val in aux_updates.items():
-                self._reg_params[name].data()._data.copy_(val)
-        outs = [NDArray(o) for o in outs]
-        return outs[0] if len(outs) == 1 else outs
+        return self._cached_op(*inputs)

@@ -1,0 +1,30 @@
+"""Contrib samplers (counterpart of
+``mxnet_tpu/gluon/contrib/data/sampler.py``; reference
+``gluon/contrib/data/sampler.py``)."""
+from __future__ import annotations
+
+from ...data.sampler import Sampler
+
+__all__ = ["IntervalSampler"]
+
+
+class IntervalSampler(Sampler):
+    """Yields i, i + interval, i + 2·interval, ... for each start i (every
+    start below ``interval`` with ``rollover``, else 0 only): the strided
+    reads of truncated-BPTT slicing."""
+
+    def __init__(self, length, interval, rollover=True):
+        assert interval <= length, \
+            f"interval {interval} must be smaller than or equal to length {length}"
+        self._length = length
+        self._interval = interval
+        self._rollover = rollover
+
+    def __iter__(self):
+        for i in range(self._interval if self._rollover else 1):
+            yield from range(i, self._length, self._interval)
+
+    def __len__(self):
+        if self._rollover:
+            return self._length
+        return len(range(0, self._length, self._interval))

@@ -208,13 +208,23 @@ def _greedy_keep(boxes, ids, alive0, thresh, force_suppress):
     sup = (_corner_iou(boxes, boxes) > thresh) & earlier     # [j, i]: j < i
     if not force_suppress:
         sup &= ids[:, :, None] == ids[:, None, :]
+    return greedy_fixed_point(alive0, sup)[0]
+
+
+def greedy_fixed_point(alive0, sup):
+    """The greedy suppression of sorted rows, alive0 (B, k) and sup
+    (B, k, k) with ``sup[b, j, i]`` true where row j would suppress row i
+    (only for j < i): row i stays alive unless an earlier alive row
+    suppresses it. Iterates ``alive = alive0 & ~(an alive row suppresses)``
+    until it no longer changes (after t steps the first t rows are final).
+    Returns (alive, the steps taken)."""
     alive = alive0
-    for _ in range(k):
+    for step in range(1, alive0.shape[1] + 1):
         new = alive0 & ~(alive[:, :, None] & sup).any(dim=1)
         if torch.equal(new, alive):
-            break
+            return alive, step
         alive = new
-    return alive
+    return alive, alive0.shape[1]
 
 
 def _nms_prefix(boxes_s, ids_s, alive0, thresh, force_suppress):

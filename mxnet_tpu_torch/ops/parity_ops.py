@@ -1,11 +1,12 @@
 """Reference op-name parity: the fused optimizer updates, legacy layer ops,
 graph utilities and the contrib long tail.
 
-Counterpart of ``mxnet_tpu/ops/parity_ops.py`` but for its two PSROI
-poolings and its four ``_contrib_quantized_*`` ops, which belong to the
-R-CNN and int8 families (reference ``src/operator/optimizer_op.cc``,
-``crop.cc``, ``identity_attach_KL_sparse_reg.cc``, ``tensor/histogram.cc``,
-``contrib/krprod.cc``, ``contrib/index_copy.cc``,
+Counterpart of ``mxnet_tpu/ops/parity_ops.py`` but for its four
+``_contrib_quantized_*`` ops, which belong to the int8 family (reference
+``src/operator/optimizer_op.cc``, ``crop.cc``,
+``identity_attach_KL_sparse_reg.cc``, ``tensor/histogram.cc``,
+``contrib/krprod.cc``, ``contrib/psroi_pooling.cc``,
+``contrib/deformable_psroi_pooling.cc``, ``contrib/index_copy.cc``,
 ``contrib/quadratic_op.cc``, ``contrib/bounding_box.cc``,
 ``contrib/dgl_graph.cc``). ``MakeLoss`` of the same file is in
 :mod:`.nn`.
@@ -387,6 +388,80 @@ def _bipartite_matching(data, is_ascend=False, threshold=0.5, topk=-1):
         s[rows, :, c] = torch.where(okb, float("-inf"), s[rows, :, c])
     lead = tuple(data.shape[:-2])
     return rmatch.reshape(lead + (R,)), cmatch.reshape(lead + (C,))
+
+
+# ------------------------------------------------- the PSROI poolings
+def _psroi_sample(data, rois, spatial_scale, output_dim, pooled_size,
+                  group_size, trans=None, trans_std=0.0, part_size=0,
+                  grid=2):
+    """Shared core of [Deformable]PSROIPooling: channel c of bin (i, j)
+    reads input channel ``(c·gs + gi)·gs + gj``, (gi, gj) the group cell
+    of the bin, averaged over a grid × grid bilinear sample pattern of the
+    bin (the JAX package's stand-in for the reference's average of whole
+    cells). With ``trans`` each bin moves by ``trans_std`` × its class-0
+    offsets (x in plane 0, y in plane 1) times the ROI's size. Only the
+    channels each bin reads are sampled."""
+    from .contrib_ops import _bilinear_gather, _grid_fractions
+    ps = int(pooled_size) if not isinstance(pooled_size, (tuple, list)) \
+        else int(pooled_size[0])
+    gs = int(group_size) if group_size else ps
+    grid = max(1, int(grid))
+    od, r = int(output_dim), rois.shape[0]
+    if data.device.type == "meta":
+        return data.new_empty(r, od, ps, ps)
+    x1, y1, x2, y2 = (rois[:, k] * spatial_scale - 0.5 for k in range(1, 5))
+    roi_w = torch.maximum(x2 - x1, x1.new_tensor(0.1))
+    roi_h = torch.maximum(y2 - y1, y1.new_tensor(0.1))
+    frac = _grid_fractions(ps, grid, data.dtype, data.device)
+    ys = y1[:, None, None] + frac * (roi_h / ps)[:, None, None]  # (R, ps, g)
+    xs = x1[:, None, None] + frac * (roi_w / ps)[:, None, None]
+    if trans is not None:
+        pt = int(part_size) if part_size else ps
+        t = trans.reshape(trans.shape[0], -1, 2, pt, pt)
+        sel = torch.arange(ps, device=data.device) * pt // ps
+        dx = t[:, 0, 0][:, sel][:, :, sel] * trans_std   # (R, ps, ps)
+        dy = t[:, 0, 1][:, sel][:, :, sel] * trans_std
+        ys = ys[:, :, None, :] + (dy * roi_h[:, None, None])[..., None]
+        xs = xs[:, None, :, :] + (dx * roi_w[:, None, None])[..., None]
+    else:
+        ys = ys[:, :, None, :].expand(r, ps, ps, grid)
+        xs = xs[:, None, :, :].expand(r, ps, ps, grid)
+    shape = (r, ps, ps, grid, grid)
+    cell = torch.arange(ps, device=data.device) * gs // ps
+    chan = ((torch.arange(od, device=data.device) * gs)[None, None, :]
+            + cell[:, None, None]) * gs + cell[None, :, None]  # (ps, ps, od)
+    vals = _bilinear_gather(
+        data, rois[:, 0].long()[:, None, None, None, None],
+        ys[..., :, None].expand(shape), xs[..., None, :].expand(shape),
+        chan=chan[:, :, None, None, :])          # (R, ps, ps, g, g, od)
+    return vals.mean(dim=(3, 4)).permute(0, 3, 1, 2)
+
+
+@register("_contrib_PSROIPooling", aliases=["PSROIPooling"],
+          arg_names=("data", "rois"))
+def _psroi_pooling(data, rois, spatial_scale=1.0, output_dim=1,
+                   pooled_size=1, group_size=0):
+    """Position-sensitive ROI pooling (contrib/psroi_pooling.cc); each bin
+    averages a 2 × 2 bilinear sample grid."""
+    return _psroi_sample(data, rois, spatial_scale, output_dim, pooled_size,
+                         group_size)
+
+
+@register("_contrib_DeformablePSROIPooling",
+          aliases=["DeformablePSROIPooling"],
+          arg_names=("data", "rois", "trans"))
+def _deformable_psroi_pooling(data, rois, trans=None, spatial_scale=1.0,
+                              output_dim=1, pooled_size=1, group_size=0,
+                              part_size=0, sample_per_part=2, trans_std=0.0,
+                              no_trans=False):
+    """Deformable position-sensitive ROI pooling
+    (contrib/deformable_psroi_pooling.cc): ``sample_per_part`` sets each
+    bin's sample grid; only class 0 of ``trans`` moves the bins."""
+    return _psroi_sample(data, rois, spatial_scale, output_dim, pooled_size,
+                         group_size,
+                         trans=None if no_trans else trans,
+                         trans_std=trans_std, part_size=part_size,
+                         grid=sample_per_part)
 
 
 # -------------------------------------------------------------- aliases

@@ -538,24 +538,25 @@ def _registered_in(modules):
                   if op.fn.__module__ in modules)
 
 
-# the ops of parity_ops.py that belong to later slices: the R-CNN family's
-# PSROI poolings and the int8 family's quantized ops
-LATER_SLICES = {"PSROIPooling", "_contrib_PSROIPooling",
-                "DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
-                "_contrib_quantized_conv", "_contrib_quantized_pooling",
+# the ops of parity_ops.py that belong to a later slice: the int8
+# family's quantized ops
+LATER_SLICES = {"_contrib_quantized_conv", "_contrib_quantized_pooling",
                 "_contrib_quantized_flatten", "_contrib_quantized_concat"}
 
 
 def test_every_op_of_the_jax_files_is_registered_and_the_namespaces_match():
-    """Every name that the JAX files register (slice 11's and slice 12's:
+    """Every name that the JAX files register (slice 11's, slice 12's:
     ``index``, ``matrix``, ``random_ops``, ``tail_ops``, ``linalg`` and
-    ``parity_ops`` but ``LATER_SLICES``), and the ``ops/nn.py`` ops of
-    both slices, is in the port's registry, ``mx.nd`` and ``mx.sym``,
+    ``parity_ops`` but ``LATER_SLICES``, and slice 14's ``contrib_ops``),
+    and the ``ops/nn.py`` ops of slices 11 and 12, is in the port's
+    registry, ``mx.nd`` and ``mx.sym`` (a ``_contrib_`` name also in
+    ``mx.nd.contrib`` and ``mx.sym.contrib``),
     aliases sharing one op; the NDArray methods and ``mx.nd``'s binary
     functions behave as the JAX package's."""
     names = _registered_in({f"mxnet_tpu.ops.{m}" for m in (
         "elemwise", "broadcast_reduce", "ctc", "order", "init_ops", "index",
-        "matrix", "random_ops", "tail_ops", "linalg", "parity_ops")})
+        "matrix", "random_ops", "tail_ops", "linalg", "parity_ops",
+        "contrib_ops")})
     assert LATER_SLICES <= set(names)
     names = [n for n in names if n not in LATER_SLICES]
     names += ["LeakyReLU", "InstanceNorm", "LRN", "softmin",
@@ -568,6 +569,8 @@ def test_every_op_of_the_jax_files_is_registered_and_the_namespaces_match():
     assert len(names) > 340
     missing = [n for n in names if n not in PORT_REGISTRY
                or not hasattr(mx.nd, n) or not hasattr(mx.sym, n)]
+    missing += [n for n in names if n.startswith("_contrib_") and not (
+        hasattr(mx.nd.contrib, n[9:]) and hasattr(mx.sym.contrib, n[9:]))]
     assert not missing, missing
     for n in names:       # aliases share one op, as in the JAX registry
         for m in names:

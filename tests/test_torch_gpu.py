@@ -28,9 +28,12 @@ files, likewise. The detection family:
 the multibox ops and ``box_nms`` on the card against the CPU (discrete
 outputs equal), a ``Module`` step of the small SSD twin on records read
 by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
-page-locked batches. Each item loops over its cases and names the ones
-that fail. Marked ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a machine that
-has only PyTorch:
+page-locked batches. Slice 14: the contrib op grid, ``gluon.CachedOp``, a
+``Conv2DLSTMCell`` unroll and the ``mini_rcnn_torch`` twin on the card
+against the CPU. The kernel paths are one item and the model families
+another; each loops over its cases and names the ones that fail. Marked
+``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a
+machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -798,7 +801,7 @@ def _det_case(dev, seed=0, n_side=8, batch=4):
     return get_op, anchors, label, cls_pred, loc
 
 
-def test_detection_family_on_card_matches_cpu(cuda, tmp_path):
+def _detection_family_on_card_matches_cpu(cuda, tmp_path):
     """The detection slice on the card: the multibox ops, a step of the
     SSD twin through ``Module``, and page-locked ``DataLoader`` batches."""
     _check_multibox_ops_on_card(cuda)
@@ -914,7 +917,7 @@ def _check_dataloader_pins_host_batches():
         assert data.context == mx.cpu()
 
 
-def test_slices_11_and_12_on_card_match_cpu(cuda, cs, tmp_path):
+def _slices_11_to_13_on_card_match_cpu(cuda, cs, tmp_path):
     """The dense ops, gluon's activations and losses of slice 11 on the
     card against the CPU (``chip_smoke.dense_op_grid`` and its layer and
     loss grid: discrete outputs equal, the rest within 1e-6 of the
@@ -1102,10 +1105,14 @@ def _each(checks):
     assert not failed, "\n".join(failed)
 
 
-def test_hopper_kernels_on_card(cuda, cs):
+def test_hopper_kernels_on_card(cuda, cs, small_lm):
     """B1, B3 and B2 on the card: what their wrappers refuse, the flash
     kernels under autograd, at the edges of their tiles, repeated bitwise,
-    on unaligned tensors and on the tensor cores, and B2's label cases."""
+    on unaligned tensors and on the tensor cores, and B2's label cases;
+    ``mx.rtc`` (B4) on the card and the CustomOp loss head against its
+    plain version; one step of the small LM's symbolic and fused routes
+    and its bf16 remat steps on the card against the CPU, and the float16
+    refusal."""
     _each([
         ("kernels_refuse_what_they_do_not_take", lambda: _kernels_refuse_what_they_do_not_take(cuda)),
         ("flash_attention_backward_runs_the_kernels", lambda: _flash_attention_backward_runs_the_kernels(cuda)),
@@ -1114,22 +1121,8 @@ def test_hopper_kernels_on_card(cuda, cs):
         ("flash_kernels_take_unaligned_tensors", lambda: _flash_kernels_take_unaligned_tensors(cuda)),
         ("flash_kernels_run_on_tensor_cores", lambda: _flash_kernels_run_on_tensor_cores(cuda)),
         ("softmax_cross_entropy_label_cases_on_card", lambda: _softmax_cross_entropy_label_cases_on_card(cuda)),
-    ])
-
-
-def test_rtc_and_custom_head_on_card(cuda, cs):
-    """``mx.rtc`` on the card and the CustomOp loss head against its plain
-    version."""
-    _each([
         ("rtc_on_card", lambda: _rtc_on_card(cuda, cs)),
         ("custom_head_matches_plain", lambda: _custom_head_matches_plain(cuda, cs)),
-    ])
-
-
-def test_lm_routes_on_card_match_cpu(cuda, cs, small_lm):
-    """One step of the small LM's symbolic and fused routes and its bf16
-    remat steps on the card against the CPU, and the float16 refusal."""
-    _each([
         ("module_step_on_card_matches_cpu", lambda: _module_step_on_card_matches_cpu(cuda, cs, small_lm)),
         ("fused_step_on_card_matches_cpu", lambda: _fused_step_on_card_matches_cpu(cuda, cs, small_lm)),
         ("bf16_steps_with_remat_on_card", lambda: _bf16_steps_with_remat_on_card(cuda, cs, small_lm)),
@@ -1137,19 +1130,93 @@ def test_lm_routes_on_card_match_cpu(cuda, cs, small_lm):
     ])
 
 
-def test_conv_nets_on_card(cuda, cs):
-    """The ResNet-18 NHWC bf16 fused steps, the NHWC net against the NCHW
-    net and the "full" pooling convention, on the card."""
+def _slice_14_on_card_matches_cpu(cuda, cs):
+    """Slice 14 on the card against the CPU: every case of
+    ``chip_smoke.CONTRIB_OP_GROUPS`` (ROIPooling bitwise, the rest and the
+    gradients within 1e-5 of the largest entry), a ``gluon.CachedOp`` over
+    a small graph (training outputs and gradients), a ``Conv2DLSTMCell``
+    unroll at a narrow width, and two steps of the ``mini_rcnn_torch``
+    twin (the losses within 1e-4), with cuDNN's TF32 off. No Hopper
+    kernel launched."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _check_slice_14_on_card(cuda, cs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _check_slice_14_on_card(cuda, cs):
+    hk.reset_launch_counts()
+    cs.contrib_op_grid(cuda)
+    saved = dict(cs.CONVLSTM)
+    cs.CONVLSTM.update(batch=2, hidden=8, steps=3)
+    try:
+        worst, _ = cs.convlstm_case(mx, cuda)
+    finally:
+        cs.CONVLSTM.update(saved)
+    assert worst <= 1e-5, worst
+    sym = mx.sym.FullyConnected(mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=8, name="fc1"),
+        act_type="relu"), num_hidden=3, name="fc2")
+    shapes, _, _ = sym.infer_shape(data=(4, 5))
+    rs = np.random.RandomState(0)
+    values = {n: rs.randn(*s).astype("float32")
+              for n, s in zip(sym.list_arguments(), shapes)}
+    runs = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        params = {}
+        for n, v in values.items():
+            if n == "data":
+                continue
+            params[n] = mx.gluon.Parameter(n, shape=v.shape)
+            params[n].initialize(ctx=ctx)
+            params[n].set_data(mx.nd.array(v, ctx=ctx))
+        op = mx.gluon.CachedOp(sym, params)
+        with autograd.record():
+            out = op(mx.nd.array(values["data"], ctx=ctx))
+        out.backward()
+        runs.append([out.asnumpy()] + [params[n].grad.asnumpy()
+                                       for n in sorted(params)])
+    for got, want in zip(runs[1], runs[0]):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    # the twin's weights drawn by name (less the outer block's counted
+    # prefix) from numpy, the same on both devices (the card's generator
+    # draws other values from a seed)
+    class Seeded(mx.init.Initializer):
+        def _init_weight(self, name, arr):
+            key = name.split("_", 1)[1]
+            rs = np.random.RandomState(sum(map(ord, key)))
+            arr.copy_(torch.from_numpy(
+                rs.uniform(-0.2, 0.2, tuple(arr.shape)).astype("float32")))
+        _init_bias = _init_weight
+
+    twin = cs._load_example("example/rcnn/mini_rcnn_torch.py",
+                            "mini_rcnn_card")
+    xavier = mx.init.Xavier
+    mx.init.Xavier = lambda *a, **k: Seeded()
+    try:
+        results = [twin.train(steps=2, verbose=False, ctx=ctx)
+                   for ctx in (mx.cpu(), mx.gpu(0))]
+    finally:
+        mx.init.Xavier = xavier
+    np.testing.assert_allclose(results[1][:2], results[0][:2], rtol=1e-4)
+    assert not any(hk.launch_counts.values()), dict(hk.launch_counts)
+
+
+def test_model_families_on_card_match_cpu(cuda, cs, tmp_path):
+    """The model families on the card: the conv nets (ResNet-18 NHWC bf16
+    fused steps, the NHWC net against the NCHW net, the "full" pooling
+    convention), the recurrent family (the ``RNN`` op and a word-LM step),
+    the detection family, slices 11 to 13 and slice 14, each against the
+    CPU. No Hopper kernel launched by the slices' checks."""
     _each([
         ("resnet18_nhwc_bf16_fused_steps_on_card", lambda: _resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs)),
         ("nhwc_net_equals_nchw_net_on_card", lambda: _nhwc_net_equals_nchw_net_on_card(cuda, cs)),
         ("full_pooling_on_card_matches_cpu", lambda: _full_pooling_on_card_matches_cpu(cuda)),
-    ])
-
-
-def test_recurrent_family_on_card_matches_cpu(cuda):
-    """The ``RNN`` op and a word-LM step on the card against the CPU."""
-    _each([
         ("rnn_op_on_card_matches_cpu", lambda: _rnn_op_on_card_matches_cpu(cuda)),
         ("word_lm_step_on_card_matches_cpu", lambda: _word_lm_step_on_card_matches_cpu(cuda)),
+        ("detection_family_on_card_matches_cpu", lambda: _detection_family_on_card_matches_cpu(cuda, tmp_path)),
+        ("slices_11_to_13_on_card_match_cpu", lambda: _slices_11_to_13_on_card_match_cpu(cuda, cs, tmp_path)),
+        ("slice_14_on_card_matches_cpu", lambda: _slice_14_on_card_matches_cpu(cuda, cs)),
     ])

@@ -32,7 +32,8 @@ SLICE_12_TWINS = ("example/capsnet/capsnet_torch.py",
                   "example/vae/vae_torch.py",
                   "example/restricted-boltzmann-machine/rbm_torch.py",
                   "example/bayesian-methods/bbb_torch.py")
-SLICE_13_TWINS = ("example/sparse/linear_classification_torch.py",)
+SLICE_13_TWINS = ("example/sparse/linear_classification_torch.py",
+                  "example/rcnn/mini_rcnn_torch.py")
 
 
 def _port_files():
@@ -128,7 +129,13 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/util.py", "mxnet_tpu_torch/test_utils.py",
             "mxnet_tpu_torch/native/__init__.py",
             "mxnet_tpu_torch/ndarray/sparse.py", "mxnet_tpu_torch/interop.py",
-            "mxnet_tpu_torch/model.py", "mxnet_tpu_torch/io/io.py"} \
+            "mxnet_tpu_torch/model.py", "mxnet_tpu_torch/io/io.py",
+            "mxnet_tpu_torch/ops/contrib_ops.py",
+            "mxnet_tpu_torch/gluon/contrib/estimator.py",
+            "mxnet_tpu_torch/gluon/contrib/nn/basic_layers.py",
+            "mxnet_tpu_torch/gluon/contrib/rnn/rnn_cell.py",
+            "mxnet_tpu_torch/gluon/contrib/rnn/conv_rnn_cell.py",
+            "mxnet_tpu_torch/gluon/contrib/data/sampler.py"} \
         | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) \
         | set(SLICE_12_TWINS) | set(SLICE_13_TWINS) <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
@@ -176,6 +183,12 @@ def test_importing_the_port_loads_no_jax():
             "import mxnet_tpu_torch.ndarray.sparse; "
             "sys.path[:0] = ['example/sparse']; "
             "import linear_classification_torch; "
+            "import mxnet_tpu_torch.ops.contrib_ops, "
+            "mxnet_tpu_torch.gluon.contrib.estimator, "
+            "mxnet_tpu_torch.gluon.contrib.nn, "
+            "mxnet_tpu_torch.gluon.contrib.rnn, "
+            "mxnet_tpu_torch.gluon.contrib.data; "
+            "sys.path[:0] = ['example/rcnn']; import mini_rcnn_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -197,6 +210,16 @@ def test_importing_the_port_loads_no_jax():
     assert mx.nd.sparse is sys.modules["mxnet_tpu_torch.ndarray.sparse"]
     assert mx.model.FeedForward.load is not None
     assert mx.kv is mx.kvstore
+    # slice 14: gluon.CachedOp and every name of the JAX gluon.contrib
+    import mxnet_tpu.gluon.contrib as jcontrib
+    assert mx.gluon.CachedOp is mx.gluon.block.CachedOp
+    for sub in ("nn", "rnn", "data"):
+        names = getattr(jcontrib, sub).__all__
+        assert getattr(mx.gluon.contrib, sub).__all__ == names, sub
+        for name in names:
+            assert hasattr(getattr(mx.gluon.contrib, sub), name), name
+    for name in jcontrib.estimator.__all__:
+        assert hasattr(mx.gluon.contrib.estimator, name), name
     from mxnet_tpu_torch.gluon import utils
     assert (mx.gluon.split_and_load, mx.gluon.split_data,
             mx.gluon.clip_global_norm) == (utils.split_and_load,

@@ -36,7 +36,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu.ops.registry import get_op as jax_op
 from mxnet_tpu_torch.ops.registry import get_op as port_op
 from test_torch_threads import one_torch_thread  # noqa: F401
-from torch_shared import once
+from torch_shared import jax_grid, once
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 DRAWS = 10 ** 5
@@ -55,37 +55,8 @@ cs = _chip_smoke()
 
 # ---------------------------------------------------------- the JAX side
 def _jax_group(group):
-    cases = cs.LIBRARY_OP_GROUPS[group]()
-
-    def run(all_inputs):
-        results = []
-        for seed, ((cid, name, arrays, attrs, how), inputs) in enumerate(
-                zip(cases, all_inputs)):
-            fn = jax_op(name).fn
-            gi = cs.grid_grad_inputs(arrays, how)
-
-            def f(*diff, _inputs=inputs, _gi=gi, _fn=fn, _attrs=attrs):
-                args = list(_inputs)
-                for i, d in zip(_gi, diff):
-                    args[i] = d
-                out = _fn(*args, **_attrs)
-                return tuple(out) if isinstance(out, (tuple, list)) \
-                    else (out,)
-
-            if not gi:
-                results.append((f(), ()))
-                continue
-            outs, vjp = jax.vjp(f, *[inputs[i] for i in gi])
-            cts = tuple(jnp.asarray(c, o.dtype) for c, o in zip(
-                cs.grid_cotangents(outs, seed), outs))
-            results.append((outs, vjp(cts)))
-        return results
-
-    inputs = [[jnp.asarray(a) for a in c[2]] for c in cases]
-    with jmx.cpu():
-        out = jax.jit(run)(inputs)
-    return [([np.asarray(o) for o in outs], [np.asarray(g) for g in grads])
-            for outs, grads in out]
+    return jax_grid(cs.LIBRARY_OP_GROUPS[group](), cs.grid_grad_inputs,
+                    cs.grid_cotangents)
 
 
 def _jax_random():

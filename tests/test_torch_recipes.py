@@ -780,6 +780,9 @@ SLICE_12_TWINS = (
      lambda r: r[1] < r[0] * 0.6),
     ("example/bayesian-methods/bbb", {"epochs": 10},
      lambda r: r[1] < r[0] * 0.4 and 0.005 < r[2] < 0.5),
+    # slice 14: the R-CNN recipe (MultiProposal, ROIPooling, two heads)
+    ("example/rcnn/mini_rcnn", {"steps": 3},
+     lambda r: r[1] < r[0] * 0.2 and r[2] > 0.5),
 )
 
 
@@ -792,7 +795,9 @@ def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
     margin loss, the VAE's -ELBO). Then each twin alone, at ``train()``'s
     defaults with the port's own random ops, meets its JAX test's bar
     (``tests/test_examples.py``). And slice 13's sparse twin against its
-    JAX recipe (``_sparse_twin_matches_the_jax_recipe``)."""
+    JAX recipe (``_sparse_twin_matches_the_jax_recipe``), and slice 14's
+    ``mini_rcnn_torch`` against ``mini_rcnn`` at three steps (losses and
+    the detection IoU)."""
     _seeded_xavier(monkeypatch)
     failed = []
     for rel, args, bar in SLICE_12_TWINS:

@@ -1,6 +1,7 @@
 """Fixture results computed once per test session, across the suite's
-worker processes, and the JAX package's host stream seeded for a block
-(helpers for the port's test files; no tests of its own).
+worker processes, the JAX package's host stream seeded for a block, and
+the JAX side of an op grid (helpers for the port's test files; no tests
+of its own).
 
 The suite runs under pytest-xdist with ``--dist load``, which hands a
 file's tests to several workers, and each worker computes the file's
@@ -57,3 +58,48 @@ def jax_host_seed(seed):
             host.set_state(state)
         jrandom._global.clear()
         jrandom._global.update(saved)
+
+
+def jax_grid(cases, grad_inputs, cotangents):
+    """The JAX registry's ops over a case table (rows ``(case id, op name,
+    numpy inputs, attrs, how)``, as ``chip_smoke``'s op grids write them)
+    in one ``jax.jit``: each case's forward and, for the inputs
+    ``grad_inputs(inputs, how)`` names, ``jax.vjp`` under
+    ``cotangents(outputs, seed)`` (seed: the case's index). Returns
+    [(outputs, gradients)] as numpy."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import mxnet_tpu as jmx
+    from mxnet_tpu.ops.registry import get_op
+
+    def run(all_inputs):
+        results = []
+        for seed, ((cid, name, arrays, attrs, how), inputs) in enumerate(
+                zip(cases, all_inputs)):
+            fn = get_op(name).fn
+            gi = grad_inputs(arrays, how)
+
+            def f(*diff, _inputs=inputs, _gi=gi, _fn=fn, _attrs=attrs):
+                args = list(_inputs)
+                for i, d in zip(_gi, diff):
+                    args[i] = d
+                out = _fn(*args, **_attrs)
+                return tuple(out) if isinstance(out, (tuple, list)) \
+                    else (out,)
+
+            if not gi:
+                results.append((f(), ()))
+                continue
+            outs, vjp = jax.vjp(f, *[inputs[i] for i in gi])
+            cts = tuple(jnp.asarray(c, o.dtype) for c, o in zip(
+                cotangents(outs, seed), outs))
+            results.append((outs, vjp(cts)))
+        return results
+
+    inputs = [[jnp.asarray(a) for a in c[2]] for c in cases]
+    with jmx.cpu():
+        out = jax.jit(run)(inputs)
+    return [([np.asarray(o) for o in outs], [np.asarray(g) for g in grads])
+            for outs, grads in out]
