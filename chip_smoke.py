@@ -243,6 +243,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bilinear pooling's count sketch and FFTs, PSPNet's pyramid pooling and
    resize) and a ``Conv2DLSTMCell`` unroll, forward and gradients on the
    card against the CPU within 1e-5 of the largest entry, each timed.
+32. route O: ResNet-50 v1 in int8 as MXNet 1.5's
+   ``example/quantization/imagenet_gen_qsym.py`` quantizes it (``INT8``:
+   naive calibration over 10 batches of 32 synthetic images on the card,
+   the first convolution and the classifier in float, 52 int8
+   convolutions; random weights): the pass route against the direct
+   route (graph, extra parameters, outputs bitwise), scoring at batch 32
+   through ``Module``, each int8 convolution's int32 output bitwise the
+   CPU's given the CPU's inputs, the logits against the CPU's plain path
+   with a control that must miss, the float model served in its int8
+   tier (``ModelConfig(tier="int8")``) bitwise a ``Module`` of its graph,
+   beside the float tier, and each int8 convolution timed against
+   cuDNN's float32 one at its shape.
+Every ``Module`` and fused trainer runs the default graph-pass pipeline
+(``passes=None``); ``PassAudit`` prints each one's
+``passes_provenance()`` by route group and fails a group whose pipeline
+fell back or whose counts differ from a recount on the host; route G1
+also counts its layout copies under the pipeline and with
+``passes=False`` (``g1_layout_copies``).
 Before 16, the ``transformer_lm`` recipe twin trains three epochs at its
 own size (its accuracy must pass the JAX recipe's test threshold, 0.5).
 
@@ -255,7 +273,7 @@ iteration). Apart from the ``transformer_lm`` twin, no phase from 12 on
 launches a Hopper kernel: the conv nets, the recurrent family, the
 detection family, the image-classification recipe, the dense ops, the GAN,
 CTC, the op library of slice 12, CapsNet, the sparse arrays, the
-reference's formats, Faster R-CNN and the contrib ops reach no TPU kernel (the JAX package
+reference's formats, Faster R-CNN, the contrib ops and the int8 family reach no TPU kernel (the JAX package
 lowers their convolutions, pools, recurrence and multibox ops through
 XLA; cuDNN, cuBLAS and plain torch run the port's). The line before
 the last is a JSON object with one entry per kernel (the flash kernels'
@@ -2871,6 +2889,15 @@ def _gluon_grads(mx, net, x, y, dtype=None):
         if p.grad_req != "null"}, logits._data.detach()
 
 
+def net_layout(trainer, name, t):
+    """A fused trainer's parameter in the net's own layout: the graph
+    passes may have re-homed it (the stem's space-to-depth weight)."""
+    res = trainer._pass_result
+    if res is not None and name in res.var_transforms:
+        return res.inverse_var(name, t)
+    return t
+
+
 def resnet_gate_phase(mx):
     """At batch 32: route B (the float32 NCHW step through gluon, TF32
     off) and route A's numerics (the NHWC net against the NCHW net with
@@ -2988,8 +3015,8 @@ def resnet_gate_phase(mx):
             dict(RESNET_OPT), compute_dtype="bfloat16")
         loss = float(trainer.step(mx.nd.array(images),
                                   mx.nd.array(labels)).asscalar())
-        return loss, {n: (w0h[n] - t.double()) / lr - wd * w0h[n]
-                      for n, t in trainer._params.items()}
+        return loss, {n: (w0h[n] - net_layout(trainer, n, t).double()) / lr
+                      - wd * w0h[n] for n, t in trainer._params.items()}
 
     a = score("route A, the bf16 fused trainer's step 1",
               *fused_step(xh, y), nhwc=True)
@@ -3125,7 +3152,22 @@ def resnet_phase(mx):
                for n, t in again._params.items())
     print(f"resnet: step 1 repeated by a second trainer from the same "
           f"weights: bitwise {same} (max |d| {diff:.3e})")
-    del again, w1, xs, ys
+    del again, w1
+    # the pipeline's cost: the same step with passes=False, in turns
+    off = parallel.DataParallelTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", dict(RESNET_OPT),
+        compute_dtype="bfloat16", passes=False)
+    off.step(xs, ys)
+    turns = {"default pipeline": [], "passes=False": []}
+    for _ in range(3):
+        for label, tr in (("default pipeline", trainer),
+                          ("passes=False", off)):
+            turns[label].append(_timed_step(lambda: tr.step(xs, ys))[2]
+                                * 1e3)
+    print(f"resnet: route A's step in turns, ms: "
+          f"{ {k: [round(v, 2) for v in ms] for k, ms in turns.items()} } "
+          f"(the default pipeline: {trainer.passes_provenance()})")
+    del off, xs, ys
     trainer.sync_to_net()
     del trainer
     _free()
@@ -4572,6 +4614,7 @@ def recipe_resnet_phase(mx, dev, profile=False):
     classifier_gate(mx, "route G1", sym, rec, ctx, "fc1",
                     tol_grad=TOL_RN_GRAD, tol_top=TOL_RN_GRAD_TOP)
     batch = rec.batch
+    g1_layout_copies(mx, mod, sym, batch, ctx)
 
     def step():
         mod.forward_backward(batch)
@@ -4583,6 +4626,42 @@ def recipe_resnet_phase(mx, dev, profile=False):
         print(f"route G1: one more step: host dispatch "
               f"{1e3 * t_host:.2f} ms, device {t_dev:.2f} ms")
     return dev_ms, wall_ms
+
+
+def g1_layout_copies(mx, mod, sym, batch, ctx):
+    """The copies that change a tensor's memory format (``ConvCensus``) in
+    one forward and backward of G1's Module, which binds the default
+    pipeline's rewrite (its convolutions NHWC over views), against a
+    Module of the same graph and weights with ``passes=False``: the
+    pipeline may add none."""
+    plain = mx.mod.Module(sym, context=ctx, passes=False)
+    plain.bind(mod.data_shapes, mod.label_shapes)
+    arg, aux = mod.get_params()
+    plain.init_params(arg_params=arg, aux_params=aux)
+    copies = {}
+    for label, m in (("default pipeline", mod), ("passes=False", plain)):
+        census = ConvCensus()
+        with census:
+            m.forward_backward(batch)
+        copies[label] = (sum(census.relayouts.values()),
+                         sum(census.convs.values()))
+        print(f"route G1: {label}: passes_provenance() = "
+              f"{json.dumps(m.passes_provenance(), sort_keys=True)}; one "
+              f"forward and backward: {copies[label][1]} convolutions, "
+              f"{copies[label][0]} layout copies "
+              f"{dict(census.relayouts)}")
+    turns = {"default pipeline": [], "passes=False": []}
+    for _ in range(3):
+        for label, m in (("default pipeline", mod), ("passes=False", plain)):
+            t_host, t_dev, _ = _timed_step(lambda: m.forward_backward(batch))
+            turns[label].append((round(1e3 * t_host, 2), round(t_dev, 2)))
+    print(f"route G1: forward_backward in turns, (host dispatch ms, device "
+          f"ms): {turns}")
+    del plain
+    _free()
+    if copies["default pipeline"][0] > copies["passes=False"][0]:
+        raise AssertionError("route G1: the default pipeline adds layout "
+                             "copies")
 
 
 def g2_records(mx, workdir):
@@ -7762,6 +7841,583 @@ def faster_rcnn_phase(mx, hk, dev, profile=False):
                              f"{dict(hk.launch_counts)}")
 
 
+
+# ----------------------------------- slice 15: graph passes, int8 (route O)
+class PassAudit:
+    """Every graph-pass pipeline run while the smoke drives the routes
+    (``PassManager.run``: ``Module``'s bind, the fused trainer's capture,
+    the buckets and stages built on them) is recorded and run again on the
+    same graph on the host; a route whose rewrite counts differ from the
+    recount, or whose pipeline logged a fallback (a pass skipped, or the
+    unrewritten graph bound), fails at :meth:`report`, which also prints
+    each Module's and trainer's ``passes_provenance()``."""
+
+    def __init__(self):
+        import logging
+        from mxnet_tpu_torch import passes
+        self.records, self.owners, self.fallbacks = [], [], []
+        self._manager = passes.PassManager
+        self._saved = [(passes.PassManager, "run", passes.PassManager.run)]
+        audit, run0 = self, passes.PassManager.run
+
+        def run(mgr, sym, *args, **kwargs):
+            res = run0(mgr, sym, *args, **kwargs)
+            audit.records.append((mgr, sym, args, kwargs, dict(res.counts)))
+            return res
+
+        passes.PassManager.run = run
+        for cls in (mx.mod.Module, mx.parallel.DataParallelTrainer):
+            self._saved.append((cls, "_run_passes", cls._run_passes))
+
+            def owned(obj, *a, _orig=cls._run_passes, **k):
+                out = _orig(obj, *a, **k)
+                # the provenance, not the object: a module holds its
+                # weights, which the next phase needs the memory of
+                audit.owners.append((type(obj).__name__, json.dumps(
+                    obj.passes_provenance(), sort_keys=True)))
+                return out
+
+            cls._run_passes = owned
+
+        class Fallbacks(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if "graph pass" in msg or "graph-pass pipeline" in msg:
+                    audit.fallbacks.append(msg)
+
+        self._handler = Fallbacks(logging.WARNING)
+        self._loggers = [logging.getLogger("mxnet_tpu_torch"),
+                         logging.getLogger()]
+        for lg in self._loggers:
+            lg.addHandler(self._handler)
+
+    def close(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        for lg in self._loggers:
+            lg.removeHandler(self._handler)
+
+    def report(self, route: str) -> None:
+        """Print the provenance of every Module and trainer bound since
+        the last report, and check each pipeline run against a recount on
+        the host."""
+        run0 = self._saved[0][2]
+        for mgr, sym, args, kwargs, counts in self.records:
+            fresh = self._manager(list(mgr.passes), mgr.input_layout,
+                                  mgr.rehome_params)
+            recount = dict(run0(fresh, sym, *args, **kwargs).counts)
+            if recount != counts:
+                raise AssertionError(f"{route}: the pass counts {counts} "
+                                     f"differ from the host's recount "
+                                     f"{recount}")
+        seen = {}
+        for key in self.owners:
+            seen[key] = seen.get(key, 0) + 1
+        for (kind, prov), n in seen.items():
+            print(f"passes: {route}: {kind} x{n}: passes_provenance() = "
+                  f"{prov}")
+        print(f"passes: {route}: {len(self.records)} pipeline run(s), each "
+              f"equal to its recount on the host")
+        if self.fallbacks:
+            raise AssertionError(f"{route}: the graph-pass pipeline fell "
+                                 f"back: {self.fallbacks}")
+        self.records, self.owners = [], []
+
+
+def quant_op_cases():
+    """The int8 ops over a grid (case id, op, numpy inputs, attrs): the
+    codecs on ordinary, degenerate (zero-width) and all-negative ranges,
+    requantize with and without a calibrated range, the quantized fully
+    connected and convolution ops (with and without bias, grouped, dilated,
+    strided, 1-D, channel-last, K and N that ``torch._int_mm`` needs padded),
+    pooling (max, avg, global), flatten and concat of unequal ranges.
+    Shared by ``tests/test_torch_quant.py`` (against the JAX package) and
+    ``tests/test_torch_gpu.py`` (the card against the CPU)."""
+    rs = np.random.RandomState(15)
+
+    def f32(*s, lo=-2.0, hi=2.0):
+        return rs.uniform(lo, hi, s).astype(np.float32)
+
+    def i8(*s):
+        return rs.randint(-127, 128, s).astype(np.int8)
+
+    def sc(v):
+        return np.float32(v)
+
+    def acc(*s):
+        return rs.randint(-2 ** 30, 2 ** 30, s).astype(np.int32)
+
+    cases = []
+    x = f32(4, 7, 5)
+    for cid, lo, hi in (("ordinary", -1.5, 2.5), ("degenerate", 0.0, 0.0),
+                        ("negative", -3.0, -0.5), ("clipped", -0.5, 0.25)):
+        data = -np.abs(x) if cid == "negative" else x
+        cases.append((f"quantize/{cid}", "_contrib_quantize",
+                      [data, sc(lo), sc(hi)], {}))
+    q = i8(6, 9)
+    cases += [("dequantize/ordinary", "_contrib_dequantize",
+               [q, sc(-0.7), sc(1.3)], {}),
+              ("dequantize/degenerate", "_contrib_dequantize",
+               [q, sc(0.0), sc(0.0)], {})]
+    a = acc(5, 8)
+    cases += [("requantize/runtime", "_contrib_requantize",
+               [a, sc(-3.5), sc(3.5)], {}),
+              ("requantize/calibrated", "_contrib_requantize",
+               [a, sc(-3.5), sc(3.5)],
+               {"min_calib_range": -0.9, "max_calib_range": 1.2}),
+              ("requantize/degenerate", "_contrib_requantize",
+               [np.zeros((3, 4), np.int32), sc(0.0), sc(0.0)], {})]
+
+    def product(cid, op, data, weight, bias, attrs, ranges=None):
+        r = ranges or (-1.2, 1.7, -0.4, 0.3, -0.05, 0.08)
+        cases.append((cid, op, [data, weight, bias] + [sc(v) for v in r],
+                      attrs))
+
+    fc = "_contrib_quantized_fully_connected"
+    product("fc/bias", fc, i8(19, 13), i8(11, 13), i8(11),
+            {"num_hidden": 11})
+    product("fc/no_bias", fc, i8(3, 2, 4), i8(6, 8), i8(6),
+            {"num_hidden": 6, "no_bias": True})
+    product("fc/flatten_false", fc, i8(2, 5, 16), i8(8, 16), i8(8),
+            {"num_hidden": 8, "flatten": False})
+    product("fc/degenerate", fc, i8(17, 8), i8(8, 8), i8(8),
+            {"num_hidden": 8}, (0.0, 0.0, -0.4, 0.3, -0.05, 0.08))
+    conv = "_contrib_quantized_conv"
+    product("conv/3x3", conv, i8(2, 3, 9, 9), i8(5, 3, 3, 3), i8(5),
+            {"kernel": (3, 3), "pad": (1, 1), "num_filter": 5})
+    product("conv/stride_no_bias", conv, i8(2, 4, 10, 11), i8(8, 4, 3, 3),
+            i8(8), {"kernel": (3, 3), "stride": (2, 2), "num_filter": 8,
+                    "no_bias": True})
+    product("conv/grouped_dilated", conv, i8(2, 6, 12, 12), i8(9, 2, 3, 3),
+            i8(9), {"kernel": (3, 3), "pad": (2, 2), "dilate": (2, 2),
+                    "num_group": 3, "num_filter": 9})
+    product("conv/depthwise", conv, i8(1, 8, 7, 7), i8(8, 1, 3, 3), i8(8),
+            {"kernel": (3, 3), "pad": (1, 1), "num_group": 8,
+             "num_filter": 8})
+    product("conv/1x1_strided", conv, i8(3, 16, 8, 8), i8(24, 16, 1, 1),
+            i8(24), {"kernel": (1, 1), "stride": (2, 2), "num_filter": 24})
+    product("conv/rect_1d", conv, i8(2, 5, 13), i8(7, 5, 4), i8(7),
+            {"kernel": (4,), "stride": (2,), "pad": (1,), "num_filter": 7,
+             "layout": "NCW"})
+    product("conv/nhwc", conv, i8(2, 8, 8, 3), i8(6, 3, 3, 3), i8(6),
+            {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6,
+             "layout": "NHWC"})
+    # a 3x3 window over 512 channels: sums of 4,608 products of up to
+    # 127², past float32's exact integers
+    big = np.full((1, 512, 3, 3), 127, np.int8)
+    bigw = np.full((2, 512, 3, 3), 127, np.int8)
+    bigw[1] = -127
+    product("conv/float32_inexact", conv, big, bigw, i8(2),
+            {"kernel": (3, 3), "num_filter": 2})
+    pool = "_contrib_quantized_pooling"
+    p = i8(2, 3, 9, 9)
+    for cid, attrs in (("max", {"kernel": (3, 3), "stride": (2, 2)}),
+                       ("avg", {"kernel": (3, 3), "stride": (2, 2),
+                                "pool_type": "avg", "pad": (1, 1)}),
+                       ("global", {"kernel": (1, 1), "global_pool": True,
+                                   "pool_type": "avg"})):
+        cases.append((f"pooling/{cid}", pool, [p, sc(-1.0), sc(2.0)],
+                      attrs))
+    cases.append(("flatten", "_contrib_quantized_flatten",
+                  [i8(2, 3, 4, 5), sc(-1.0), sc(1.5)], {}))
+    cases.append(("concat/unequal", "_contrib_quantized_concat",
+                  [i8(2, 3, 4), i8(2, 5, 4), i8(2, 2, 4), sc(-0.5), sc(1.0),
+                   sc(-3.0), sc(2.0), sc(-0.1), sc(0.2)],
+                  {"dim": 1, "num_args": 3}))
+    return cases
+
+
+def run_quant_case(op, inputs, attrs, device="cpu"):
+    """One case of :func:`quant_op_cases` through the port's op on
+    ``device``: its outputs as numpy."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    ts = [torch.as_tensor(np.asarray(v)).to(device) for v in inputs]
+    out = get_op(op).fn(*ts, **attrs)
+    out = out if isinstance(out, tuple) else (out,)
+    return [o.detach().cpu().numpy() for o in out]
+
+
+# Route O: ResNet-50 v1 quantized as MXNet 1.5's
+# example/quantization/imagenet_gen_qsym.py quantizes it (naive
+# calibration over 10 batches of 32, the first convolution and the
+# classifier left in float: 52 int8 convolutions), on random weights from
+# the seed and synthetic images (no ImageNet, no pretrained weights here).
+# TOL_INT8_LOGITS: the card's int8 logits against the CPU's plain path on
+# the same images, of the largest |logit|. The int8 codes are equal when
+# every float before them is (the int32 products are exact on both), but
+# the float layers between the islands (the float stem, BatchNorm, the
+# residual adds) round differently on the card (cuDNN) and the CPU, and an
+# activation within one rounding of a quantization step's edge takes the
+# next code: each such flip moves the logits by about one step of its
+# layer's scale. The card's Module also runs the default pipeline, whose
+# space-to-depth stem rounds otherwise. The first H100 run read 6.3e-3
+# (the gate started at 1e-2 and was set to 8e-3 from it); the control
+# (every calibrated range doubled: every code halved) read 1.19e-2 and
+# must miss.
+INT8 = dict(batch=32, batches=10, image=224, classes=1000, check=2,
+            requests_b1=8, timed=10)
+INT8_CONVS = 52
+TOL_INT8_LOGITS = 8e-3
+
+
+def int8_batches(n_batches, batch, image, seed=SEED):
+    """Synthetic images uniform(-1, 1), NCHW float32, from the seed."""
+    rng = np.random.RandomState(seed + 15)
+    return [rng.uniform(-1, 1, (batch, 3, image, image)).astype(np.float32)
+            for _ in range(n_batches)]
+
+
+def _graph_signature(sym):
+    """(name, op, attrs, inputs by name and index) of every node."""
+    return [(n.name, n.op, sorted((n.attrs or {}).items()),
+             [(s.name, i) for s, i in n.inputs]) for n in sym.topo_nodes()]
+
+
+def _module_logits(mx, sym, params, aux, x, ctx, passes=None):
+    """``x`` through ``mx.mod.Module(sym)`` on ``ctx`` for inference: the
+    logits as a tensor."""
+    mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                        context=ctx, passes=passes)
+    mod.bind(data_shapes=[("data", tuple(x.shape))], for_training=False)
+    mod.set_params(params, aux)
+    mod.forward(mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)]),
+                is_train=False)
+    return mod.get_outputs()[0]._data
+
+
+def _int8_conv_times(mx, qsym, qarg, batch, image, dev):
+    """Each int8 convolution of ``qsym`` at ``batch`` timed on the card:
+    the quantized op (im2col + ``torch._int_mm`` + bias) on int8 inputs
+    of its shape, against cuDNN's float32 convolution at the same shape
+    (TF32 off). Returns [(name, shape, int8 ms, f32 ms)]."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.registry import get_op
+    shapes = {}
+    internals = qsym.get_internals()
+    names = [n.name for n in qsym.topo_nodes()
+             if n.op == "_contrib_quantized_conv"]
+    arg_shapes, out_shapes, _ = internals.infer_shape(
+        data=(batch, 3, image, image))
+    by_out = dict(zip(internals.list_outputs(), out_shapes))
+    node = {n.name: n for n in qsym.topo_nodes()}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    fn = get_op("_contrib_quantized_conv").fn
+    for name in names:
+        n = node[name]
+        src, idx = n.inputs[0]
+        key = (f"{src.name}_output" if src.num_outputs == 1
+               else f"{src.name}_output{idx}")
+        ds = by_out[key]
+        w = qarg[n.inputs[1][0].name]._data.to(dev)
+        b = qarg[n.inputs[2][0].name]._data.to(dev)
+        x = torch.randint(-127, 128, ds, generator=g, device=dev,
+                          dtype=torch.int8)
+        r = [torch.tensor(v, device=dev) for v in
+             (-1.0, 1.0, -0.5, 0.5, -0.1, 0.1)]
+        attrs = dict(n.attrs)
+        int8_ms = _time_ms(lambda: fn(x, w, b, *r, **attrs), reps=5)
+        xf, wf = x.float(), w.float()
+        stride = tuple(attrs.get("stride") or (1, 1))
+        pad = tuple(attrs.get("pad") or (0, 0))
+        f32_ms = _time_ms(lambda: F.conv2d(xf, wf, None, stride, pad),
+                          reps=5)
+        shapes[name] = (tuple(ds), tuple(w.shape))
+        rows.append((name, shapes[name], int8_ms, f32_ms))
+        del x, xf, wf
+    return rows
+
+
+def int8_phase(mx, hk, dev, workdir):
+    """Route O (phase 32): ResNet-50 v1 (``vision.resnet50_v1``, 1,000
+    classes, NCHW, Xavier from the seed, moving statistics at their
+    initial values) calibrated on the card (``quant.collect``, naive, 10
+    batches of 32 synthetic 224² images), quantized by the pass route
+    (``quant.quantize_symbol``) and held against the direct route
+    (``contrib.quantization.quantize_graph`` excluding the same two
+    layers: the same graph, extra parameters and outputs); scored at batch
+    32 through ``mx.mod.Module`` on the card; each int8 convolution's
+    int32 output bitwise the CPU's given the CPU's inputs, and the logits
+    against the CPU's plain path within TOL_INT8_LOGITS with a control
+    (every range doubled) that must miss; then the float model served
+    through ``ModelServer`` with ``tier="int8"`` (quantized at state build
+    from runtime ranges) bitwise a ``Module`` forward of the same
+    quantized graph, beside the float tier; each int8 convolution timed
+    against cuDNN's float32 one at its shape. No Hopper kernel may
+    launch."""
+    from mxnet_tpu_torch import quant
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.serving import ModelConfig, ModelServer
+    cfg = INT8
+    ctx, cpu = _ctx(mx, dev), mx.cpu()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    hk.reset_launch_counts()
+    B, S = cfg["batch"], cfg["image"]
+
+    mx.random.seed(SEED)
+    with ctx:
+        net = vision.resnet50_v1(classes=cfg["classes"])
+        net.initialize(mx.init.Xavier())
+        batches = int8_batches(cfg["batches"], B, S)
+        net(mx.nd.array(batches[0][:1], ctx=ctx))
+    sym, arg, aux = cq._trace_gluon(net)
+    n_params = sum(int(np.prod(v.shape)) for v in arg.values())
+    del net
+    _free()
+    convs = [n.name for n in sym.topo_nodes() if n.op == "Convolution"]
+    fcs = [n.name for n in sym.topo_nodes() if n.op == "FullyConnected"]
+    calib = [mx.nd.array(b, ctx=ctx) for b in batches]
+
+    # calibration and quantization, the pass route
+    sync()
+    t0 = time.perf_counter()
+    table = quant.collect(sym, arg, aux, calib, mode="naive",
+                          num_calib_examples=B * cfg["batches"], ctx=ctx,
+                          model="resnet50_v1")
+    sync()
+    t_calib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qsym, extra, res = quant.quantize_symbol(sym, arg, table=table,
+                                             model="resnet50_v1")
+    sync()
+    t_quant = time.perf_counter() - t0
+    qarg = dict(arg)
+    qarg.update(extra)
+    n_q = sum(1 for n in qsym.topo_nodes()
+              if n.op == "_contrib_quantized_conv")
+    n_fc = sum(1 for n in qsym.topo_nodes()
+               if n.op == "_contrib_quantized_fully_connected")
+    print(f"route O: ResNet-50 v1, {n_params:,} parameters; calibrated "
+          f"(naive) over {table.num_examples} images in {len(table)} "
+          f"ranges in {t_calib:.2f} s on {ctx}; quantized by the pass "
+          f"route in {t_quant:.2f} s: {n_q} int8 convolutions, {n_fc} int8 "
+          f"fully connected; left in float: {convs[0]}, {fcs[-1]}; "
+          f"rewrites {res.counts}")
+    if n_q != INT8_CONVS or n_fc != 0 or len(table) != len(convs) + 1:
+        raise AssertionError("route O: the quantized graph does not have "
+                             "the reference's 52 int8 convolutions")
+    # the direct route, excluding the same two layers
+    dsym, dextra = cq.quantize_graph(sym, arg,
+                                     excluded_sym_names=[convs[0], fcs[-1]],
+                                     calib_ranges=table.ranges)
+    same_graph = _graph_signature(dsym) == _graph_signature(qsym)
+    same_params = sorted(dextra) == sorted(extra) and all(
+        torch.equal(dextra[k]._data, extra[k]._data)
+        and dextra[k]._data.dtype == extra[k]._data.dtype for k in extra)
+    xs = batches[0][:cfg["check"]]
+    dq = dict(arg)
+    dq.update(dextra)
+    same_out = torch.equal(
+        _module_logits(mx, dsym, dq, aux, xs, ctx, passes=False),
+        _module_logits(mx, qsym, qarg, aux, xs, ctx, passes=False))
+    print(f"route O: the direct route (contrib.quantization.quantize_graph"
+          f", the same two layers excluded): graph equal {same_graph}, "
+          f"extra parameters bitwise {same_params} ({len(dextra)}), "
+          f"outputs bitwise {same_out}")
+    if not (same_graph and same_params and same_out):
+        raise AssertionError("route O: the pass route and the direct route "
+                             "differ")
+    del dsym, dextra, dq
+
+    # scoring through Module on the card
+    mod = mx.mod.Module(qsym, data_names=["data"], label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[("data", (B, 3, S, S))], for_training=False)
+    mod.set_params(qarg, aux)
+    score_batch = mx.io.DataBatch(data=[mx.nd.array(batches[0], ctx=ctx)])
+
+    def score():
+        mod.forward(score_batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    logits = score()
+    sync()
+    score_ms = _time_ms(score, reps=cfg["timed"]) if on_card else 0.0
+    fmod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                         context=ctx)
+    fmod.bind(data_shapes=[("data", (B, 3, S, S))], for_training=False)
+    fmod.set_params(arg, aux)
+
+    def fscore():
+        fmod.forward(score_batch, is_train=False)
+        return fmod.get_outputs()[0]._data
+
+    flogits = fscore()
+    sync()
+    fscore_ms = _time_ms(fscore, reps=cfg["timed"]) if on_card else 0.0
+    del fmod
+    agree = float((logits.argmax(1) == flogits.argmax(1)).float().mean())
+    rel = float((logits - flogits).norm() / flogits.norm())
+    print(f"route O: scored {B} images through Module: int8 "
+          f"{score_ms:.2f} ms a batch ({1e3 * B / max(score_ms, 1e-9):.1f} "
+          f"images/s), the float graph {fscore_ms:.2f} ms "
+          f"({1e3 * B / max(fscore_ms, 1e-9):.1f} images/s); int8 against "
+          f"float: top-1 agreement {agree:.3f}, ||d logits|| / ||logits|| "
+          f"{rel:.3e} (a finding: random weights); card {_card_line()}")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != \
+            (B, cfg["classes"]):
+        raise AssertionError("route O: the int8 logits")
+
+    # the card against the CPU's plain path on the first images: every
+    # int8 convolution's int32 output bitwise, given the CPU's inputs
+    internals = qsym.get_internals()
+    cpu_args = {k: v.as_in_context(cpu) for k, v in qarg.items()
+                if k in set(internals.list_arguments())}
+    cpu_args["data"] = mx.nd.array(xs, ctx=cpu)
+    cpu_aux = {k: v.as_in_context(cpu) for k, v in aux.items()}
+    t0 = time.perf_counter()
+    outs = internals.bind(cpu, cpu_args, grad_req="null",
+                          aux_states=cpu_aux).forward()
+    t_cpu = time.perf_counter() - t0
+    index = {}
+    k = 0
+    for n in qsym.topo_nodes():
+        for i in range(n.num_outputs):
+            index[(id(n), i)] = k
+            k += 1
+    fn = get_op("_contrib_quantized_conv").fn
+    equal = 0
+    for n in qsym.topo_nodes():
+        if n.op != "_contrib_quantized_conv":
+            continue
+        ins = [outs[index[(id(s), i)]]._data.to(dev) for s, i in n.inputs]
+        got = fn(*ins, **n.attrs)[0]
+        want = outs[index[(id(n), 0)]]._data
+        if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"route O: {n.name}'s int32 output on the "
+                                 f"card differs from the CPU's")
+        equal += 1
+    cpu_logits = outs[index[(id(qsym._outputs[0][0]),
+                             qsym._outputs[0][1])]]._data
+    del outs
+    # requantize takes its range from the batch (the table calibrates the
+    # quantize inputs, as imagenet_gen_qsym.py's naive mode does), so the
+    # logits depend on the batch: the card scores the CPU's images as one
+    # batch, through Module and its default pipeline
+    card = _module_logits(mx, qsym, qarg, aux, xs, ctx)
+    err = float((card.cpu() - cpu_logits).abs().max()
+                / cpu_logits.abs().max())
+    ctl_table = quant.CalibTable({k: (2 * lo, 2 * hi) for k, (lo, hi)
+                                  in table.ranges.items()}, mode="naive")
+    csym, cextra, _ = quant.quantize_symbol(sym, arg, table=ctl_table)
+    cq_arg = dict(arg)
+    cq_arg.update(cextra)
+    ctl = _module_logits(mx, csym, cq_arg, aux, xs, ctx)
+    ctl_err = float((ctl.cpu() - cpu_logits).abs().max()
+                    / cpu_logits.abs().max())
+    print(f"route O: against the CPU's plain path ({len(xs)} images, "
+          f"{t_cpu:.1f} s there): {equal} int8 convolutions' int32 outputs "
+          f"bitwise on the card given the CPU's inputs; the card's logits "
+          f"(Module, the same {len(xs)} images) max|d| / max|cpu| "
+          f"{err:.3e} (tol {TOL_INT8_LOGITS}); the control with every "
+          f"range doubled {ctl_err:.3e} (must miss)")
+    if equal != INT8_CONVS or not err <= TOL_INT8_LOGITS \
+            or not ctl_err > TOL_INT8_LOGITS:
+        raise AssertionError("route O: the card's int8 logits against the "
+                             "CPU's, or the control")
+    del csym, cextra, cq_arg, ctl, mod
+    _free()
+
+    # serving: the float model in its int8 tier, beside the float tier
+    params = {f"arg:{k}": v for k, v in arg.items()}
+    params.update({f"aux:{k}": v for k, v in aux.items()})
+    os.makedirs(workdir, exist_ok=True)
+    pfile = os.path.join(workdir, "resnet50_int8_tier.params")
+    mx.nd.save(pfile, params)
+    with open(pfile, "rb") as f:
+        pbytes = f.read()
+    xb = batches[1]
+    served, timing = {}, {}
+    for tier in ("f32", "int8"):
+        def server_for(buckets, wait_ms):
+            return ModelServer([ModelConfig(
+                "resnet50", sym.tojson(), pbytes, feature_shape=(3, S, S),
+                buckets=buckets, deadline_ms=0, max_wait_ms=wait_ms,
+                tier=tier, dev_type=2 if on_card else 1)])
+
+        # batch 1: one request at a time, no assembly window
+        t0 = time.perf_counter()
+        server = server_for((1,), 0.0).start(warm=True)
+        setup = time.perf_counter() - t0
+        try:
+            lat1 = []
+            for i in range(cfg["requests_b1"]):
+                t0 = time.perf_counter()
+                server.predict("resnet50", xb[i], timeout=300)
+                lat1.append(time.perf_counter() - t0)
+            st1 = server.stats("resnet50")
+        finally:
+            server.close()
+        # batch B: B requests at once, gathered into one dispatch
+        server = server_for((B,), 200.0).start(warm=True)
+        try:
+            t0 = time.perf_counter()
+            pending = [server.submit("resnet50", xb[i]) for i in range(B)]
+            got = np.stack([p.result(timeout=300) for p in pending])
+            lat_b = time.perf_counter() - t0
+            stats = server.stats("resnet50")
+            qcfg = server._models["resnet50"].cfg
+        finally:
+            server.close()
+        served[tier] = (got, qcfg)
+        timing[tier] = (setup, 1e3 * float(np.median(lat1[1:])),
+                        1e3 * lat_b, B / lat_b)
+        print(f"route O: served the {tier} tier: set-up (quantization "
+              f"included) {setup:.2f} s; batch 1 {timing[tier][1]:.2f} ms "
+              f"(median of {cfg['requests_b1'] - 1} after the first); {B} "
+              f"requests in {stats['batches']} dispatch(es) "
+              f"{timing[tier][2]:.1f} ms, {timing[tier][3]:.1f} images/s; "
+              f"counts {st1['counts']} and {stats['counts']}, deadline "
+              f"violations {st1['deadline_violations']} and "
+              f"{stats['deadline_violations']}, tier {stats['tier']}")
+        ok = all(st["tier"] == tier and st["counts"]["ok"] == n
+                 and st["deadline_violations"] == 0
+                 for st, n in ((st1, cfg["requests_b1"]), (stats, B)))
+        if not ok or stats["batches"] != 1:
+            raise AssertionError(f"route O: the {tier} tier's stats")
+        _free()
+    got, qcfg = served["int8"]
+    from mxnet_tpu_torch.native.predict_bridge import _load_param_bytes
+    tsym = mx.sym.load_json(qcfg.symbol_json)
+    targ, taux = _load_param_bytes(qcfg.param_bytes, ctx)
+    # the served graph itself (passes=False: the default pipeline would
+    # rewrite the float stem into its space-to-depth form, which rounds
+    # otherwise)
+    want = _module_logits(mx, tsym, targ, taux, xb, ctx,
+                          passes=False).cpu().numpy()
+    bitwise = np.array_equal(got, want)
+    n_tier = sum(1 for n in tsym.topo_nodes()
+                 if n.op == "_contrib_quantized_conv")
+    f_agree = float((got.argmax(1) == served["f32"][0].argmax(1)).mean())
+    print(f"route O: the int8 tier's graph ({n_tier} int8 convolutions, "
+          f"runtime ranges) served bitwise a Module forward of it on the "
+          f"card: {bitwise}; its top-1 agreement with the f32 tier "
+          f"{f_agree:.3f}")
+    if not bitwise or n_tier != INT8_CONVS:
+        raise AssertionError("route O: the served int8 outputs differ from "
+                             "Module's")
+    del targ, taux
+    _free()
+    os.remove(pfile)
+
+    if on_card:
+        rows = _int8_conv_times(mx, qsym, qarg, B, S, dev)
+        tot8 = sum(r[2] for r in rows)
+        tot32 = sum(r[3] for r in rows)
+        print(f"route O: the {len(rows)} int8 convolutions at batch {B}: "
+              f"{tot8:.2f} ms in all against cuDNN's float32 at the same "
+              f"shapes {tot32:.2f} ms (TF32 off); card {_card_line()}")
+        for name, (ds, ws), t8, t32 in sorted(rows, key=lambda r: -r[2])[:8]:
+            print(f"route O: conv {name}: data {ds}, weight {ws}: int8 "
+                  f"{t8:.3f} ms, float32 {t32:.3f} ms")
+    if any(hk.launch_counts.values()):
+        raise AssertionError(f"route O launched a Hopper kernel: "
+                             f"{dict(hk.launch_counts)}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7797,6 +8453,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     kernel_resources(libs)
 
+    # every graph-pass pipeline the routes run is recorded, printed and
+    # recounted on the host at each report below
+    audit = PassAudit()
     records = [kernel_phase(hk, dev)]
     records += backward_kernel_phase(hk, dev)
     records.append(ce_phase(hk, dev))
@@ -7840,6 +8499,8 @@ def main(argv=None) -> int:
         del module_w1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    audit.report("the LM's routes (serving, Module, fused, mixed, "
+                 "bucketing, sequential)")
     _free()
     # the conv nets: no TPU kernel is on their path (XLA lowered the JAX
     # package's convolutions and pools; cuDNN runs the port's)
@@ -7854,6 +8515,7 @@ def main(argv=None) -> int:
     resnet_gate_phase(mx)
     _free()
     zoo_phase(mx)
+    audit.report("routes A, B, C and the zoo")
     if any(hk.launch_counts.values()):
         raise AssertionError(f"the conv nets launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
@@ -7874,6 +8536,7 @@ def main(argv=None) -> int:
         bucketing_route_phase(mx, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    audit.report("the transformer twin and routes D and E")
     if any(hk.launch_counts.values()):
         raise AssertionError(f"the recurrent family launched a Hopper "
                              f"kernel: {dict(hk.launch_counts)}")
@@ -7886,6 +8549,7 @@ def main(argv=None) -> int:
         ssd_phase(mx, dev, workdir, args.profile)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    audit.report("route F")
     if any(hk.launch_counts.values()):
         raise AssertionError(f"route F launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
@@ -7904,6 +8568,7 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     _free()
     optimizer_card_phase(mx, dev)
+    audit.report("route G")
     if any(hk.launch_counts.values()):
         raise AssertionError(f"route G launched a Hopper kernel: "
                              f"{dict(hk.launch_counts)}")
@@ -7920,6 +8585,7 @@ def main(argv=None) -> int:
     dcgan_phase(mx, hk, dev, args.profile)
     _free()
     ctc_phase(mx, hk, dev)
+    audit.report("the op grid and routes H and I")
     _free()
     # slice 12: route J (CapsNet): no TPU kernel on its path (XLA lowered
     # the JAX package's convolutions, batch_dot and routing; cuDNN, cuBLAS
@@ -7941,6 +8607,7 @@ def main(argv=None) -> int:
         reference_formats_phase(mx, hk, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    audit.report("routes J, K and L")
     _free()
     # slice 14: route M (Faster R-CNN) and route N (the contrib op grid):
     # no TPU kernel on their paths (XLA lowered the JAX package's ROI ops,
@@ -7949,6 +8616,18 @@ def main(argv=None) -> int:
     faster_rcnn_phase(mx, hk, dev, args.profile)
     _free()
     route_n_phase(mx, hk, dev)
+    audit.report("routes M and N")
+    _free()
+    # slice 15: route O (int8 ResNet-50): no TPU kernel on its path (XLA
+    # lowered the JAX package's int8 products; cuBLASLt's int8 product
+    # and plain torch run the port's); the phase fails if one of B1-B4
+    # launches
+    try:
+        int8_phase(mx, hk, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    audit.report("route O")
+    audit.close()
     for rec in records:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in

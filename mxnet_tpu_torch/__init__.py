@@ -9,7 +9,9 @@ training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
 ``mx.kvstore`` and ``mx.parallel`` for symbolic and fused training, ``mx.rnn`` for the
 symbolic recurrent cells, ``mx.recordio`` and ``mx.image`` for the image
 data pipeline, ``mx.AttrScope`` for symbol attributes, ``mx.engine``,
-``mx.registry``, ``mx.util`` and ``mx.test_utils``) over plain
+``mx.registry``, ``mx.util`` and ``mx.test_utils``, ``mx.passes`` for
+graph rewrites, ``mx.quant`` and ``mx.contrib.quantization`` for int8)
+over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
 TPU (Pallas) kernel on a ported path is a hand-written Hopper kernel in
@@ -65,15 +67,15 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model", "kvstore",
            "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
            "recordio", "image", "kv", "serving", "interop", "engine",
-           "registry", "util", "test_utils"]
+           "registry", "util", "test_utils", "contrib", "passes", "quant"]
 
 
 def __getattr__(name):
     """``mx.serving``, ``mx.interop``, ``mx.engine``, ``mx.registry``,
-    ``mx.util`` and ``mx.test_utils`` import on first use, as in the JAX
-    package."""
+    ``mx.util``, ``mx.test_utils``, ``mx.contrib``, ``mx.passes`` and
+    ``mx.quant`` import on first use, as in the JAX package."""
     if name in ("serving", "interop", "engine", "registry", "util",
-                "test_utils"):
+                "test_utils", "contrib", "passes", "quant"):
         import importlib
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod

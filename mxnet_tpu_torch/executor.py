@@ -105,9 +105,35 @@ def _rnn_param_shapes(attrs, ds):
     return {"parameters": (n,), "state": state, "state_cell": state}
 
 
+def _quantized_ranges(shapes):
+    """The quantized ops' range inputs are scalars (reference
+    ``quantized_fully_connected.cc`` FInferShape)."""
+    shapes.update({k: () for k in ("min_data", "max_data", "min_weight",
+                                   "max_weight", "min_bias", "max_bias")})
+    return shapes
+
+
+def _quantized_fc_param_shapes(attrs, ds):
+    """The float op's weight and bias shapes (the bias always there)."""
+    return _quantized_ranges(_fc_param_shapes(dict(attrs, no_bias=False),
+                                              ds))
+
+
+def _quantized_conv_param_shapes(attrs, ds):
+    return _quantized_ranges(_conv_param_shapes(dict(attrs, no_bias=False),
+                                                ds))
+
+
+def _quantize_param_shapes(attrs, ds):
+    return {"min_range": (), "max_range": ()}
+
+
 _PARAM_SHAPE_RULES: Dict[str, Callable] = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
+    "_contrib_quantized_fully_connected": _quantized_fc_param_shapes,
+    "_contrib_quantized_conv": _quantized_conv_param_shapes,
+    "_contrib_quantize": _quantize_param_shapes,
     "Deconvolution": _deconv_param_shapes,
     "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
@@ -260,12 +286,39 @@ class _GraphLowering:
 
         return fn
 
+    @staticmethod
+    def _backfill_through_transposes(entry, shape, shapes) -> bool:
+        """A rule's parameter shape carried back through a chain of
+        ``transpose`` nodes to the variable under them (the layout pass
+        wraps conv weights in transposes where it does not re-home them);
+        True when a variable got its shape."""
+        src, _ = entry
+        perms = []
+        while not src.is_var and src.op == "transpose" and src.inputs:
+            axes = (src.attrs or {}).get("axes")
+            if not axes:
+                return False
+            perms.append(tuple(int(a) for a in axes))
+            src, _ = src.inputs[0]
+        if not src.is_var or src.name in shapes:
+            return False
+        for perm in perms:          # the outermost transpose first
+            if len(perm) != len(shape):
+                return False
+            inv = [0] * len(perm)
+            for i, p in enumerate(perm):
+                inv[p] = i
+            shape = tuple(shape[i] for i in inv)
+        shapes[src.name] = tuple(shape)
+        return True
+
     def infer_shapes(self, known: Dict[str, Tuple[int, ...]]):
         """Forward shape inference with parameter-shape backfill (and the
         variables' ``__shape__`` hints where ``known`` has no shape), in
         fixpoint sweeps (a node whose inputs are still unknown waits for
-        the next sweep); each op runs on ``meta`` tensors. The backfill
-        through pass-inserted transposes comes with the graph-pass layer."""
+        the next sweep); each op runs on ``meta`` tensors. A rule's shape
+        for an input that a pass wrapped in transposes goes back through
+        them to the variable (:meth:`_backfill_through_transposes`)."""
         shapes: Dict[str, Tuple[int, ...]] = {
             n.name: tuple(n.attrs["__shape__"]) for n in self.nodes
             if n.is_var and all(d > 0 for d in
@@ -292,11 +345,16 @@ class _GraphLowering:
                         except KeyError:
                             param_shapes = {}
                         for i, (src, _) in enumerate(node.inputs):
-                            if src.is_var and src.name not in shapes \
-                                    and i < len(arg_names) \
-                                    and arg_names[i] in param_shapes:
+                            if i >= len(arg_names) \
+                                    or arg_names[i] not in param_shapes:
+                                continue
+                            if src.is_var and src.name not in shapes:
                                 shapes[src.name] = param_shapes[arg_names[i]]
                                 progress = True
+                            elif not src.is_var:
+                                progress |= self._backfill_through_transposes(
+                                    node.inputs[i],
+                                    tuple(param_shapes[arg_names[i]]), shapes)
                 in_shapes = []
                 for (src, idx) in node.inputs:
                     s = shapes.get(src.name) if src.is_var \
@@ -497,6 +555,13 @@ class Executor:
                                     device=buf._data.device)
                 if req == "add":
                     buf._data.add_(g)
+                elif g.shape == buf._data.shape \
+                        and g.dtype == buf._data.dtype \
+                        and _channels_last(g) and not g.is_contiguous():
+                    # a gradient in another memory format (a weight's, from
+                    # a channels-last convolution) is taken as it is, not
+                    # copied back into the buffer's format
+                    buf._data = g
                 else:
                     buf._data.copy_(g)
         return self.grad_arrays
@@ -538,14 +603,27 @@ class Executor:
                     raise MXNetError(f"unknown {what} {k}")
 
 
+def _channels_last(t) -> bool:
+    """A dense 4-D or 5-D tensor in channels-last memory."""
+    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}.get(t.dim())
+    return fmt is not None and t.is_contiguous(memory_format=fmt)
+
+
 def _copy_into(dst, src) -> None:
     """Copy an NDArray, tensor or array-like into ``dst`` in place; a value
-    of another shape replaces the tensor."""
+    of another shape replaces the tensor (in ``dst``'s type), and so does
+    a value of another type where either is not floating (a quantized
+    graph's int8 weights bound over ``simple_bind``'s float32 zeros stay
+    int8)."""
     from .ndarray.ndarray import NDArray
     t = src._data if isinstance(src, NDArray) else torch.as_tensor(
         np.asarray(src))
-    if tuple(t.shape) == tuple(dst.shape):
+    d = dst._data
+    if t.dtype != d.dtype and not (t.is_floating_point()
+                                   and d.is_floating_point()):
+        dst._set_data(t.detach().to(d.device, copy=True))
+    elif tuple(t.shape) == tuple(dst.shape):
         with torch.no_grad():
-            dst._data.copy_(t)
+            d.copy_(t)
     else:
-        dst._set_data(t.detach().to(dst._data.dtype))
+        dst._set_data(t.detach().to(d.dtype))

@@ -21,7 +21,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=None, fixed_param_names=None,
-                 grad_req="write", state_names=None):
+                 grad_req="write", state_names=None, param_shapes=None):
         if len(contexts) != 1:
             raise NotImplementedError(
                 f"a Module over {len(contexts)} contexts: the port binds one "
@@ -48,21 +48,25 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = grad_req if for_training else "null"
         shapes = {d.name: d.shape for d in data_shapes}
         shapes.update({d.name: d.shape for d in label_shapes or []})
+        # the parameters' shapes where the module knows them (a rewritten
+        # graph may not let them be inferred from the data alone)
+        known = dict(param_shapes or {})
+        known.update(shapes)
         if shared_group is None:
             self.execs = [symbol.simple_bind(contexts[0],
                                              grad_req=self.grad_req,
-                                             **shapes)]
+                                             **known)]
         else:
             self.execs = [self._bind_shared(symbol, contexts[0], shapes,
-                                            shared_group.execs[0])]
+                                            shared_group.execs[0], known)]
 
-    def _bind_shared(self, symbol, ctx, shapes, shared):
+    def _bind_shared(self, symbol, ctx, shapes, shared, known):
         """Bind ``symbol`` over ``shared``'s arrays: every argument the
         shared executor has (the inputs excepted) and every auxiliary
         state is the same ``NDArray``; the inputs get arrays of this
         bucket's shapes. A shared parameter must keep its shape."""
         from ..ndarray.utils import zeros
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**known)
         args, grads = {}, {}
         for name, shape in zip(symbol.list_arguments(), arg_shapes):
             need_grad = self.grad_req[name] != "null"

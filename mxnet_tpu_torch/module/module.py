@@ -10,8 +10,16 @@ store (``init_optimizer(kvstore="local")``, the default, or a
 ``KVStore``) the optimizer runs in the store, as in the JAX package:
 ``update`` pushes every gradient and pulls every weight back, and the
 optimizer's states files go through the store. ``kvstore=None`` updates
-the executor's weights directly. Graph passes (``passes=``) wait for
-ROADMAP A9, stores across processes for A8.
+the executor's weights directly. Stores across processes wait for
+ROADMAP A8.
+
+The graph-pass pipeline (:mod:`mxnet_tpu_torch.passes`) rewrites the
+symbol at bind time, as in the JAX package: ``passes=None`` runs the
+``MXNET_PASSES`` default, ``False`` none. The module keeps the original
+symbol for checkpoints and shapes; only the executor binds the rewritten
+graph. No variable is re-homed on this path (the parameter arrays,
+``set_params`` and checkpoints keep the original shapes), so layout
+rewrites are transposes, which the port runs as views.
 """
 from __future__ import annotations
 
@@ -37,9 +45,9 @@ class Module(BaseModule):
                  state_names=None, group2ctxs=None, compression_params=None,
                  passes=None):
         super().__init__(logger)
-        if passes not in (None, False):
-            raise NotImplementedError("Module(passes=...): the port has no "
-                                      "graph passes yet (ROADMAP A9)")
+        from ..passes import resolve as _resolve_passes
+        self._passes = _resolve_passes(passes)
+        self._pass_result = None
         if group2ctxs or compression_params:
             raise NotImplementedError(
                 "group2ctxs / compression_params: placement across cards "
@@ -116,17 +124,66 @@ class Module(BaseModule):
             self._arg_params, self._aux_params = self.get_params()
         self._data_shapes = _descs(self._data_names, data_shapes)
         self._label_shapes = _descs(self._label_names, label_shapes or [])
+        bind_symbol = self._run_passes()
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, None, self._data_shapes,
+            bind_symbol, self._context, None, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad,
             shared_group=shared_module._exec_group if shared_module
             else None,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            param_shapes=self._original_shapes(bind_symbol))
         self.binded = True
         self.for_training = for_training
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def _run_passes(self):
+        """The symbol the executor binds: the pipeline's rewrite of the
+        module's symbol, or the symbol itself when passes are off or
+        rewrote nothing. A pipeline that raises leaves the graph
+        unrewritten, with a warning, as in the JAX package."""
+        self._pass_result = None
+        if self._passes is None:
+            return self._symbol
+        shapes = {d.name: tuple(d.shape) for d in self._data_shapes}
+        shapes.update({d.name: tuple(d.shape)
+                       for d in self._label_shapes or []})
+        try:
+            res = self._passes.run(self._symbol, shapes=shapes,
+                                   input_vars=tuple(shapes),
+                                   rehome_params=False)
+        except Exception as e:
+            self.logger.warning("graph-pass pipeline failed; binding the "
+                                "unrewritten graph: %r", e)
+            return self._symbol
+        if res.total_rewrites == 0:
+            return self._symbol
+        self._pass_result = res
+        return res.symbol
+
+    def _original_shapes(self, bind_symbol):
+        """The variables' shapes in the module's own graph, for binding a
+        rewrite of it: the names are the same (nothing is re-homed here),
+        and the rewrite may hide a weight's shape from the data's (the
+        space-to-depth stem's weight behind its pad and reshapes, where the
+        JAX package's bind fails)."""
+        if bind_symbol is self._symbol:
+            return None
+        feed = {d.name: tuple(d.shape) for d in self._data_shapes}
+        feed.update({d.name: tuple(d.shape)
+                     for d in self._label_shapes or []})
+        arg, _, aux = self._symbol.infer_shape(**feed)
+        shapes = dict(zip(self._symbol.list_arguments(), arg))
+        shapes.update(zip(self._symbol.list_auxiliary_states(), aux))
+        return {k: v for k, v in shapes.items()
+                if v is not None and k not in feed}
+
+    def passes_provenance(self):
+        """The pipeline's names and rewrite counts (one schema with
+        ``DataParallelTrainer``: ``passes.manager.provenance``)."""
+        from ..passes import provenance
+        return provenance(self._passes, self._pass_result)
 
     def reshape(self, data_shapes, label_shapes=None):
         """Bind again at new input shapes, keeping the parameters (and the

@@ -3,4 +3,4 @@ from . import registry
 from . import (matrix, broadcast_reduce, elemwise, index, nn,  # noqa: F401
                init_ops, rnn, multibox, ctc, order, hopper_kernels,
                random_ops, tail_ops, linalg, parity_ops,
-               contrib_ops)
+               contrib_ops, quantize_ops)

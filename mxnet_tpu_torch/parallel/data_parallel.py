@@ -39,6 +39,16 @@ The step's knobs, as the JAX package has them:
   skip is a ``torch.where``, and a step reads nothing back to the host
   (only :meth:`DataParallelTrainer.anomaly_stats` does).
 
+* ``passes`` — the graph-pass pipeline (:mod:`mxnet_tpu_torch.passes`)
+  over the captured loss graph before it is lowered: ``None`` the
+  ``MXNET_PASSES`` default, ``False`` none, a ``PassManager`` or spec
+  string a custom one. Parameters the pipeline re-homes (OHWI conv
+  weights, the space-to-depth stem's) are transformed at capture and
+  transformed back by :meth:`DataParallelTrainer.sync_to_net`, so the net
+  keeps its own layout; a transposed weight stays a view of the
+  trainer's copy, in the net's memory layout, so cuDNN sees the layout
+  it saw without the pass.
+
 One card per process in this slice (``mesh=None`` is ``gpu(0)``, where the
 JAX package spans every local device). The other knobs raise
 ``NotImplementedError`` naming the ROADMAP item they wait for.
@@ -54,8 +64,9 @@ from torch.utils import checkpoint as _ckpt
 
 from .. import autograd
 from .. import random as _random
-from ..base import MXNetError
+from ..base import MXNetError, logger
 from ..executor import _GraphLowering
+from ..passes import manager as _passes
 from ..ndarray.ndarray import NDArray, torch_dtype
 from ..resilience import recovery as _recovery
 from .fused_rules import FusedRule
@@ -188,16 +199,15 @@ class DataParallelTrainer:
                 raise NotImplementedError(
                     f"DataParallelTrainer({knob}=...) waits for ROADMAP "
                     f"{_UNPORTED[knob]}")
-        if passes not in (None, False):
-            raise NotImplementedError("DataParallelTrainer(passes=...): the "
-                                      "port has no graph passes yet "
-                                      "(ROADMAP A9)")
         if grad_reduce != "all_reduce":
             raise NotImplementedError(
                 f"grad_reduce={grad_reduce!r} (ZeRO-1) waits for ROADMAP A1 "
                 f"(the NCCL multi-card DataParallelTrainer)")
         self._net = net
         self._loss_block = loss
+        self._passes = _passes.resolve(passes)
+        self._pass_result = None
+        self._pass_info: Dict[str, Any] = {}
         self._mesh = mesh or local_mesh(data_axis)
         self._device = self._mesh.devices[0].torch_device()
         self._compute_dtype = (torch_dtype(compute_dtype)
@@ -239,9 +249,12 @@ class DataParallelTrainer:
         ``null``) and of the auxiliary ones."""
         from .. import symbol as sym_mod
         params = self._net.collect_params()
+        init_arrays = arrays if self._passes is None \
+            else self._passes.init_view(arrays)
         if any(p._data is None for p in params.values()):
             with autograd.pause():
-                self._net(*[NDArray(a) for a in arrays[:-1]])
+                self._net(*[NDArray(torch.as_tensor(a))
+                            for a in init_arrays[:-1]])
         data_syms = [sym_mod.Variable(f"__data{i}")
                      for i in range(len(arrays) - 1)]
         out = self._net(*data_syms)
@@ -249,6 +262,7 @@ class DataParallelTrainer:
             out = out[0]
         loss_sym = self._loss_block(out, sym_mod.Variable("__label"))
         self._data_names = [s.name for s in data_syms] + ["__label"]
+        loss_sym = self._run_passes(loss_sym, init_arrays)
         var_names = {n.name for n in loss_sym.topo_nodes() if n.is_var}
         self._pmap = {p.name: p for p in params.values()
                       if p.name in var_names}
@@ -260,7 +274,7 @@ class DataParallelTrainer:
 
         def copy(n, grad):
             t = self._pmap[n].data()._data.detach().to(dev, copy=True)
-            return t.requires_grad_(grad)
+            return self._placed_param(n, t).requires_grad_(grad)
 
         self._params = {n: copy(n, True) for n in self._param_names}
         self._aux = {n: copy(n, False) for n in self._aux_names}
@@ -276,6 +290,57 @@ class DataParallelTrainer:
             is_train=True,
             segment=self._checkpointed if self._remat else None)
         self._n_inputs = len(arrays)
+
+    # ------------------------------------------------------------- passes
+    def _run_passes(self, loss_sym, init_arrays):
+        """The configured pipeline over the captured loss graph: input
+        shapes from the sample batch as the net takes it, parameter shapes
+        from the net's parameters. A pipeline that raises leaves the graph
+        unrewritten, with a warning, as in the JAX package."""
+        from ..passes.layout import is_nchw_conv
+        self._pass_result = None
+        self._pass_info = {
+            "nchw_convs": sum(1 for n in loss_sym.topo_nodes()
+                              if not n.is_var and is_nchw_conv(n)),
+            "layout_enabled": (self._passes is not None
+                               and "layout" in self._passes.names)}
+        if self._passes is None:
+            return loss_sym
+        shapes, pnames = {}, set()
+        for p in self._net.collect_params().values():
+            pnames.add(p.name)
+            if p.shape and all(int(d) > 0 for d in p.shape):
+                shapes[p.name] = tuple(int(d) for d in p.shape)
+        for name, a in zip(self._data_names, init_arrays):
+            shapes[name] = tuple(int(d) for d in a.shape)
+        try:
+            res = self._passes.run(loss_sym, shapes=shapes,
+                                   input_vars=self._data_names,
+                                   param_names=pnames)
+        except Exception as e:
+            logger.warning("graph-pass pipeline failed; capturing the "
+                           "unrewritten graph: %r", e)
+            return loss_sym
+        self._pass_info["rewrites"] = dict(res.counts)
+        if res.total_rewrites == 0:
+            return loss_sym
+        self._pass_result = res
+        return res.symbol
+
+    def _placed_param(self, name, value):
+        """A parameter's value as the rewritten graph takes it: the
+        recorded transform of a re-homed variable (a transpose stays a
+        view), else the value itself."""
+        if self._pass_result is None or \
+                name not in self._pass_result.var_transforms:
+            return value
+        return self._pass_result.transform_var(name, value)
+
+    def passes_provenance(self) -> Dict[str, Any]:
+        """Which passes this trainer runs and what they rewrote (one schema
+        with ``Module``: ``passes.manager.provenance``)."""
+        return _passes.provenance(self._passes, self._pass_result,
+                                  self._pass_info.get("rewrites"))
 
     # ------------------------------------------------------------- step
     def _checkpointed(self, run, *tensors):
@@ -357,10 +422,14 @@ class DataParallelTrainer:
 
     def sync_to_net(self) -> None:
         """Copy the trainer's parameters and auxiliary states into the
-        net's, in place on each parameter's device."""
+        net's, in place on each parameter's device; a re-homed parameter
+        is transformed back to the net's layout first."""
+        res = self._pass_result
         with torch.no_grad():
             for src in (self._params, self._aux):
                 for n, t in src.items():
+                    if res is not None and n in res.var_transforms:
+                        t = res.inverse_var(n, t)
                     self._pmap[n].data()._data.copy_(t)
 
     # ------------------------------------------------------------- guard

@@ -20,10 +20,14 @@ instead of collapsing:
 - **drain** — :meth:`ModelServer.drain` / :meth:`ModelServer.close`:
   accepted work finishes, new work gets a typed ``Draining``.
 
+A model may be served in its int8 tier (``ModelConfig(tier="int8")`` or
+``MXNET_SERVE_TIER=int8``): a float graph is quantized once, when the
+server builds the model's state (:func:`mxnet_tpu_torch.quant.ensure_tier`).
+
 Request tracing, hedging, the device sentinel and degraded ladder, the
-fleet, rollouts, the int8 tier, memory accounting and the SIGTERM drain
-hook are later slices of the port (ROADMAP A); a keyword that would turn
-one of them on raises ``NotImplementedError`` naming its item.
+fleet, rollouts, memory accounting and the SIGTERM drain hook are later
+slices of the port (ROADMAP A); a keyword that would turn one of them on
+raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -62,10 +66,14 @@ register_config("MXNET_SERVE_BREAKER_COOLDOWN", 5.0, float,
 register_config("MXNET_SERVE_RETRY_BUDGET", 0.1, float,
                 "Retry-budget fraction: retries may spend at most ~this "
                 "fraction of admitted traffic. 0 disables the budget.")
+register_config("MXNET_SERVE_TIER", "f32", str,
+                "Default serving tier for models whose ModelConfig names "
+                "none: 'f32' serves the graph as loaded; 'int8' quantizes "
+                "symbol and params when the server starts "
+                "(quant.ensure_tier). Per model: ModelConfig(tier=...).")
 
 #: keyword -> (value that leaves the feature off, ROADMAP item)
 _LATER_SLICES = {
-    "tier": ((None, "f32"), "A4 serving: int8 tier"),
     "trace": ((None, False), "A4 serving: request tracing"),
     "trace_sample": ((None,), "A4 serving: request tracing"),
     "slo_p99_ms": ((None, 0, 0.0), "A4 serving: SLO burn-rate tracking"),
@@ -156,6 +164,7 @@ class ModelConfig:
                  dev_type: int = 2, dev_id: int = 0,
                  output_keys: Optional[List[str]] = None,
                  retry_budget: Optional[float] = None,
+                 tier: Optional[str] = None,
                  **later):
         for key, value in later.items():
             if key not in _LATER_SLICES:
@@ -202,6 +211,11 @@ class ModelConfig:
         if not 0.0 <= self.retry_budget <= 1.0:
             raise MXNetError("retry_budget must be in [0, 1], got %r"
                              % (self.retry_budget,))
+        self.tier = str(get_env("MXNET_SERVE_TIER", "f32")
+                        if tier is None else tier).lower()
+        if self.tier not in ("f32", "int8"):
+            raise MXNetError("tier must be 'f32' or 'int8', got %r"
+                             % (self.tier,))
         self.dev_type, self.dev_id = int(dev_type), int(dev_id)
         self.output_keys = output_keys
 
@@ -210,6 +224,11 @@ class _ModelState:
     """Per-model runtime: queue, worker, bucket cache, breaker, stats."""
 
     def __init__(self, cfg: ModelConfig):
+        if cfg.tier == "int8":
+            # the int8 tier resolved once, here: a float graph is
+            # quantized (ensure_tier leaves a quantized one as it is)
+            from ..quant import ensure_tier
+            cfg = ensure_tier(cfg)
         self.cfg = cfg
         self.queue = BoundedRequestQueue(cfg.max_queue)
         self.cache = BucketExecutorCache(
@@ -539,6 +558,7 @@ class ModelServer:
                 "buckets": list(st.cache.buckets),
                 "buckets_compiled": st.cache.compiled_buckets(),
                 "bucket_provenance": st.cfg.bucket_provenance,
+                "tier": st.cfg.tier,
             }
         if st.budget is not None:
             out["retry_budget"] = st.budget.stats()

@@ -326,7 +326,7 @@ def test_sync_to_net_is_bitwise():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("passes", "default", "A9"), ("kvstore", "dist_sync", "A1"),
+    ("kvstore", "dist_sync", "A1"),
     ("grad_reduce", "reduce_scatter", "A1"), ("bucket_bytes", 1 << 20, "A1"),
     ("compression", {"type": "2bit"}, "A8"),
     ("step_attribution", True, "A9"),

@@ -30,7 +30,9 @@ outputs equal), a ``Module`` step of the small SSD twin on records read
 by ``ImageDetRecordIter`` straight onto the card, and ``DataLoader``'s
 page-locked batches. Slice 14: the contrib op grid, ``gluon.CachedOp``, a
 ``Conv2DLSTMCell`` unroll and the ``mini_rcnn_torch`` twin on the card
-against the CPU. The kernel paths are one item and the model families
+against the CPU. Slice 15: the int8 ops (``torch._int_mm`` products)
+bitwise the CPU's, a quantized net through ``Module``, and the default
+graph-pass pipeline. The kernel paths are one item and the model families
 another; each loops over its cases and names the ones that fail. Marked
 ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a
 machine that has only PyTorch:
@@ -1204,12 +1206,80 @@ def _check_slice_14_on_card(cuda, cs):
     assert not any(hk.launch_counts.values()), dict(hk.launch_counts)
 
 
+def _slice_15_on_card_matches_cpu(cuda, cs):
+    """Slice 15 on the card against the CPU: every case of
+    ``chip_smoke.quant_op_cases`` (the codecs, the int32 products through
+    ``torch._int_mm`` with the rows, reduction and columns it needs
+    padded, grouped, dilated, 1-D and channel-last convolutions, pooling,
+    flatten, concat) bitwise; a float weight refused on the card (no
+    float fallback); a small net quantized end to end (no float layer)
+    through ``Module`` bitwise; and the default pipeline's rewrites of a
+    conv net's ``Module`` the CPU's. No Hopper kernel launched."""
+    from mxnet_tpu_torch import quant
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.ops.registry import get_op
+    hk.reset_launch_counts()
+    failed = []
+    for cid, op, inputs, attrs in cs.quant_op_cases():
+        want = cs.run_quant_case(op, inputs, attrs)
+        got = cs.run_quant_case(op, inputs, attrs, device=cuda)
+        if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                   for g, w in zip(got, want)):
+            failed.append(cid)
+    assert not failed, f"int8 cases differ on the card: {failed}"
+    x = torch.randint(-127, 128, (2, 3, 5, 5), dtype=torch.int8,
+                      device=cuda)
+    r = [torch.tensor(v, device=cuda) for v in (-1.0, 1.0) * 3]
+    if cuda.type == "cuda":
+        with pytest.raises(MXNetError, match="int8"):
+            get_op("_contrib_quantized_conv").fn(
+                x, torch.ones(4, 3, 3, 3, device=cuda),
+                torch.zeros(4, dtype=torch.int8, device=cuda), *r,
+                kernel=(3, 3), num_filter=4)
+
+    def net(S):
+        h = S.sym.Convolution(S.sym.Variable("data"), num_filter=8,
+                              kernel=(3, 3), pad=(1, 1), name="c1")
+        h = S.sym.Activation(h, act_type="relu")
+        h = S.sym.Convolution(h, num_filter=16, kernel=(3, 3),
+                              stride=(2, 2), num_group=2, name="c2")
+        return S.sym.FullyConnected(S.sym.Flatten(h), num_hidden=5,
+                                    name="fc")
+
+    sym = net(mx)
+    xs = np.random.RandomState(0).uniform(-1, 1, (4, 3, 8, 8)).astype("f")
+    shapes, _, _ = sym.infer_shape(data=xs.shape)
+    rs = np.random.RandomState(1)
+    values = {n: rs.uniform(-0.3, 0.3, s).astype("f")
+              for n, s in zip(sym.list_arguments(), shapes) if n != "data"}
+    outs, provs = [], []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        arg = {k: mx.nd.array(v, ctx=ctx) for k, v in values.items()}
+        qsym, qarg, _, _ = quant.quantize_model(
+            sym, arg, calib_mode="naive", calib_iter=[mx.nd.array(xs,
+                                                                  ctx=ctx)],
+            exclude_first_conv=False, exclude_last_fc=False, ctx=ctx)
+        outs.append(cs._module_logits(mx, qsym, qarg, {}, xs, ctx)
+                    .cpu().numpy())
+        mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                            context=ctx)
+        mod.bind(data_shapes=[("data", xs.shape)], for_training=False)
+        provs.append(mod.passes_provenance())
+        assert cq.quantize_params({"w": arg["c1_weight"]})[
+            "w_quantized"].context == ctx
+    assert np.array_equal(outs[0], outs[1])
+    assert provs[0] == provs[1] and provs[0]["rewrites"]["layout"] == 2, \
+        provs
+    assert not any(hk.launch_counts.values()), dict(hk.launch_counts)
+
+
 def test_model_families_on_card_match_cpu(cuda, cs, tmp_path):
     """The model families on the card: the conv nets (ResNet-18 NHWC bf16
     fused steps, the NHWC net against the NCHW net, the "full" pooling
     convention), the recurrent family (the ``RNN`` op and a word-LM step),
-    the detection family, slices 11 to 13 and slice 14, each against the
-    CPU. No Hopper kernel launched by the slices' checks."""
+    the detection family, slices 11 to 13, slice 14 and slice 15 (the
+    int8 family, the graph passes), each against the CPU. No Hopper kernel
+    launched by the slices' checks."""
     _each([
         ("resnet18_nhwc_bf16_fused_steps_on_card", lambda: _resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs)),
         ("nhwc_net_equals_nchw_net_on_card", lambda: _nhwc_net_equals_nchw_net_on_card(cuda, cs)),
@@ -1219,4 +1289,5 @@ def test_model_families_on_card_match_cpu(cuda, cs, tmp_path):
         ("detection_family_on_card_matches_cpu", lambda: _detection_family_on_card_matches_cpu(cuda, tmp_path)),
         ("slices_11_to_13_on_card_match_cpu", lambda: _slices_11_to_13_on_card_match_cpu(cuda, cs, tmp_path)),
         ("slice_14_on_card_matches_cpu", lambda: _slice_14_on_card_matches_cpu(cuda, cs)),
+        ("slice_15_on_card_matches_cpu", lambda: _slice_15_on_card_matches_cpu(cuda, cs)),
     ])

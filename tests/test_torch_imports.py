@@ -33,7 +33,21 @@ SLICE_12_TWINS = ("example/capsnet/capsnet_torch.py",
                   "example/restricted-boltzmann-machine/rbm_torch.py",
                   "example/bayesian-methods/bbb_torch.py")
 SLICE_13_TWINS = ("example/sparse/linear_classification_torch.py",
-                  "example/rcnn/mini_rcnn_torch.py")
+                  "example/rcnn/mini_rcnn_torch.py",
+                  "example/quantization/quantize_mlp_torch.py")
+SLICE_15 = ("mxnet_tpu_torch/ops/quantize_ops.py",
+            "mxnet_tpu_torch/passes/__init__.py",
+            "mxnet_tpu_torch/passes/manager.py",
+            "mxnet_tpu_torch/passes/fold.py",
+            "mxnet_tpu_torch/passes/layout.py",
+            "mxnet_tpu_torch/passes/s2d.py",
+            "mxnet_tpu_torch/passes/fusion.py",
+            "mxnet_tpu_torch/quant/__init__.py",
+            "mxnet_tpu_torch/quant/calib.py",
+            "mxnet_tpu_torch/quant/qpass.py",
+            "mxnet_tpu_torch/quant/flow.py",
+            "mxnet_tpu_torch/contrib/__init__.py",
+            "mxnet_tpu_torch/contrib/quantization.py")
 
 
 def _port_files():
@@ -137,7 +151,7 @@ def test_no_jax_import_in_the_port():
             "mxnet_tpu_torch/gluon/contrib/rnn/conv_rnn_cell.py",
             "mxnet_tpu_torch/gluon/contrib/data/sampler.py"} \
         | set(IMAGE_CLASSIFICATION) | set(SLICE_11_TWINS) \
-        | set(SLICE_12_TWINS) | set(SLICE_13_TWINS) <= rel
+        | set(SLICE_12_TWINS) | set(SLICE_13_TWINS) | set(SLICE_15) <= rel
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -189,6 +203,11 @@ def test_importing_the_port_loads_no_jax():
             "mxnet_tpu_torch.gluon.contrib.rnn, "
             "mxnet_tpu_torch.gluon.contrib.data; "
             "sys.path[:0] = ['example/rcnn']; import mini_rcnn_torch; "
+            "import mxnet_tpu_torch.passes, mxnet_tpu_torch.quant, "
+            "mxnet_tpu_torch.contrib.quantization, "
+            "mxnet_tpu_torch.ops.quantize_ops; "
+            "sys.path[:0] = ['example/quantization']; "
+            "import quantize_mlp_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -202,9 +221,20 @@ def test_importing_the_port_loads_no_jax():
     # setters
     import mxnet_tpu_torch as mx
     for name in ("serving", "interop", "engine", "registry", "util",
-                 "test_utils"):
+                 "test_utils", "contrib", "passes", "quant"):
         vars(mx).pop(name, None)
         assert getattr(mx, name) is sys.modules[f"mxnet_tpu_torch.{name}"]
+    # slice 15: the JAX package's names of passes, quant and the int8 ops
+    import mxnet_tpu.passes as jpasses
+    import mxnet_tpu.quant as jquant
+    assert set(jpasses.__all__) <= set(mx.passes.__all__)
+    assert mx.quant.__all__ == jquant.__all__
+    from mxnet_tpu_torch.ops.registry import get_op
+    for op in ("_contrib_quantize", "_contrib_dequantize",
+               "_contrib_requantize", "_contrib_quantized_fully_connected",
+               "_contrib_quantized_conv", "_contrib_quantized_pooling",
+               "_contrib_quantized_flatten", "_contrib_quantized_concat"):
+        assert get_op(op).differentiable is False, op
     assert mx.nd.contrib is sys.modules["mxnet_tpu_torch.ndarray.contrib"]
     assert mx.sym.contrib is sys.modules["mxnet_tpu_torch.symbol.contrib"]
     assert mx.nd.sparse is sys.modules["mxnet_tpu_torch.ndarray.sparse"]
