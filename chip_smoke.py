@@ -255,6 +255,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tier (``ModelConfig(tier="int8")``) bitwise a ``Module`` of its graph,
    beside the float tier, and each int8 convolution timed against
    cuDNN's float32 one at its shape.
+
+Between 9 and 10 runs route P (``route_p_phase``): the bf16 fused route of
+phase 9 with ``grad_guard`` takes three steps, is saved by
+``checkpoint.ShardedCheckpointer`` asynchronously (parameters, momentum,
+update count and guard state, ~9.8 GB at the four layers) while steps 4-5
+run, and a fresh trainer restored from step 3 must take steps 4-5 to the
+uninterrupted run's state bitwise; a truncated payload file must fail
+``verify`` and ``restore``. The LM's ``Module`` route then trains two
+batches under ``fit(monitor=Monitor(1))`` (each value against
+``abs(x).mean()`` of the output on the host, launch counts unchanged),
+and ``mx.viz.print_summary`` counts the LM's graph.
 Every ``Module`` and fused trainer runs the default graph-pass pipeline
 (``passes=None``); ``PassAudit`` prints each one's
 ``passes_provenance()`` by route group and fails a group whose pipeline
@@ -283,6 +294,7 @@ bf16 times at the main shape under ``"bf16"``); the last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -2558,6 +2570,321 @@ def mixed_phase(mx, hk, dev, prefix, f32_errs, profile=False):
     mixed_gate(hk, w0, w1, torch.from_numpy(x).long().to(dev),
                torch.from_numpy(y).long().to(dev),
                torch.from_numpy(table).to(dev), f32_errs)
+    return total
+
+
+# --------------------------------------------- route P: checkpoint, monitor
+ROUTE_P_STEPS = 5            # the uninterrupted run; the save after step 3
+ROUTE_P_SAVE_AT = 3
+ROUTE_P_MONITOR_BATCHES = 2
+TOL_MONITOR_HOST = 1e-6      # a toc() value against abs(x).mean() in float64
+
+
+def route_p_batches(n):
+    """``n`` training batches (int32 token ids, float32 next-token labels)
+    of the full context from the seed, one for each step."""
+    rng = np.random.RandomState(SEED + 17)
+    shape = (TRAIN_BATCH, OPT_6_7B["max_len"])
+    return [(rng.randint(0, OPT_6_7B["vocab"], shape).astype(np.int32),
+             rng.randint(0, OPT_6_7B["vocab"], shape).astype(np.float32))
+            for _ in range(n)]
+
+
+def summary_rule_count(sym, shapes) -> int:
+    """The parameter count ``print_summary`` gives ``sym`` by its counting
+    rules (the JAX package's and the reference's): Embedding's table, a
+    FullyConnected's ``num_hidden`` times the product of its input's
+    dimensions after the first (0 where the input's node has several
+    outputs, whose shapes are not keyed by its name) plus the bias,
+    Convolution and BatchNorm; LayerNorm's gamma and beta are not
+    counted."""
+    internals = sym.get_internals()
+    _, out_shapes, _ = internals.infer_shape(**shapes)
+    known = dict(zip(internals.list_outputs(), out_shapes))
+    total = 0
+    for node in sym.topo_nodes():
+        if node.op == "Embedding":
+            total += int(node.attrs["input_dim"]) * int(
+                node.attrs["output_dim"])
+        elif node.op == "FullyConnected":
+            src = node.inputs[0][0]
+            width = known.get(src.name + "_output", known.get(src.name))
+            hidden = int(node.attrs["num_hidden"])
+            total += hidden * (int(np.prod(width[1:])) if width else 0)
+            if node.attrs.get("no_bias") not in ("True", "true", True):
+                total += hidden
+        elif node.op in ("Convolution", "BatchNorm"):
+            raise AssertionError("the LM has no convolution or BatchNorm")
+    return total
+
+
+def route_p_phase(mx, hk, dev, prefix, workdir):
+    """Route P: the bf16 fused route checkpointed, resumed and monitored.
+
+    1. ``DataParallelTrainer(compute_dtype="bfloat16", grad_guard=True)``
+       over ``SymbolBlock.imports`` of the exported LM takes three steps;
+       ``ShardedCheckpointer.save(3, params, aux=<optimizer and guard
+       state>, async_save=True)`` writes while steps 4-5 run; a fresh
+       trainer restores step 3 onto its own tensors (``like=``) and takes
+       steps 4-5 on the same batches: its parameters, optimizer and guard
+       state must equal the uninterrupted run's bitwise. A second async
+       save (step 5) times the page-locked buffer's reuse. A payload file of
+       the committed step is then truncated: ``verify`` must say False and
+       ``restore`` must raise. ``Monitor.install_trainer`` reports the
+       uninterrupted trainer's ``anomaly_stats``.
+    2. The LM's ``Module`` route (B1, B3, B2 in float32) through
+       ``fit(monitor=Monitor(1))`` for two batches: every value ``toc()``
+       reports against ``abs(x).mean()`` of the same output on the host,
+       and the launches of each batch against ``per_step_launches(1)``.
+    3. ``mx.viz.print_summary`` of the LM's symbol: its total against the
+       counting rules (``summary_rule_count``), beside the trainer's
+       parameter count.
+
+    Returns {kernel name: launches} of parts 1 and 2."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.checkpoint import ShardedCheckpointer
+    t_phase = time.perf_counter()
+    cfg = OPT_6_7B
+    T, B, L = cfg["max_len"], TRAIN_BATCH, cfg["layers"]
+    table = sinusoid_table(T, cfg["units"])
+    batches = route_p_batches(ROUTE_P_STEPS)
+    total = {}
+    hk.reset_launch_counts()
+
+    def trainer_for():
+        block = gluon.SymbolBlock.imports(prefix + "-symbol.json",
+                                          ["data", "pos_table"],
+                                          prefix + "-0000.params",
+                                          ctx=mx.gpu(dev.index))
+        return parallel.DataParallelTrainer(
+            block, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": fused_lr, "momentum": FUSED_MOMENTUM},
+            compute_dtype="bfloat16", grad_guard=True)
+
+    def run_step(trainer, i):
+        ids, y = batches[i]
+        before = dict(hk.launch_counts)
+        before_dt = dict(hk.launch_dtypes)
+        out = []
+        t_host, _, t_step = _timed_step(
+            lambda: out.append(trainer.step(ids, table, y)))
+        step = {k: v - before.get(k, 0) for k, v in hk.launch_counts.items()}
+        if step != per_step_launches(0):
+            raise AssertionError(f"route P step {i + 1} launched {step}, "
+                                 f"expected {per_step_launches(0)}")
+        if any(dt != "bfloat16" for (k, dt), v in hk.launch_dtypes.items()
+               if v != before_dt.get((k, dt), 0)):
+            raise AssertionError(f"route P: a kernel took inputs other "
+                                 f"than bf16: {dict(hk.launch_dtypes)}")
+        for k, v in step.items():
+            total[k] = total.get(k, 0) + v
+        return out[0].asscalar().item(), t_step * 1e3, t_host * 1e3
+
+    # part 1: the uninterrupted run, saved after step 3 while 4-5 run
+    ckdir = os.path.join(workdir, "route_p")
+    ck = ShardedCheckpointer(ckdir)
+    full = trainer_for()
+    losses, step_ms, host_ms = [], [], []
+    for i in range(ROUTE_P_SAVE_AT):
+        loss, ms, hms = run_step(full, i)
+        losses.append(loss), step_ms.append(ms), host_ms.append(hms)
+    params, aux = full._checkpoint_trees()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(params.values()) + list(aux.values()))
+    n_params = sum(t.numel() for t in params.values())
+    def save(step, params, aux):
+        """An async save: (seconds until save() returned, seconds until
+        the snapshot's copy to page-locked memory was done on the card)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, params, aux=aux, async_save=True,
+                manifest={"step": step, "seed": SEED, "route": "P"})
+        t_call = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t0, t_call, time.perf_counter() - t0 - t_call
+
+    t0, t_call, t_copy = save(ROUTE_P_SAVE_AT, params, aux)
+    del params, aux
+    for i in range(ROUTE_P_SAVE_AT, ROUTE_P_STEPS):
+        loss, ms, hms = run_step(full, i)
+        losses.append(loss), step_ms.append(ms), host_ms.append(hms)
+    t1 = time.perf_counter()
+    ck.wait_until_finished()
+    t_done = time.perf_counter()
+    t_wait = t_done - t1
+    save_s = t_done - t0
+    # a second save reuses the page-locked buffer the first one made
+    params, aux = full._checkpoint_trees()
+    t2, t_call2, t_copy2 = save(ROUTE_P_STEPS, params, aux)
+    del params, aux
+    ck.wait_until_finished()
+    save2_s = time.perf_counter() - t2
+    print(f"route P: depth {L} of 32 (OPT-6.7B widths), {n_params:,} "
+          f"parameters; the checkpoint holds {nbytes / 1e9:.3f} GB "
+          f"(parameters float32, the SGD momentum, the update count, the "
+          f"guard's state); losses {losses}; step times {step_ms} ms "
+          f"(steps 4-5 overlap the save), host dispatch {host_ms} ms")
+    print(f"route P: the first save() returned in {t_call * 1e3:.1f} ms "
+          f"(page-locking the {nbytes / 1e9:.3f} GB buffer, then the "
+          f"snapshot's copy enqueued), the copy done on the card "
+          f"{t_copy * 1e3:.1f} ms later ({nbytes / 1e9 / t_copy:.1f} GB/s); "
+          f"wait_until_finished after step {ROUTE_P_STEPS} took "
+          f"{t_wait:.2f} s; the save took {save_s:.2f} s from the call to "
+          f"the commit ({nbytes / 1e9 / save_s:.2f} GB/s). A second save "
+          f"(step {ROUTE_P_STEPS}, the buffer reused) returned in "
+          f"{t_call2 * 1e3:.1f} ms, its copy done {t_copy2 * 1e3:.1f} ms "
+          f"later, committed in {save2_s:.2f} s "
+          f"({nbytes / 1e9 / save2_s:.2f} GB/s); card {_card_line()}")
+    mon = mx.monitor.Monitor(1)
+    mon.install_trainer(full)
+    mon.tic()
+    stats = full.anomaly_stats()
+    tapped = mon.toc()
+    print(f"route P: Monitor.install_trainer reports {tapped}")
+    if [(k, v) for _, k, v in tapped] != [(k, str(v)) for k, v in
+                                          sorted(stats.items())] \
+            or stats["grad_skipped_steps"] != 0:
+        raise AssertionError(f"route P: the monitor's trainer taps "
+                             f"{tapped} are not anomaly_stats {stats}")
+    # the resumed run: a fresh trainer, step 3 restored onto its tensors
+    resumed = trainer_for()
+    rparams, raux = resumed._checkpoint_trees(batches[0][0], table,
+                                              batches[0][1])
+    like = dict(rparams, **{"__aux__" + k: v for k, v in raux.items()})
+    del rparams, raux
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore(ROUTE_P_SAVE_AT, like=like)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    resumed._load_checkpoint(restored)
+    del restored, like
+    r_losses, r_ms = [], []
+    for i in range(ROUTE_P_SAVE_AT, ROUTE_P_STEPS):
+        loss, ms, _ = run_step(resumed, i)
+        r_losses.append(loss), r_ms.append(ms)
+    fp, fa = full._checkpoint_trees()
+    rp, ra = resumed._checkpoint_trees()
+    differ = sorted(n for n in list(fp) + list(fa)
+                    if not torch.equal((fp.get(n, fa.get(n))),
+                                       rp.get(n, ra.get(n))))
+    print(f"route P: restore of step {ROUTE_P_SAVE_AT} (verify, read, "
+          f"copy onto the card) {t_restore:.2f} s "
+          f"({nbytes / 1e9 / t_restore:.2f} GB/s); resumed losses "
+          f"{r_losses} against {losses[ROUTE_P_SAVE_AT:]}; resumed step "
+          f"times (no save) {r_ms} ms against {step_ms[ROUTE_P_SAVE_AT:]} "
+          f"ms with the save; tensors that differ from the uninterrupted "
+          f"run: {differ}")
+    if differ or r_losses != losses[ROUTE_P_SAVE_AT:]:
+        raise AssertionError(f"route P: the resumed run differs from the "
+                             f"uninterrupted one in {differ}")
+    del fp, fa, rp, ra, full, resumed
+    # the torn-file control
+    man = ck.read_manifest(ROUTE_P_SAVE_AT)
+    victim = next(e["path"] for e in man["files"]
+                  if e["path"].startswith("data/"))
+    path = os.path.join(ckdir, f"step_{ROUTE_P_SAVE_AT}", victim)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    ok = ck.verify(ROUTE_P_SAVE_AT)
+    try:
+        ck.restore(ROUTE_P_SAVE_AT)
+        refused = False
+    except mx.MXNetError:
+        refused = True
+    print(f"route P: {victim} truncated: verify {ok}, restore refused "
+          f"{refused}")
+    if ok or not refused:
+        raise AssertionError("route P: a torn checkpoint was accepted")
+    ck.close()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    _free()
+
+    # part 2: the Module route under Monitor(1)
+    lm, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    xs = np.concatenate([b[0] for b in batches[:ROUTE_P_MONITOR_BATCHES]])
+    ys = np.concatenate([b[1] for b in batches[:ROUTE_P_MONITOR_BATCHES]])
+    it = mx.io.NDArrayIter({"data": xs.astype(np.float32)}, {"label": ys},
+                           batch_size=B)
+    mod = mx.mod.Module(lm_loss_head(mx.sym, lm, cfg["vocab"]),
+                        data_names=("data",), label_names=("label",),
+                        context=mx.gpu(dev.index),
+                        fixed_param_names=["pos_table"])
+    mon = mx.monitor.Monitor(1)
+    seen, tocs, per_batch = [], [], []
+    stat = mon.stat_func
+    mon.stat_func = lambda x: (seen.append(x.asnumpy()), stat(x))[1]
+    toc = mon.toc
+
+    def recording_toc():
+        raw = [(n, k, float(v.asnumpy().reshape(-1)[0]))
+               for n, k, v in mon.queue]
+        out = toc()
+        tocs.append((raw, out))
+        return out
+
+    mon.toc = recording_toc
+    marks = [dict(hk.launch_counts)]
+
+    def batch_end(param):
+        marks.append(dict(hk.launch_counts))
+
+    mod.fit(it, num_epoch=1, optimizer="adam", optimizer_params={
+        "learning_rate": TRAIN_LR, "rescale_grad": 1.0 / (B * T)},
+        arg_params=arg_params, aux_params=aux_params, monitor=mon,
+        eval_metric=mx.metric.Loss(), batch_end_callback=batch_end)
+    del arg_params, aux_params
+    for a, b in zip(marks, marks[1:]):
+        step = {k: v - a.get(k, 0) for k, v in b.items()}
+        per_batch.append(step)
+        for k, v in step.items():
+            total[k] = total.get(k, 0) + v
+    errs = []
+    for (raw, out), x in zip(tocs, seen):
+        for (n, k, v), (_, _, text) in zip(raw, out):
+            ref = float(np.abs(x.astype(np.float64)).mean())
+            errs.append(abs(v - ref) / abs(ref))
+            if text != f"{v:.5f}":
+                raise AssertionError(f"route P: toc() printed {text} for "
+                                     f"{v}")
+    print(f"route P: Module.fit(monitor=Monitor(1)) over "
+          f"{ROUTE_P_MONITOR_BATCHES} batches: toc() {[o for _, o in tocs]};"
+          f" largest relative difference from abs(x).mean() on the host "
+          f"{max(errs):.3e} (tol {TOL_MONITOR_HOST}); launches a batch "
+          f"{per_batch}")
+    if len(tocs) != ROUTE_P_MONITOR_BATCHES or len(errs) != len(tocs) \
+            or not max(errs) <= TOL_MONITOR_HOST:
+        raise AssertionError("route P: the monitor's values differ from "
+                             "the host's")
+    if any(step != per_step_launches(1) for step in per_batch):
+        raise AssertionError(f"route P: the monitored Module launched "
+                             f"{per_batch}, expected {per_step_launches(1)}"
+                             f" a batch")
+    del mod, it
+    _free()
+
+    # part 3: the symbol's summary
+    graph = build_lm_symbol(mx.sym, cfg["vocab"], cfg["units"], L,
+                            cfg["heads"], cfg["ffn"], max_len=T)
+    shapes = {"data": (B, T), "pos_table": (T, cfg["units"])}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        counted = mx.viz.print_summary(graph, shape=shapes)
+    want = summary_rule_count(graph, shapes)
+    ln = sum(2 * cfg["units"] for n in graph.topo_nodes()
+             if n.op == "LayerNorm")
+    print(f"route P: mx.viz.print_summary: {len(buf.getvalue().splitlines())}"
+          f" lines, {buf.getvalue().splitlines()[-2]}; by its counting "
+          f"rules {want:,}; the trainer holds {n_params:,} (LayerNorm's "
+          f"{ln:,} are not counted, and a FullyConnected with "
+          f"flatten=False counts its input's sequence axis or, after a "
+          f"LayerNorm, 0)")
+    if counted != want:
+        raise AssertionError(f"route P: print_summary counted {counted}, "
+                             f"its rules give {want}")
+    print(f"route P: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
     return total
 
 
@@ -8492,6 +8819,8 @@ def main(argv=None) -> int:
         _free()
         mixed = mixed_phase(mx, hk, dev, prefix, f32_errs, args.profile)
         _free()
+        checkpointed = route_p_phase(mx, hk, dev, prefix, workdir)
+        _free()
         bucketed = bucketing_phase(mx, hk, dev, prefix, module_loss)
         _free()
         sequenced = sequential_phase(mx, hk, dev, prefix, module_loss,
@@ -8632,7 +8961,8 @@ def main(argv=None) -> int:
         name = rec["name"]
         rec["launches"] = sum(path.get(name, 0) for path in
                               (served, trained, extended, moduled, fused,
-                               mixed, bucketed, sequenced, recipe))
+                               mixed, checkpointed, bucketed, sequenced,
+                               recipe))
         if rec["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main paths")
     print(f"chip_smoke: every phase passed in "

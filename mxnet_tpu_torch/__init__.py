@@ -10,7 +10,8 @@ training, ``mx.operator`` and ``mx.rtc`` for user extensions, ``mx.mod``,
 symbolic recurrent cells, ``mx.recordio`` and ``mx.image`` for the image
 data pipeline, ``mx.AttrScope`` for symbol attributes, ``mx.engine``,
 ``mx.registry``, ``mx.util`` and ``mx.test_utils``, ``mx.passes`` for
-graph rewrites, ``mx.quant`` and ``mx.contrib.quantization`` for int8)
+graph rewrites, ``mx.quant`` and ``mx.contrib.quantization`` for int8,
+``mx.monitor``, ``mx.viz`` and ``mx.checkpoint``)
 over plain
 PyTorch: tensors on an explicit ``torch.device``, explicit
 ``torch.Generator``s, eager execution, torch autograd as the tape. Each
@@ -29,7 +30,8 @@ __version__ = "0.1.0"
 
 from . import base
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context
+from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
+                      num_gpus, num_tpus, gpu_memory_info)
 from . import ops
 from . import ndarray
 from . import ndarray as nd
@@ -61,23 +63,32 @@ from .attribute import AttrScope
 from . import recordio
 from . import image
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
+           "current_context", "num_gpus", "num_tpus", "gpu_memory_info", "nd",
            "ndarray", "sym", "symbol", "random", "NDArray", "ops", "base",
            "name", "autograd", "initializer", "init", "lr_scheduler", "optimizer",
            "gluon", "operator", "rtc", "io", "metric", "callback", "model", "kvstore",
            "module", "mod", "parallel", "rnn", "attribute", "AttrScope",
            "recordio", "image", "kv", "serving", "interop", "engine",
-           "registry", "util", "test_utils", "contrib", "passes", "quant"]
+           "registry", "util", "test_utils", "contrib", "passes", "quant",
+           "monitor", "visualization", "viz", "checkpoint"]
+
+
+_LAZY = {"serving": "serving", "interop": "interop", "engine": "engine",
+         "registry": "registry", "util": "util", "test_utils": "test_utils",
+         "contrib": "contrib", "passes": "passes", "quant": "quant",
+         "monitor": "monitor", "visualization": "visualization",
+         "viz": "visualization", "checkpoint": "checkpoint"}
 
 
 def __getattr__(name):
     """``mx.serving``, ``mx.interop``, ``mx.engine``, ``mx.registry``,
-    ``mx.util``, ``mx.test_utils``, ``mx.contrib``, ``mx.passes`` and
-    ``mx.quant`` import on first use, as in the JAX package."""
-    if name in ("serving", "interop", "engine", "registry", "util",
-                "test_utils", "contrib", "passes", "quant"):
+    ``mx.util``, ``mx.test_utils``, ``mx.contrib``, ``mx.passes``,
+    ``mx.quant``, ``mx.monitor``, ``mx.visualization`` (``mx.viz``) and
+    ``mx.checkpoint`` import on first use, as in the JAX package."""
+    if name in _LAZY:
         import importlib
-        mod = importlib.import_module("." + name, __name__)
+        mod = importlib.import_module("." + _LAZY[name], __name__)
         globals()[name] = mod
         return mod
     raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "

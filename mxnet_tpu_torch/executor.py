@@ -443,6 +443,7 @@ class Executor:
         # forward, until backward consumes them
         self._pending = None
         self._outputs: List = []
+        self.monitor_callback = None
 
     @property
     def outputs(self) -> List:
@@ -505,7 +506,36 @@ class Executor:
         if is_train:
             self._pending = (leaves, outs)
         self._outputs = [NDArray(o.detach()) for o in outs]
+        if self.monitor_callback is not None:
+            for name, o in zip(self._symbol.list_outputs(), self._outputs):
+                self.monitor_callback(name, o)
         return self._outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, array)`` on each graph output after every
+        forward. The JAX executor taps the outputs only, whatever
+        ``monitor_all`` says, and so does the port."""
+        self.monitor_callback = callback
+
+    def debug_str(self) -> str:
+        """The bound program, one line a node in the order the executor
+        runs them: outputs, op, inputs and attributes, with the bound
+        arrays' shapes and dtypes (the JAX package prints its jaxpr)."""
+        lines = []
+        for n, a in list(self.arg_dict.items()) + list(self.aux_dict.items()):
+            lines.append(f"{n}: {tuple(a.shape)} {a.dtype}")
+        for node in self._lowering.nodes:
+            if node.is_var:
+                continue
+            ins = ", ".join(src.name if src.num_outputs == 1
+                            else f"{src.name}[{idx}]"
+                            for (src, idx) in node.inputs)
+            attrs = ", ".join(f"{k}={v!r}" for k, v in node.attrs.items())
+            lines.append(f"{node.name} = {node.op}({ins})"
+                         + (f" {{{attrs}}}" if attrs else ""))
+        outs = ", ".join(self._symbol.list_outputs())
+        lines.append(f"outputs: {outs}")
+        return "\n".join(lines)
 
     def backward(self, out_grads=None):
         """Deliver the gradients of the last train forward's outputs,

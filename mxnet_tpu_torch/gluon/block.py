@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from .. import autograd
 from ..base import MXNetError
@@ -93,6 +95,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children: "OrderedDict[str, Block]" = OrderedDict()
         self._reg_params: Dict[str, Parameter] = {}
+        self._forward_hooks: List = []
+        self._forward_pre_hooks: List = []
 
     # ------------------------------------------------------------- naming
     @property
@@ -122,6 +126,14 @@ class Block:
                        name: Optional[str] = None) -> None:
         self._children[name or str(len(self._children))] = block
 
+    def register_forward_hook(self, hook) -> None:
+        """``hook(block, inputs, output)`` after every call."""
+        self._forward_hooks.append(hook)
+
+    def register_forward_pre_hook(self, hook) -> None:
+        """``hook(block, inputs)`` before every call."""
+        self._forward_pre_hooks.append(hook)
+
     def collect_params(self) -> ParameterDict:
         """This block's and its children's parameters, own first, in
         registration order."""
@@ -137,6 +149,31 @@ class Block:
         from .. import initializer as _init
         self.collect_params().initialize(init or _init.Uniform(), ctx,
                                          verbose, force_reinit)
+
+    def cast(self, dtype) -> None:
+        """Hold every parameter (this block's and its children's) in
+        ``dtype``."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self.collect_params().values():
+            p.cast(dtype)
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, depth first, then on this block;
+        returns this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def summary(self, *inputs):
+        """Call the block on ``inputs``, print its parameter count (the
+        JAX package's one line) and return the output."""
+        out = self(*inputs)
+        n_params = sum(int(np.prod(p.shape))
+                       for p in self.collect_params().values() if p.shape)
+        print(f"{type(self).__name__}: {n_params} parameters")
+        return out
 
     # ------------------------------------------------------------- files
     def _collect_params_with_prefix(self, prefix: str = ""
@@ -169,9 +206,21 @@ class Block:
         _set_from(self._collect_params_with_prefix(), _load_host(filename),
                   filename, ctx, allow_missing, ignore_extra)
 
+    # the reference's older spellings
+    save_params = save_parameters
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False) -> None:
+        self.load_parameters(filename, ctx, allow_missing, ignore_extra)
+
     # ------------------------------------------------------------- exec
     def __call__(self, *args):
-        return self.forward(*args)
+        for hook in self._forward_pre_hooks:
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in self._forward_hooks:
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
@@ -249,6 +298,12 @@ class HybridBlock(Block):
         self._active = active
         self._graph = None
         super().hybridize(active, **flags)
+
+    def cast(self, dtype) -> None:
+        """Drop the traced graph, then cast (the JAX package drops its
+        cached program first)."""
+        self._graph = None
+        super().cast(dtype)
 
     # ------------------------------------------------------------- tracing
     def _trace_symbol(self, n_inputs: int):

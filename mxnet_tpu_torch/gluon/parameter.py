@@ -10,7 +10,7 @@ that the next ``backward`` reaches stays the same tensor.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -126,12 +126,31 @@ class Parameter:
             raise MXNetError(f"parameter {self.name!r} is not initialized")
         return self._data
 
+    def list_data(self) -> List[NDArray]:
+        return [self.data()]
+
+    def list_ctx(self) -> List[Context]:
+        return [self._ctx or current_context()]
+
     @property
     def grad(self) -> NDArray:
         d = self.data()
         if d._grad is None:
             raise MXNetError(f"parameter {self.name!r} has grad_req='null'")
         return d._grad
+
+    def list_grad(self) -> List[NDArray]:
+        return [self.grad]
+
+    def reset_ctx(self, ctx) -> None:
+        """Move the value (and its gradient buffer, emptied) to ``ctx``."""
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]   # one card per process in this slice
+        if self._data is not None:
+            self._data._set_data(
+                self._data._data.detach().to(ctx.torch_device()))
+            self._attach()
+        self._ctx = ctx
 
     def set_data(self, data) -> None:
         """Copy ``data`` into the value in place (the tensor stays the
@@ -276,6 +295,16 @@ class ParameterDict:
     def zero_grad(self) -> None:
         for p in self.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx) -> None:
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value) -> None:
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) on every
+        parameter."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def save(self, fname: str, strip_prefix: str = "") -> None:
         """Write every value to ``fname`` in the ``MXTPU001`` container

@@ -75,6 +75,17 @@ class Trainer:
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Update with gradients rescaled by ``1/batch_size``."""
+        self.allreduce_grads()
+        self.update(batch_size, ignore_stale_grad)
+
+    def allreduce_grads(self) -> None:
+        """Reduce the gradients across cards: nothing to do on one card,
+        which is all the single-card stores serve (what the JAX package's
+        single-process store gives)."""
+
+    def update(self, batch_size: int, ignore_stale_grad: bool = False
+               ) -> None:
+        """The update half of :meth:`step`, after :meth:`allreduce_grads`."""
         self._optimizer.rescale_grad = 1.0 / batch_size
         for i, p in enumerate(self._params):
             if p.grad_req != "null":

@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (reference
 ``python/mxnet/module/base_module.py``: ``fit``, ``score``, ``predict``,
-``iter_predict``, ``forward_backward``). The JAX package's telemetry and
-preemption hooks wait for the operational layers (ROADMAP A9).
+``iter_predict``, ``forward_backward``), with ``fit(monitor=)``. The JAX
+package's telemetry and preemption hooks wait for the operational layers
+(ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -112,20 +113,18 @@ class BaseModule:
             monitor=None, sparse_row_id_fn=None):
         """The training loop (reference ``base_module.py:409``): bind, init
         the parameters and the optimizer, then per epoch
-        ``forward_backward`` + ``update`` + metric per batch, the
-        callbacks, and ``score`` on ``eval_data``. An exception closes
-        the iterators (their threads and staged batches) and is raised
-        again."""
+        ``forward_backward`` + ``update`` + metric per batch (between a
+        ``monitor``'s ``tic`` and ``toc_print``), the callbacks, and
+        ``score`` on ``eval_data``. An exception closes the iterators
+        (their threads and staged batches) and is raised again."""
         if num_epoch is None:
             raise ValueError("fit needs num_epoch")
-        if monitor is not None:
-            raise NotImplementedError("fit(monitor=...): the Monitor waits "
-                                      "for the operational layers "
-                                      "(ROADMAP A9)")
         from .. import initializer as init_mod
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer or init_mod.Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
@@ -139,9 +138,13 @@ class BaseModule:
                 eval_metric.reset()
                 train_data.reset()
                 for nbatch, data_batch in enumerate(train_data):
+                    if monitor is not None:
+                        monitor.tic()
                     self.forward_backward(data_batch)
                     self.update()
                     self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
                     if batch_end_callback is not None:
                         _call_all(batch_end_callback, BatchEndParam(
                             epoch, nbatch, eval_metric, locals()))
@@ -212,4 +215,7 @@ class BaseModule:
         raise NotImplementedError
 
     def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def install_monitor(self, mon):
         raise NotImplementedError

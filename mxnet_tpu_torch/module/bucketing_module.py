@@ -154,3 +154,7 @@ class BucketingModule(BaseModule):
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._curr_module.update_metric(eval_metric, labels, pre_sliced)
+
+    def install_monitor(self, mon):
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

@@ -124,3 +124,7 @@ class DataParallelExecutorGroup:
     def set_params(self, arg_params, aux_params, allow_extra=False):
         self.execs[0].copy_params_from(arg_params, aux_params,
                                        allow_extra_params=True)
+
+    def install_monitor(self, mon):
+        for ex in self.execs:
+            mon.install(ex)

@@ -311,6 +311,9 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)
 
+    def install_monitor(self, mon):
+        self._exec_group.install_monitor(mon)
+
     # ------------------------------------------------------------- checkpoint
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """``prefix-symbol.json``, ``prefix-%04d.params`` and, if asked,

@@ -360,14 +360,20 @@ class DataParallelTrainer:
             {"context_fn": self._remat_context}
         return _ckpt.checkpoint(replay, *tensors, use_reentrant=False, **kw)
 
-    def step(self, *data) -> NDArray:
-        """One forward, backward and update on a batch (the data inputs,
-        then the label). Returns the mean loss as a 0-d NDArray; reading
-        it synchronises."""
+    def _captured_for(self, data):
+        """The batch as tensors, the graph captured for it first where it
+        is not yet."""
         arrays = [d._data if isinstance(d, NDArray)
                   else torch.from_numpy(np.asarray(d)) for d in data]
         if self._fn is None or self._n_inputs != len(arrays):
             self._capture(arrays)
+        return arrays
+
+    def step(self, *data) -> NDArray:
+        """One forward, backward and update on a batch (the data inputs,
+        then the label). Returns the mean loss as a 0-d NDArray; reading
+        it synchronises."""
+        arrays = self._captured_for(data)
         cdt = self._compute_dtype
         inputs = dict(self._aux)
         for name, a in zip(self._data_names, arrays):
@@ -431,6 +437,48 @@ class DataParallelTrainer:
                     if res is not None and n in res.var_transforms:
                         t = res.inverse_var(n, t)
                     self._pmap[n].data()._data.copy_(t)
+
+    # ------------------------------------------------------------- state
+    def _checkpoint_trees(self, *data):
+        """The trainer's state as ``checkpoint.ShardedCheckpointer.save``
+        takes it: ``(params, aux)``. ``params`` holds every parameter and
+        auxiliary value in the net's own layout (a re-homed weight
+        transformed back, as :meth:`sync_to_net` writes it); ``aux`` the
+        optimizer's state (``__opt__<name>_<i>``, the update count
+        ``__count__``) and the guard's (``__guard__<key>``), in the
+        trainer's layout. The tensors are the trainer's own wherever the
+        layout is the net's (a save copies them). ``data``, a batch,
+        captures the graph first where no step has run."""
+        if data:
+            self._captured_for(data)
+        if self._fn is None:
+            raise MXNetError("the trainer has no state before its first "
+                             "step; pass a batch to capture the graph")
+        res = self._pass_result
+        params = {}
+        for src in (self._params, self._aux):
+            for n, t in src.items():
+                if res is not None and n in res.var_transforms:
+                    t = res.inverse_var(n, t)
+                params[n] = t.detach()
+        aux = {f"__opt__{n}_{i}": t
+               for n, s in self._opt_state.items() for i, t in enumerate(s)}
+        aux["__count__"] = self._rule.count
+        aux.update({f"__guard__{k}": v
+                    for k, v in (self._guard_state or {}).items()})
+        return params, aux
+
+    def _load_checkpoint(self, restored) -> None:
+        """Copy a restore of :meth:`_checkpoint_trees`' two trees (the
+        ``aux`` names under the checkpointer's ``__aux__`` prefix) into the
+        trainer, in place; the graph must be captured."""
+        params, aux = self._checkpoint_trees()
+        with torch.no_grad():
+            for n, t in params.items():
+                dst = self._params.get(n, self._aux.get(n))
+                dst.copy_(self._placed_param(n, restored[n].to(dst.device)))
+            for k, t in aux.items():
+                t.copy_(restored["__aux__" + k])
 
     # ------------------------------------------------------------- guard
     def anomaly_stats(self) -> Dict[str, Any]:

@@ -18,7 +18,7 @@ import torch
 
 from .base import get_env
 
-__all__ = ["seed", "generator", "host_rng"]
+__all__ = ["seed", "generator", "host_rng", "current_seed"]
 
 _lock = threading.Lock()
 _state: Dict[str, object] = {"seed": None, "gens": {}, "host": None}
@@ -54,8 +54,16 @@ def generator(device: torch.device) -> torch.Generator:
 
 def host_rng() -> np.random.RandomState:
     """The numpy stream of host-side draws (``NDArrayIter``'s shuffle
-    seed), restarted by :func:`seed`."""
+    seed), restarted by :func:`seed`; seeded with the global seed's low
+    31 bits, as the JAX package's, so any seed gives its orders."""
     with _lock:
         if _state["host"] is None:
-            _state["host"] = np.random.RandomState(_root())
+            _state["host"] = np.random.RandomState(_root() & 0x7FFFFFFF)
         return _state["host"]
+
+
+def current_seed() -> int:
+    """The global seed (``MXNET_SEED`` or the clock's, until
+    :func:`seed`)."""
+    with _lock:
+        return _root()

@@ -17,7 +17,7 @@ from ..ops.registry import _REGISTRY, get_op, list_ops
 from .symbol import Group, Symbol, Variable, _Node, load, load_json, var
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "zeros", "ones"]
+           "zeros", "ones", "maximum", "minimum", "hypot"]
 
 
 def _invoke_sym(op_name: str, sym_inputs: List[Symbol],
@@ -74,6 +74,26 @@ def zeros(shape, dtype="float32", **kwargs) -> Symbol:
 def ones(shape, dtype="float32", **kwargs) -> Symbol:
     return _invoke_sym("_ones", [], {"shape": _shape_attr(shape),
                                      "dtype": dtype})
+
+
+def _scalar_or_bcast(bcast_op, scalar_op):
+    """The module-level binary of the reference (``maximum``, ``minimum``,
+    ``hypot``): a Symbol pair takes the broadcast op, a Symbol and a
+    scalar the scalar op (the three are symmetric)."""
+    def fn(left, right):
+        l_sym, r_sym = isinstance(left, Symbol), isinstance(right, Symbol)
+        if l_sym and r_sym:
+            return _invoke_sym(bcast_op, [left, right], {})
+        if l_sym or r_sym:
+            s, c = (left, right) if l_sym else (right, left)
+            return _invoke_sym(scalar_op, [s], {"scalar": float(c)})
+        raise TypeError("at least one operand must be a Symbol")
+    return fn
+
+
+maximum = _scalar_or_bcast("broadcast_maximum", "_maximum_scalar")
+minimum = _scalar_or_bcast("broadcast_minimum", "_minimum_scalar")
+hypot = _scalar_or_bcast("broadcast_hypot", "_hypot_scalar")
 
 
 def _make_sym_func(op_name: str):

@@ -11,6 +11,8 @@ port's op registry, forward and backward.
 from __future__ import annotations
 
 import json
+
+import numpy as np
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
@@ -199,6 +201,14 @@ class Symbol:
         return Symbol([(n, i) for n in self.topo_nodes()
                        for i in range(n.num_outputs)])
 
+    def get_children(self) -> Optional["Symbol"]:
+        """The first output's node's inputs as one Symbol, or None for a
+        variable."""
+        node = self._outputs[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
     # ---------------------------------------------------------------- shapes
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input
@@ -212,6 +222,21 @@ class Symbol:
         shapes = _GraphLowering(self).infer_shapes(known)
         return ([shapes.get(n) for n in arg_names], shapes["__outputs__"],
                 [shapes.get(n) for n in self.list_auxiliary_states()])
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """:meth:`infer_shape`, or ``(None, None, None)`` where the given
+        shapes do not determine the graph's."""
+        try:
+            return self.infer_shape(*args, **kwargs)
+        except Exception:
+            return None, None, None
+
+    def infer_type(self, *args, **kwargs):
+        """float32 for every argument, output and auxiliary state, as the
+        JAX package answers (its graphs are bound in float32)."""
+        return ([np.float32] * len(self.list_arguments()),
+                [np.float32] * len(self._outputs),
+                [np.float32] * len(self.list_auxiliary_states()))
 
     # ---------------------------------------------------------------- binding
     def bind(self, ctx, args, args_grad=None, grad_req="write",
@@ -244,6 +269,11 @@ class Symbol:
         aux = {n: zeros(s, ctx=ctx) for n, s in
                zip(self.list_auxiliary_states(), aux_shapes)}
         return Executor(self, ctx, args, grads, reqs, aux)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind the named arrays and run the graph forward once; the
+        outputs."""
+        return self.bind(ctx, kwargs).forward()
 
     # ---------------------------------------------------------------- JSON
     def tojson(self) -> str:

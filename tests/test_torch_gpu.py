@@ -32,8 +32,11 @@ page-locked batches. Slice 14: the contrib op grid, ``gluon.CachedOp``, a
 ``Conv2DLSTMCell`` unroll and the ``mini_rcnn_torch`` twin on the card
 against the CPU. Slice 15: the int8 ops (``torch._int_mm`` products)
 bitwise the CPU's, a quantized net through ``Module``, and the default
-graph-pass pipeline. The kernel paths are one item and the model families
-another; each loops over its cases and names the ones that fail. Marked
+graph-pass pipeline. Slice 17: ``checkpoint.ShardedCheckpointer``'s async
+save of card tensors updated in place right after it (the snapshot in
+page-locked memory, the restore onto the card bitwise, float32 and
+bf16), and the context names on the card. The kernel paths are one item
+and the model families another; each loops over its cases and names the ones that fail. Marked
 ``gpu``; it skips without CUDA. This file imports no JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -1273,12 +1276,42 @@ def _slice_15_on_card_matches_cpu(cuda, cs):
     assert not any(hk.launch_counts.values()), dict(hk.launch_counts)
 
 
+def _slice_17_on_card(cuda, tmp_path):
+    """An async save of card tensors, then in-place updates enqueued at
+    once: the restore (onto the card, each tensor's dtype) is the values
+    at the save, bitwise, through a page-locked snapshot. The context
+    names report the card."""
+    ck = mx.checkpoint.ShardedCheckpointer(str(tmp_path / "slice17"))
+    gen = torch.Generator(cuda).manual_seed(17)
+    w = torch.randn(2048, 1024, device=cuda, generator=gen)
+    b = torch.randn(4096, device=cuda, generator=gen).bfloat16()
+    want = {"w": w.clone(), "b": b.clone()}
+    ck.save(1, {"w": w, "b": b}, aux={"m": w[:4].clone()}, async_save=True)
+    for _ in range(8):
+        w.mul_(1.5).add_(1.0)
+        b.add_(1.0)
+    assert ck._pinned is not None and ck._pinned.is_pinned()
+    got = ck.restore(1, like={"w": w, "b": b, "__aux__m": w[:4]})
+    for n, t in want.items():
+        assert got[n].device == t.device and got[n].dtype == t.dtype, n
+        assert torch.equal(got[n], t), n
+    assert ck.verify(1) and ck.steps() == [1]
+    ck.close()
+    assert mx.num_gpus() == mx.num_tpus() == torch.cuda.device_count()
+    free, total = mx.gpu_memory_info(0)
+    assert 0 < free <= total
+    info = mx.gpu(0).memory_info()
+    assert info["bytes_in_use"] > 0 and info["bytes_limit"] == total
+    mx.gpu(0).empty_cache()
+
+
 def test_model_families_on_card_match_cpu(cuda, cs, tmp_path):
     """The model families on the card: the conv nets (ResNet-18 NHWC bf16
     fused steps, the NHWC net against the NCHW net, the "full" pooling
     convention), the recurrent family (the ``RNN`` op and a word-LM step),
     the detection family, slices 11 to 13, slice 14 and slice 15 (the
-    int8 family, the graph passes), each against the CPU. No Hopper kernel
+    int8 family, the graph passes), each against the CPU; slice 17's async
+    checkpoint of card tensors and context names. No Hopper kernel
     launched by the slices' checks."""
     _each([
         ("resnet18_nhwc_bf16_fused_steps_on_card", lambda: _resnet18_nhwc_bf16_fused_steps_on_card(cuda, cs)),
@@ -1290,4 +1323,5 @@ def test_model_families_on_card_match_cpu(cuda, cs, tmp_path):
         ("slices_11_to_13_on_card_match_cpu", lambda: _slices_11_to_13_on_card_match_cpu(cuda, cs, tmp_path)),
         ("slice_14_on_card_matches_cpu", lambda: _slice_14_on_card_matches_cpu(cuda, cs)),
         ("slice_15_on_card_matches_cpu", lambda: _slice_15_on_card_matches_cpu(cuda, cs)),
+        ("slice_17_on_card", lambda: _slice_17_on_card(cuda, tmp_path)),
     ])

@@ -786,13 +786,31 @@ SLICE_12_TWINS = (
 )
 
 
+# the JAX recipes' blocks that run hybridized in the parity run (the same
+# arithmetic in one program; the JAX CapsNet op by op compiles each op)
+JAX_HYBRIDIZED = {"capsnet": "CapsNet"}
+
+
+def _hybridize_on_init(cls):
+    """``cls`` (a class of a module loaded for one test) hybridizes each
+    block it makes."""
+    init = cls.__init__
+
+    def hybridized(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.hybridize()
+
+    cls.__init__ = hybridized
+
+
 def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
     """``capsnet_torch``, ``vae_torch``, ``rbm_torch`` and ``bbb_torch``
     against their JAX recipes at a few epochs, from the same name-seeded
     ``Xavier`` weights (the RBM's are numpy's in both) and the same numpy
     noise in place of ``random_normal``/``random_uniform``: ``train()``'s
     returns and every step's loss where the recipe has one (CapsNet's
-    margin loss, the VAE's -ELBO). Then each twin alone, at ``train()``'s
+    margin loss, the VAE's -ELBO; the JAX CapsNet hybridized,
+    ``JAX_HYBRIDIZED``). Then each twin alone, at ``train()``'s
     defaults with the port's own random ops, meets its JAX test's bar
     (``tests/test_examples.py``). And slice 13's sparse twin against its
     JAX recipe (``_sparse_twin_matches_the_jax_recipe``), and slice 14's
@@ -805,6 +823,8 @@ def test_slice_12_twins_match_the_jax_recipes(monkeypatch):
         results = []
         for pkg, path in ((jmx, rel + ".py"), (mx, rel + "_torch.py")):
             module = _load(path, f"{name}_{pkg.__name__}")
+            if pkg is jmx and name in JAX_HYBRIDIZED:
+                _hybridize_on_init(getattr(module, JAX_HYBRIDIZED[name]))
             seen = []
             for loss in ("margin_loss", "elbo_loss"):
                 if hasattr(module, loss):
